@@ -1,0 +1,112 @@
+"""Trajectory collection on the device, the port of
+``surreal_tpu/launch/rollout.py`` (``successor_and_termination``,
+``device_rollout``, ``init_device_carry``). The host-env collector is not
+ported yet.
+
+The reference's ``lax.scan`` over the horizon is a Python loop here; each
+step acts on the whole [B, ...] env batch. Episode returns are tracked in
+band: ``ep_return`` is nonzero only at done steps (the finished episode's
+sum), so metrics need no side channel.
+
+Randomness is explicit: action noise [T, B, act_dim] and env reset draws
+[T, B, reset_draw_dim] may be given (the parity tests pass the numbers JAX
+drew); otherwise they come from ``generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from surreal_tpu_torch.envs.device.base import AutoReset
+from surreal_tpu_torch.learners.base import TRAINING, Learner
+
+
+class RolloutCarry(NamedTuple):
+    env_state: Any
+    obs: torch.Tensor
+    ep_return: torch.Tensor  # [B] running episode return
+    ep_length: torch.Tensor  # [B] running episode length (int32)
+
+
+def successor_and_termination(obs2, done, step_info):
+    """The two auto-reset invariants every collector shares: the true
+    successor obs at a done step is the PRE-reset terminal obs, and
+    ``terminated`` is done minus truncation (what zeroes bootstrap
+    targets)."""
+    terminal_obs = step_info["terminal_obs"]
+    truncated = step_info["truncated"]
+    done_b = done.reshape(done.shape + (1,) * (obs2.dim() - done.dim()))
+    next_obs = torch.where(done_b, terminal_obs, obs2)
+    terminated = done & ~truncated
+    return next_obs, terminated
+
+
+@torch.no_grad()
+def device_rollout(
+    env: AutoReset,
+    learner: Learner,
+    state,
+    carry: RolloutCarry,
+    horizon: int,
+    generator: torch.Generator | None = None,
+    action_noise: torch.Tensor | None = None,
+    reset_draws: torch.Tensor | None = None,
+):
+    """Collect ``horizon`` steps across the B batched device envs.
+
+    Returns (new_carry, batch): batch has the learner batch contract plus
+    ``ep_return``/``ep_done`` for metrics, every leaf [T, B, ...].
+    """
+    c = carry
+    steps = []
+    for t in range(horizon):
+        action, info = learner.act(
+            state, c.obs, TRAINING, generator,
+            noise=None if action_noise is None else action_noise[t],
+        )
+        env_state, obs2, reward, done, step_info = env.step(
+            c.env_state, action, generator,
+            reset_draws=None if reset_draws is None else reset_draws[t],
+        )
+        next_obs, terminated = successor_and_termination(obs2, done, step_info)
+        ep_return = c.ep_return + reward
+        ep_length = c.ep_length + 1
+        steps.append({
+            "obs": c.obs,
+            "next_obs": next_obs,
+            "action": action,
+            "reward": reward,
+            "done": done,
+            "terminated": terminated,
+            "behavior_logp": info["logp"],
+            "mean": info["mean"],
+            "log_std": info["log_std"],
+            "ep_return": torch.where(done, ep_return, 0.0),
+            "ep_done": done,
+        })
+        c = RolloutCarry(
+            env_state=env_state,
+            obs=obs2,
+            ep_return=torch.where(done, 0.0, ep_return),
+            ep_length=torch.where(done, torch.zeros_like(ep_length), ep_length),
+        )
+    batch = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+    batch["behavior"] = {"mean": batch.pop("mean"), "log_std": batch.pop("log_std")}
+    return c, batch
+
+
+def init_device_carry(
+    env: AutoReset,
+    num_envs: int,
+    generator: torch.Generator | None = None,
+    reset_draws: torch.Tensor | None = None,
+) -> RolloutCarry:
+    env_state, obs = env.reset(num_envs, generator=generator, draws=reset_draws)
+    return RolloutCarry(
+        env_state=env_state,
+        obs=obs,
+        ep_return=torch.zeros(num_envs, dtype=torch.float32, device=env.device),
+        ep_length=torch.zeros(num_envs, dtype=torch.int32, device=env.device),
+    )

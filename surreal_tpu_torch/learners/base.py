@@ -1,0 +1,166 @@
+"""Learner base, the port of ``surreal_tpu/learners/base.py``
+(``training_health``, ``recovery_scale``, ``make_optimizer_chain``,
+``Learner``).
+
+A learner is a set of functions over an explicit state (a NamedTuple of
+tensors and dicts of tensors), as in the reference:
+
+    state           = learner.init(generator)
+    state, metrics  = learner.learn(state, batch, generator)
+    action, info    = learner.act(state, obs, mode, generator)
+
+The optimizer is functional too: optax's ``clip_by_global_norm -> adam ->
+recovery_scale`` written out over dicts of tensors, so that its state
+(Adam moments, step count, the recovery LR scale) rides the learner state
+like the reference's optax state does.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Any, Callable, Mapping, NamedTuple
+
+import torch
+
+from surreal_tpu_torch.envs.base import EnvSpecs
+from surreal_tpu_torch.ops.precision import resolve_policy
+from surreal_tpu_torch.utils.device import resolve_device
+
+# Agent modes (parity: the reference's agent modes)
+TRAINING = "training"
+EVAL_DETERMINISTIC = "eval_deterministic"
+EVAL_STOCHASTIC = "eval_stochastic"
+
+Params = dict[str, torch.Tensor]
+
+_INT32_MAX = 2**31 - 1
+
+
+def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of squares of every leaf."""
+    return torch.sqrt(sum(torch.sum(x * x) for x in tree.values()))
+
+
+def training_health(old_params: Params, new_params: Params, grad_norm: torch.Tensor) -> dict:
+    """Training-health diagnostics shared by every learner: grad norm,
+    param norm, update ratio, and a NaN/inf guard. All outputs stay device
+    scalars; they reach the host only at the metrics cadence."""
+    old_norm = global_norm(old_params)
+    new_norm = global_norm(new_params)
+    update_norm = global_norm({k: new_params[k] - old_params[k] for k in new_params})
+    finite = torch.isfinite(grad_norm) & torch.isfinite(new_norm)
+    return {
+        "health/grad_norm": grad_norm,
+        "health/param_norm": new_norm,
+        "health/update_ratio": update_norm / (old_norm + 1e-12),
+        "health/nonfinite": 1.0 - finite.to(torch.float32),
+    }
+
+
+class OptState(NamedTuple):
+    """State of :class:`OptimizerChain`: optax's ``ScaleByAdamState``
+    (count, mu, nu) plus the ``recovery_scale`` leaf (1.0 until a
+    divergence rollback backs the learning rate off)."""
+
+    count: torch.Tensor           # int32 scalar, Adam steps taken
+    mu: Params
+    nu: Params
+    recovery_scale: torch.Tensor  # float32 scalar
+
+
+def linear_schedule(init: float, end: float, transition_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``optax.linear_schedule(init, end, transition_steps)``."""
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        frac = 1.0 - torch.clamp(count, 0, transition_steps).to(torch.float32) / transition_steps
+        return (init - end) * frac + end
+
+    return schedule
+
+
+class OptimizerChain:
+    """``optax.chain(clip_by_global_norm(max_norm), adam(lr), recovery_scale())``
+    with optax's exact rules:
+
+    - the clip rescales by ``max_norm / ||g||`` only when ``||g|| >= max_norm``
+      (no ``+1e-6``, unlike ``torch.nn.utils.clip_grad_norm_``);
+    - Adam uses b1 0.9, b2 0.999, eps 1e-8, eps inside the root 0, and
+      bias correction by ``1 - b**count``;
+    - the update is finally multiplied by the state's ``recovery_scale``.
+    """
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, lr: float | Callable[[torch.Tensor], torch.Tensor], max_grad_norm: float):
+        self.lr = lr
+        self.max_grad_norm = max_grad_norm
+
+    def init(self, params: Params) -> OptState:
+        some = next(iter(params.values()))
+        return OptState(
+            count=torch.zeros((), dtype=torch.int32, device=some.device),
+            mu={k: torch.zeros_like(v) for k, v in params.items()},
+            nu={k: torch.zeros_like(v) for k, v in params.items()},
+            recovery_scale=torch.ones((), dtype=torch.float32, device=some.device),
+        )
+
+    def update(self, grads: Params, state: OptState) -> tuple[Params, OptState]:
+        g_norm = global_norm(grads)
+        keep = g_norm < self.max_grad_norm
+        grads = {
+            k: torch.where(keep, g, (g / g_norm) * self.max_grad_norm) for k, g in grads.items()
+        }
+        b1, b2 = self.b1, self.b2
+        mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k] for k, g in grads.items()}
+        count = torch.clamp_max(state.count + 1, _INT32_MAX)  # optax safe_increment
+        bc1 = 1 - torch.pow(b1, count.to(torch.float32))
+        bc2 = 1 - torch.pow(b2, count.to(torch.float32))
+        step = -(self.lr(state.count) if callable(self.lr) else self.lr)
+        updates = {
+            k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps) * step * state.recovery_scale
+            for k in grads
+        }
+        return updates, OptState(count=count, mu=mu, nu=nu, recovery_scale=state.recovery_scale)
+
+
+def apply_updates(params: Params, updates: Params) -> Params:
+    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+
+
+def make_optimizer_chain(lr, max_grad_norm: float, policy) -> OptimizerChain:
+    """The optimizer-chain constructor every learner uses: clip -> adam ->
+    recovery_scale. Loss scaling is not ported (its policies raise at
+    ``resolve_policy``)."""
+    if policy.loss_scaling:
+        raise NotImplementedError("dynamic loss scaling is not ported yet")
+    return OptimizerChain(lr, max_grad_norm)
+
+
+class Learner(abc.ABC):
+    """Algorithm = init + learn + act. Subclasses hold only static
+    configuration and the device; all mutable values live in the state."""
+
+    def __init__(self, learner_config, env_specs: EnvSpecs, device: str | torch.device = "cuda"):
+        self.config = learner_config
+        self.specs = env_specs
+        self.device = resolve_device(device)
+        self.policy = resolve_policy(learner_config)
+        enc = learner_config.get("model", None)
+        enc = enc.get("encoder", None) if enc is not None else None
+        if enc is not None and enc.get("kind", "auto") == "trajectory":
+            raise NotImplementedError(
+                "model.encoder.kind='trajectory' is not ported to PyTorch yet"
+            )
+
+    @abc.abstractmethod
+    def init(self, generator: torch.Generator | None = None) -> Any:
+        """Build the initial state (params, optimizer, aux)."""
+
+    @abc.abstractmethod
+    def learn(self, state: Any, batch: Mapping[str, torch.Tensor], generator: torch.Generator | None = None):
+        """One SGD iteration -> (new_state, metrics dict of device scalars)."""
+
+    @abc.abstractmethod
+    def act(self, state: Any, obs: torch.Tensor, mode: str = TRAINING, generator: torch.Generator | None = None):
+        """Batched action selection -> (action, act_info)."""

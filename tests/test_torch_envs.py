@@ -1,0 +1,138 @@
+"""Parity of the PyTorch port's BlockLift / AutoReset with the JAX package.
+States, actions and reset draws come from numpy or from JAX itself and go
+through both packages."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surreal_tpu.envs.jax.base import AutoReset as JaxAutoReset
+from surreal_tpu.envs.jax.base import batch_step
+from surreal_tpu.envs.jax.lift import BlockLift as JaxBlockLift
+from surreal_tpu.envs.jax.lift import LiftState as JaxLiftState
+from surreal_tpu_torch.envs import make_env
+from surreal_tpu_torch.envs.device.base import AutoReset
+from surreal_tpu_torch.envs.device.lift import BlockLift, LiftState
+from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.default_configs import BASE_ENV_CONFIG
+
+
+@jax.jit
+def _jax_reset_draws(keys):
+    state, _ = jax.vmap(JaxBlockLift().reset)(keys)
+    return jnp.concatenate(
+        [state.block_pos[:, :2], state.grip_pos[:, :2], state.grip_width[:, None]], axis=1
+    )
+
+
+def reset_draws_from_keys(keys):
+    """The values JAX's BlockLift.reset draws from each key, as the port's
+    explicit [B, 5] reset draws (block xy, hand xy, opening)."""
+    return np.asarray(_jax_reset_draws(keys))
+
+
+split_sub = jax.jit(jax.vmap(lambda k: jax.random.split(k)[1]))
+
+
+def _random_states(rng, B):
+    """States spread over free fall, table contact, partial and full grasp."""
+    block = np.stack([rng.uniform(-0.1, 0.1, B), rng.uniform(-0.1, 0.1, B),
+                      rng.uniform(0.02, 0.12, B)], 1)
+    near = rng.random(B) < 0.7
+    grip = np.where(near[:, None], block + rng.uniform(-0.025, 0.025, (B, 3)),
+                    block + rng.uniform(-0.2, 0.2, (B, 3)))
+    grip[:, 2] = np.clip(grip[:, 2], 0.0, 0.35)
+    return [x.astype(np.float32) for x in (
+        grip, rng.uniform(-0.3, 0.3, (B, 3)), rng.uniform(0.025, 0.06, B),
+        block, rng.uniform(-0.3, 0.3, (B, 3)),
+    )]
+
+
+def test_lift_one_step_matches_jax():
+    rng = np.random.default_rng(0)
+    B = 256
+    leaves = _random_states(rng, B)
+    action = rng.uniform(-1.3, 1.3, (B, 4)).astype(np.float32)
+    j_state, j_obs, j_rew, j_done, j_info = jax.jit(jax.vmap(JaxBlockLift().step))(
+        JaxLiftState(*map(jnp.asarray, leaves)), jnp.asarray(action)
+    )
+    t_state, t_obs, t_rew, t_done, t_info = BlockLift("cpu").step(
+        LiftState(*map(torch.from_numpy, leaves)), torch.from_numpy(action)
+    )
+    # identical f32 elementwise physics; XLA may fold constants differently
+    tol = dict(rtol=0, atol=1e-6)
+    for got, want in zip(t_state, j_state):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(t_obs.numpy(), np.asarray(j_obs), **tol)
+    np.testing.assert_allclose(t_rew.numpy(), np.asarray(j_rew), **tol)
+    np.testing.assert_array_equal(t_done.numpy(), np.asarray(j_done))
+    for k in ("success", "grasped"):
+        np.testing.assert_array_equal(t_info[k].numpy(), np.asarray(j_info[k]))
+    # the sample covers every physics branch
+    assert 0 < int(t_info["grasped"].sum()) < B
+
+
+def _scripted(grip, block, width):
+    """Reach -> close -> lift (tests/test_envs.py::_lift_scripted_action),
+    batched in numpy."""
+    rel = block - grip
+    near_xy = np.linalg.norm(rel[:, :2], axis=1) < 0.01
+    at_block = np.linalg.norm(rel, axis=1) < 0.015
+    v = np.clip(rel * 20, -1, 1)
+    target_z = np.where(near_xy, block[:, 2], 0.08)
+    vz = np.clip((target_z - grip[:, 2]) * 20, -1, 1)
+    closed = width < 0.045
+    vz = np.where(closed & at_block, 1.0, vz)
+    vx = np.where(closed, 0.0, v[:, 0])
+    vy = np.where(closed, 0.0, v[:, 1])
+    return np.stack([vx, vy, vz, np.where(at_block, 1.0, -1.0)], 1).astype(np.float32)
+
+
+def test_lift_autoreset_trajectory_matches_jax():
+    """70 scripted steps with a 45-step time limit: the grasp, the lift,
+    the truncation, terminal_obs and the auto-reset all agree. Actions are
+    computed from the JAX trajectory and fed to both; reset draws follow
+    JAX's per-env key chain."""
+    B, T, limit = 4, 70, 45
+    j_env = JaxAutoReset(JaxBlockLift(), time_limit=limit)
+    t_env = AutoReset(BlockLift("cpu"), time_limit=limit)
+    keys = jax.random.split(jax.random.key(3), B)
+    j_state, j_obs = jax.jit(jax.vmap(j_env.reset))(keys)
+    first = split_sub(keys)
+    t_state, t_obs = t_env.reset(B, draws=torch.from_numpy(reset_draws_from_keys(first)))
+    step = jax.jit(lambda s, a: batch_step(j_env, s, a))
+    np.testing.assert_allclose(t_obs.numpy(), np.asarray(j_obs), atol=1e-6)
+    grasped = 0
+    for t in range(T):
+        s = j_state.env_state
+        action = _scripted(np.asarray(s.grip_pos), np.asarray(s.block_pos), np.asarray(s.grip_width))
+        subs = split_sub(j_state.key)
+        draws = torch.from_numpy(reset_draws_from_keys(subs))
+        j_state, j_obs, j_rew, j_done, j_info = step(j_state, jnp.asarray(action))
+        t_state, t_obs, t_rew, t_done, t_info = t_env.step(t_state, torch.from_numpy(action), reset_draws=draws)
+        # 70 steps of f32 physics; errors stay at float rounding
+        np.testing.assert_allclose(t_obs.numpy(), np.asarray(j_obs), atol=1e-5, err_msg=f"step {t}")
+        np.testing.assert_allclose(t_rew.numpy(), np.asarray(j_rew), atol=1e-5, err_msg=f"step {t}")
+        np.testing.assert_allclose(
+            t_info["terminal_obs"].numpy(), np.asarray(j_info["terminal_obs"]), atol=1e-5
+        )
+        np.testing.assert_array_equal(t_done.numpy(), np.asarray(j_done))
+        np.testing.assert_array_equal(t_info["truncated"].numpy(), np.asarray(j_info["truncated"]))
+        np.testing.assert_array_equal(t_state.step_count.numpy(), np.asarray(j_state.step_count))
+        grasped += int(t_info["grasped"].sum())
+        if t == limit - 1:
+            assert bool(t_done.all()) and bool(t_info["truncated"].all())
+    assert grasped > 0, "the scripted policy never grasped: physics branches not exercised"
+
+
+def test_make_env_builds_lift_and_refuses_unported_envs():
+    env = make_env(Config(name="jax:lift", time_limit=7).extend(BASE_ENV_CONFIG), device="cpu")
+    assert isinstance(env, AutoReset) and env.time_limit == 7
+    assert env.specs.obs.shape == (17,) and env.specs.action.shape == (4,)
+    state, obs = env.reset(3, generator=torch.Generator().manual_seed(0))
+    assert obs.shape == (3, 17) and state.step_count.dtype == torch.int32
+    for name in ("jax:cartpole", "gym:CartPole-v1"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            make_env(Config(name=name).extend(BASE_ENV_CONFIG), device="cpu")

@@ -1,0 +1,54 @@
+"""Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
+package, and its entry points never fall back to the CPU on their own."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import surreal_tpu_torch
+from surreal_tpu_torch.launch.trainer import Trainer
+from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.default_configs import base_config
+
+_PKG = pathlib.Path(surreal_tpu_torch.__file__).parent
+_REPO = _PKG.parent
+_BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "surreal_tpu")
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = sorted(_PKG.rglob("*.py")) + [_REPO / "chip_smoke.py"]
+    assert len(files) > 20, "the scan did not find the port"
+    bad = [
+        f"{path.relative_to(_REPO)}:{line}: import {root}"
+        for path in files
+        for line, root in _imported_roots(path)
+        if root in _BANNED
+    ]
+    assert not bad, "the port must not import JAX or the JAX package:\n" + "\n".join(bad)
+
+
+def _tiny_config():
+    return Config(
+        learner_config=Config(algo=Config(name="ppo", horizon=4)),
+        env_config=Config(name="jax:lift", num_envs=2),
+        session_config=Config(folder="unused"),
+    ).extend(base_config())
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(_tiny_config())
+    # asking for the CPU explicitly is the only way onto it
+    assert Trainer(_tiny_config(), device="cpu").device.type == "cpu"

@@ -1,0 +1,220 @@
+"""Parity of the PyTorch port's ops with the JAX package: GAE (plain and
+kernel wrapper), distributions, running stats. Inputs come from a numpy
+seed and go through both packages; the Pallas GAE kernel runs in
+interpret mode, as the JAX package's own tests run it on the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surreal_tpu.ops import distributions as JD
+from surreal_tpu.ops import running_stats as JRS
+from surreal_tpu.ops.pallas_gae import gae_advantages_pallas, gae_advantages_pallas_masked
+from surreal_tpu.ops.returns import gae_advantages as jax_gae_advantages
+from surreal_tpu_torch.ops import distributions as D
+from surreal_tpu_torch.ops import gae as G
+from surreal_tpu_torch.ops import running_stats as RS
+from surreal_tpu_torch.ops.returns import gae_advantages as torch_gae_loop
+
+GAMMA, LAM = 0.99, 0.95
+# GAE tolerance: the reference's own bar for its kernel-vs-scan tests
+# (tests/test_ops.py); a T-step f32 recurrence in another framework may
+# round each step differently by one ulp.
+GAE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _gae_inputs(T, B, seed):
+    rng = np.random.default_rng(seed)
+    reward = rng.normal(size=(T, B)).astype(np.float32)
+    v_t = rng.normal(size=(T, B)).astype(np.float32)
+    v_next = rng.normal(size=(T, B)).astype(np.float32)
+    done = rng.random((T, B)) < 0.15
+    terminated = done & (rng.random((T, B)) < 0.5)  # the rest are truncations
+    boot = (GAMMA * (1.0 - terminated)).astype(np.float32)
+    decay = (GAMMA * LAM * (1.0 - done)).astype(np.float32)
+    return reward, boot, decay, v_t, v_next
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("B", [1, 200])
+def test_gae_masked_matches_pallas_kernel(B):
+    arrs = _gae_inputs(17, B, seed=B)
+    ref_adv, ref_tgt = gae_advantages_pallas_masked(*map(jnp.asarray, arrs), interpret=True)
+    adv, tgt = G.gae_advantages_masked(*_t(*arrs))
+    assert adv.dtype == tgt.dtype == torch.float32
+    np.testing.assert_allclose(adv.numpy(), np.asarray(ref_adv), **GAE_TOL)
+    np.testing.assert_allclose(tgt.numpy(), np.asarray(ref_tgt), **GAE_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 200])
+def test_gae_simple_contract_matches_scan_and_pallas(B):
+    rng = np.random.default_rng(7 + B)
+    T = 13
+    reward = rng.normal(size=(T, B)).astype(np.float32)
+    values = rng.normal(size=(T + 1, B)).astype(np.float32)
+    done = rng.random((T, B)) < 0.2
+    discounts = (GAMMA * (1.0 - done)).astype(np.float32)
+    ref = jax_gae_advantages(jnp.asarray(reward), jnp.asarray(discounts), jnp.asarray(values), LAM)
+    ref_p = gae_advantages_pallas(
+        jnp.asarray(reward), jnp.asarray(discounts), jnp.asarray(values), LAM, interpret=True
+    )
+    r, d, v = _t(reward, discounts, values)
+    for got in (G.gae_advantages(r, d, v, LAM), torch_gae_loop(r, d, v, LAM)):
+        for g, want, want_p in zip(got, ref, ref_p):
+            np.testing.assert_allclose(g.numpy(), np.asarray(want), **GAE_TOL)
+            np.testing.assert_allclose(g.numpy(), np.asarray(want_p), **GAE_TOL)
+
+
+def test_gae_respects_episode_boundary():
+    """A done at t cuts the recurrence: adv[t] = delta[t] exactly, whatever
+    follows (mirrors tests/test_ops.py::test_gae_respects_episode_boundary)."""
+    reward, boot, decay, v_t, v_next = _gae_inputs(8, 3, seed=3)
+    decay[4] = 0.0
+    adv, _ = G.gae_advantages_masked(*_t(reward, boot, decay, v_t, v_next))
+    delta = reward[4] + boot[4] * v_next[4] - v_t[4]
+    np.testing.assert_allclose(adv[4].numpy(), delta, rtol=1e-6, atol=1e-6)
+
+
+def test_gae_bf16_inputs_give_f32_outputs():
+    arrs = [a.astype(jnp.bfloat16) for a in map(jnp.asarray, _gae_inputs(9, 40, seed=11))]
+    ref_adv, ref_tgt = gae_advantages_pallas_masked(*arrs, interpret=True)
+    bf = [torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16) for a in arrs]
+    adv, tgt = G.gae_advantages_masked(*bf)
+    assert adv.dtype == tgt.dtype == torch.float32
+    np.testing.assert_allclose(adv.numpy(), np.asarray(ref_adv), **GAE_TOL)
+    np.testing.assert_allclose(tgt.numpy(), np.asarray(ref_tgt), **GAE_TOL)
+
+
+def test_gae_wrapper_never_builds_the_kernel_for_cpu_tensors(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"CPU tensors must not build or load the {name} kernel")
+
+    monkeypatch.setattr(G, "load_kernel_library", refuse)
+    before = G.gae_advantages_masked.launches
+    G.gae_advantages_masked(*_t(*_gae_inputs(5, 7, seed=0)))
+    assert G.gae_advantages_masked.launches == before
+
+
+def test_gae_wrapper_rejects_bad_inputs():
+    arrs = _t(*_gae_inputs(4, 3, seed=0))
+    with pytest.raises(ValueError, match="shape"):
+        G.gae_advantages_masked(arrs[0], arrs[1][:3], *arrs[2:])
+    with pytest.raises(ValueError, match="non-empty"):
+        G.gae_advantages_masked(*(a[0] for a in arrs))
+
+
+@pytest.mark.cuda
+def test_gae_kernel_matches_plain_on_card():
+    """Bit-exact on the card: the kernel rounds where the plain version
+    does (no FMA contraction, see csrc/gae.cu)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for T, B in [(256, 4097), (7, 1000), (1, 1)]:
+        arrs = [x.cuda() for x in _t(*_gae_inputs(T, B, seed=T))]
+        adv, tgt = G.gae_advantages_masked(*arrs)
+        ref_adv, ref_tgt = G.gae_masked_plain(*arrs)
+        torch.cuda.synchronize()
+        assert torch.equal(adv, ref_adv) and torch.equal(tgt, ref_tgt)
+
+
+@jax.jit
+def _jax_distributions(mean_a, ls_a, mean_b, ls_b, x, logits_a, logits_b, action):
+    return (
+        JD.diag_gauss_logp(mean_a, ls_a, x),
+        JD.diag_gauss_entropy(ls_a),
+        JD.diag_gauss_kl(mean_a, ls_a, mean_b, ls_b),
+        JD.categorical_logp(logits_a, action),
+        JD.categorical_entropy(logits_a),
+        JD.categorical_kl(logits_a, logits_b),
+    )
+
+
+def test_distributions_match_jax():
+    rng = np.random.default_rng(1)
+    mean_a, mean_b, x = (rng.normal(size=(6, 4)).astype(np.float32) for _ in range(3))
+    ls_a, ls_b = (rng.uniform(-1.5, 0.5, size=(6, 4)).astype(np.float32) for _ in range(2))
+    logits_a, logits_b = (rng.normal(size=(6, 5)).astype(np.float32) for _ in range(2))
+    action = rng.integers(0, 5, size=(6,)).astype(np.int32)
+    j = jnp.asarray
+    tm_a, tm_b, tx, tl_a, tl_b, tg_a, tg_b, tact = _t(
+        mean_a, mean_b, x, ls_a, ls_b, logits_a, logits_b, action
+    )
+    got = (
+        D.diag_gauss_logp(tm_a, tl_a, tx),
+        D.diag_gauss_entropy(tl_a),
+        D.diag_gauss_kl(tm_a, tl_a, tm_b, tl_b),
+        D.categorical_logp(tg_a, tact),
+        D.categorical_entropy(tg_a),
+        D.categorical_kl(tg_a, tg_b),
+    )
+    want = _jax_distributions(*map(j, (mean_a, ls_a, mean_b, ls_b, x, logits_a, logits_b, action)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+
+    # sampling: the port takes JAX's own draws and must give JAX's samples
+    key = jax.random.key(5)
+    noise = np.asarray(jax.random.normal(key, mean_a.shape, jnp.float32))
+    got = D.diag_gauss_sample(tm_a, tl_a, noise=torch.from_numpy(noise))
+    want = JD.diag_gauss_sample(key, j(mean_a), j(ls_a))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    gumbel = np.asarray(jax.random.gumbel(key, logits_a.shape, jnp.float32))
+    got = D.categorical_sample(tg_a, gumbel=torch.from_numpy(gumbel))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JD.categorical_sample(key, j(logits_a))))
+    # and the generator path draws the right shapes on its own
+    g = torch.Generator().manual_seed(0)
+    assert D.diag_gauss_sample(tm_a, tl_a, g).shape == (6, 4)
+    assert D.categorical_sample(tg_a, g).shape == (6,)
+
+
+def _stats_np(s):
+    return [np.asarray(s.count), np.asarray(s.mean), np.asarray(s.m2)]
+
+
+def _close_stats(got, want):
+    assert int(got.count) == int(want.count)
+    # float32 sums over a few hundred samples in another order
+    np.testing.assert_allclose(got.mean.numpy(), np.asarray(want.mean), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.m2.numpy(), np.asarray(want.m2), rtol=1e-5, atol=1e-4)
+
+
+def test_running_stats_match_jax():
+    rng = np.random.default_rng(2)
+    js, ts = JRS.init_stats((3,)), RS.init_stats((3,), "cpu")
+    update = jax.jit(JRS.update_stats)
+    for scale in (1.0, 3.0, 0.5):
+        batch = (rng.normal(size=(64, 2, 3)) * scale + 1).astype(np.float32)
+        js = update(js, jnp.asarray(batch))
+        ts = RS.update_stats(ts, torch.from_numpy(batch))
+        _close_stats(ts, js)
+    x = rng.normal(size=(4, 3)).astype(np.float32) * 20
+    np.testing.assert_allclose(
+        RS.normalize(ts, torch.from_numpy(x)).numpy(),
+        np.asarray(JRS.normalize(js, jnp.asarray(x))), rtol=1e-5, atol=1e-5,
+    )
+    assert float(RS.normalize(ts, torch.from_numpy(x)).abs().max()) <= 5.0
+    np.testing.assert_allclose(RS.variance(ts).numpy(), np.asarray(JRS.variance(js)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("count", [1_999_999_950, 2_000_000_000])
+def test_running_stats_count_cap_matches_jax(count):
+    """At and just below the int32 count cap: the prior is rescaled so the
+    total stays exactly at the cap (update_stats), and a merge whose float
+    total passes 2.1e9 saturates instead of wrapping (merge_stats)."""
+    rng = np.random.default_rng(count % 97)
+    mean = rng.normal(size=(3,)).astype(np.float32)
+    m2 = (rng.random((3,)) * count).astype(np.float32)
+    js = JRS.RunningStats(jnp.asarray(count, jnp.int32), jnp.asarray(mean), jnp.asarray(m2))
+    ts = RS.RunningStats(torch.tensor(count, dtype=torch.int32), torch.from_numpy(mean), torch.from_numpy(m2))
+    batch = rng.normal(size=(100, 3)).astype(np.float32)
+    got, want = RS.update_stats(ts, torch.from_numpy(batch)), JRS.update_stats(js, jnp.asarray(batch))
+    assert int(got.count) == int(want.count) == 2_000_000_000
+    _close_stats(got, want)
+    got, want = RS.merge_stats(ts, ts), JRS.merge_stats(js, js)
+    assert int(got.count) == int(want.count) == 2_000_000_000
+    _close_stats(got, want)
