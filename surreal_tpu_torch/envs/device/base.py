@@ -8,10 +8,14 @@ device.
 API:
     state, obs = env.reset(num_envs, generator=..., draws=...)
     state, obs, reward, done, info = env.step(state, action)
+    state, obs, reward, done, info = env.step(state, action, generator=..., draws=...)
 
 Randomness is explicit. ``reset`` takes its draws from a
-``torch.Generator``, or as a tensor of values already in their ranges
-(the parity tests pass the numbers JAX drew).
+``torch.Generator``, or as a tensor [B, reset_draw_dim] of values already
+in their ranges (the parity tests pass the numbers JAX drew). An env that
+also draws while it steps (Pong's serve angle) has ``step_draw_dim > 0``
+and takes the second form of ``step``, with draws [B, step_draw_dim]; the
+reference keeps a PRNG key in such an env's state instead.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ class DeviceEnv(abc.ABC):
     specs: EnvSpecs
     max_episode_steps: int | None = None
     reset_draw_dim: int  # width of one env's explicit reset draws
+    step_draw_dim: int = 0  # width of one env's explicit step draws (0: none)
 
     def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
@@ -45,7 +50,20 @@ class DeviceEnv(abc.ABC):
 
     @abc.abstractmethod
     def step(self, state, action: torch.Tensor):
-        """-> (state, obs [B, ...], reward [B], done [B] bool, info dict)"""
+        """-> (state, obs [B, ...], reward [B], done [B] bool, info dict).
+        Envs with ``step_draw_dim > 0`` also take ``generator`` and
+        ``draws`` keywords."""
+
+    def _uniform(self, num_envs: int, width: int, generator: torch.Generator | None) -> torch.Tensor:
+        """[B, width] uniform [0, 1) draws from ``generator``."""
+        return torch.rand((num_envs, width), generator=generator, dtype=torch.float32, device=self.device)
+
+    def _checked_draws(self, draws: torch.Tensor, num_envs: int, width: int, what: str) -> torch.Tensor:
+        """Given draws, checked as [B, width] and moved to float32 on the
+        env's device."""
+        if draws.shape != (num_envs, width):
+            raise ValueError(f"{what} draws must be [{num_envs}, {width}]; got {tuple(draws.shape)}")
+        return draws.to(device=self.device, dtype=torch.float32)
 
 
 class AutoResetState(NamedTuple):
@@ -76,6 +94,10 @@ class AutoReset:
     def reset_draw_dim(self) -> int:
         return self.env.reset_draw_dim
 
+    @property
+    def step_draw_dim(self) -> int:
+        return self.env.step_draw_dim
+
     def reset(
         self,
         num_envs: int,
@@ -92,8 +114,20 @@ class AutoReset:
         action: torch.Tensor,
         generator: torch.Generator | None = None,
         reset_draws: torch.Tensor | None = None,
+        step_draws: torch.Tensor | None = None,
     ):
-        env_state, obs, reward, done, info = self.env.step(state.env_state, action)
+        """One step of every env; a reset is drawn for every env (from
+        ``generator`` unless ``reset_draws`` is given) and taken where done.
+        ``step_draws`` are the env's own step draws, for envs that have
+        them."""
+        if self.env.step_draw_dim:
+            env_state, obs, reward, done, info = self.env.step(
+                state.env_state, action, generator=generator, draws=step_draws
+            )
+        elif step_draws is not None:
+            raise ValueError(f"{type(self.env).__name__} takes no step draws")
+        else:
+            env_state, obs, reward, done, info = self.env.step(state.env_state, action)
         steps = state.step_count + 1
         if self.time_limit is None:
             truncated = torch.zeros_like(done)

@@ -8,9 +8,11 @@ step acts on the whole [B, ...] env batch. Episode returns are tracked in
 band: ``ep_return`` is nonzero only at done steps (the finished episode's
 sum), so metrics need no side channel.
 
-Randomness is explicit: action noise [T, B, act_dim] and env reset draws
-[T, B, reset_draw_dim] may be given (the parity tests pass the numbers JAX
-drew); otherwise they come from ``generator``.
+Randomness is explicit: action noise (standard normal [T, B, act_dim] for
+a Gaussian head, standard Gumbel [T, B, n_actions] for a categorical one),
+env reset draws [T, B, reset_draw_dim] and, for envs that draw while they
+step, env step draws [T, B, step_draw_dim] may be given (the parity tests
+pass the numbers JAX drew); otherwise they come from ``generator``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import torch
 
 from surreal_tpu_torch.envs.device.base import AutoReset
 from surreal_tpu_torch.learners.base import TRAINING, Learner
+
+# the act-info keys that describe the behaviour policy (the head's own)
+_BEHAVIOR_KEYS = ("mean", "log_std", "logits")
 
 
 class RolloutCarry(NamedTuple):
@@ -53,6 +58,7 @@ def device_rollout(
     generator: torch.Generator | None = None,
     action_noise: torch.Tensor | None = None,
     reset_draws: torch.Tensor | None = None,
+    step_draws: torch.Tensor | None = None,
 ):
     """Collect ``horizon`` steps across the B batched device envs.
 
@@ -69,6 +75,7 @@ def device_rollout(
         env_state, obs2, reward, done, step_info = env.step(
             c.env_state, action, generator,
             reset_draws=None if reset_draws is None else reset_draws[t],
+            step_draws=None if step_draws is None else step_draws[t],
         )
         next_obs, terminated = successor_and_termination(obs2, done, step_info)
         ep_return = c.ep_return + reward
@@ -81,8 +88,7 @@ def device_rollout(
             "done": done,
             "terminated": terminated,
             "behavior_logp": info["logp"],
-            "mean": info["mean"],
-            "log_std": info["log_std"],
+            "behavior": {k: v for k, v in info.items() if k in _BEHAVIOR_KEYS},
             "ep_return": torch.where(done, ep_return, 0.0),
             "ep_done": done,
         })
@@ -92,8 +98,8 @@ def device_rollout(
             ep_return=torch.where(done, 0.0, ep_return),
             ep_length=torch.where(done, torch.zeros_like(ep_length), ep_length),
         )
-    batch = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-    batch["behavior"] = {"mean": batch.pop("mean"), "log_std": batch.pop("log_std")}
+    batch = {k: torch.stack([s[k] for s in steps]) for k in steps[0] if k != "behavior"}
+    batch["behavior"] = {k: torch.stack([s["behavior"][k] for s in steps]) for k in steps[0]["behavior"]}
     return c, batch
 
 

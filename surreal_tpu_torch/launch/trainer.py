@@ -1,6 +1,7 @@
 """Training driver, the port of ``surreal_tpu/launch/trainer.py::Trainer``
 in device mode on one device: collect a horizon on the batched device
-env, then one PPO ``learn``, per iteration.
+env, then one ``learn`` of the on-policy learner (PPO or IMPALA), per
+iteration.
 
 Not ported yet: host-env mode, the dp/sp meshes, ``SessionHooks``
 (checkpointing, telemetry, recovery), the ``LoopEngine`` and the
@@ -32,8 +33,8 @@ def training_env_config(env_config) -> Config:
 
 
 class Trainer:
-    """On-policy (PPO) trainer on one device; ``device`` defaults to the
-    card and raises without it."""
+    """On-policy (PPO, IMPALA) trainer on one device; ``device`` defaults
+    to the card and raises without it."""
 
     def __init__(self, config, device: str | torch.device = "cuda"):
         self.config = config
@@ -52,17 +53,19 @@ class Trainer:
         generator: torch.Generator | None = None,
         action_noise: torch.Tensor | None = None,
         reset_draws: torch.Tensor | None = None,
+        step_draws: torch.Tensor | None = None,
         perms: torch.Tensor | None = None,
     ):
         """One iteration: rollout then learn. The optional tensors replace
-        the draws from ``generator`` (see launch/rollout.py and
-        ``PPOLearner.learn``)."""
+        the draws from ``generator`` (see launch/rollout.py); ``perms`` is
+        PPO's (``PPOLearner.learn``) and is passed on only when given."""
         carry, batch = device_rollout(
             self.env, self.learner, state, carry, self.horizon, generator,
-            action_noise=action_noise, reset_draws=reset_draws,
+            action_noise=action_noise, reset_draws=reset_draws, step_draws=step_draws,
         )
         learn_batch = {k: batch[k] for k in _LEARN_KEYS}
-        state, metrics = self.learner.learn(state, learn_batch, generator, perms=perms)
+        learn_draws = {} if perms is None else {"perms": perms}
+        state, metrics = self.learner.learn(state, learn_batch, generator, **learn_draws)
         n_done = batch["ep_done"].sum()
         ep_return_sum = batch["ep_return"].sum()
         metrics["episode/return"] = torch.where(

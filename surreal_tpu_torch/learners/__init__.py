@@ -1,5 +1,5 @@
-"""Algorithm layer of the PyTorch port (PPO so far), the port of
-``surreal_tpu/learners/__init__.py``."""
+"""Algorithm layer of the PyTorch port (PPO and IMPALA so far), the port
+of ``surreal_tpu/learners/__init__.py``."""
 
 from __future__ import annotations
 
@@ -16,16 +16,23 @@ from surreal_tpu_torch.learners.base import (
 
 def build_learner(learner_config, env_specs: EnvSpecs, device: str | torch.device = "cuda") -> Learner:
     """Dispatch on ``algo.name`` with the per-algorithm defaults extended
-    onto the user tree, as the reference does. Only 'ppo' is ported."""
+    onto the user tree, as the reference does. 'ppo' and 'impala' are
+    ported."""
+    from surreal_tpu_torch.session.default_configs import BASE_LEARNER_CONFIG
+
     name = learner_config.algo.name
     if name == "ppo":
         from surreal_tpu_torch.learners.ppo import PPO_LEARNER_CONFIG, PPOLearner
-        from surreal_tpu_torch.session.default_configs import BASE_LEARNER_CONFIG
 
         cfg = learner_config.extend(PPO_LEARNER_CONFIG.extend(BASE_LEARNER_CONFIG))
         return PPOLearner(cfg, env_specs, device)
-    if name in ("ddpg", "impala"):
-        raise NotImplementedError(f"algorithm {name!r} is not ported to PyTorch yet; have ppo")
+    if name == "impala":
+        from surreal_tpu_torch.learners.impala import IMPALA_LEARNER_CONFIG, IMPALALearner
+
+        cfg = learner_config.extend(IMPALA_LEARNER_CONFIG.extend(BASE_LEARNER_CONFIG))
+        return IMPALALearner(cfg, env_specs, device)
+    if name == "ddpg":
+        raise NotImplementedError(f"algorithm {name!r} is not ported to PyTorch yet; have ppo | impala")
     raise ValueError(f"unknown algorithm {name!r}; have ppo | ddpg | impala")
 
 

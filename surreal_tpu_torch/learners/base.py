@@ -137,6 +137,16 @@ def make_optimizer_chain(lr, max_grad_norm: float, policy) -> OptimizerChain:
     return OptimizerChain(lr, max_grad_norm)
 
 
+def optimizer_from_config(opt_cfg, policy) -> OptimizerChain:
+    """The chain from a ``learner_config.optimizer`` subtree: a constant lr,
+    or one annealed linearly to 0 over ``anneal_steps`` Adam steps."""
+    if opt_cfg.lr_schedule == "linear":
+        lr = linear_schedule(opt_cfg.lr, 0.0, opt_cfg.get("anneal_steps", 10_000))
+    else:
+        lr = opt_cfg.lr
+    return make_optimizer_chain(lr, opt_cfg.max_grad_norm, policy)
+
+
 class Learner(abc.ABC):
     """Algorithm = init + learn + act. Subclasses hold only static
     configuration and the device; all mutable values live in the state."""

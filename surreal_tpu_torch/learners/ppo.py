@@ -19,8 +19,8 @@ Batch layout (from launch/rollout.py):
 Truncation is handled exactly: bootstrap discount gamma*(1-terminated)
 pairs with V(next_obs), while the GAE decay uses gamma*lam*(1-done).
 
-The sequence-policy path (``_learn_seq``) and the categorical model are
-not ported yet.
+The sequence-policy path (``_learn_seq``) and discrete-action PPO (the
+categorical model itself is ported, for IMPALA) are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ from surreal_tpu_torch.learners.base import (
     Params,
     apply_updates,
     global_norm,
-    linear_schedule,
-    make_optimizer_chain,
+    optimizer_from_config,
     training_health,
 )
 from surreal_tpu_torch.learners.seq_policy import PolicyHeadMixin
@@ -113,7 +112,7 @@ class PPOLearner(PolicyHeadMixin, Learner):
         algo = learner_config.algo
         self.discrete = env_specs.discrete
         if self.discrete:
-            raise NotImplementedError("the categorical PPO model is not ported to PyTorch yet")
+            raise NotImplementedError("discrete-action PPO is not ported to PyTorch yet")
         if algo.get("gae_impl", "xla") not in ("xla", "assoc", "pallas"):
             raise ValueError(f"gae_impl {algo.gae_impl!r} not in xla|assoc|pallas")
         if algo.get("shuffle", "block") not in ("block", "row"):
@@ -128,25 +127,17 @@ class PPOLearner(PolicyHeadMixin, Learner):
                 "Python loop has no counterpart, so only 1 is accepted"
             )
         self.model_cfg = self.policy.model_config(learner_config.model)
-        self.obs_dim = int(np.prod(env_specs.obs.shape))
         self.act_dim = int(env_specs.action.shape[0])
         # the module defines the computation (applied with functional_call);
         # the parameters it is applied with live in the learner state
         self.model = self._build_model(torch.Generator().manual_seed(0))
-        self.tx = self._make_optimizer(learner_config.optimizer)
+        self.tx = optimizer_from_config(learner_config.optimizer, self.policy)
 
     def _build_model(self, generator: torch.Generator | None) -> PPOModel:
         return PPOModel(
-            self.model_cfg, self.obs_dim, self.act_dim,
+            self.model_cfg, self.specs.obs.shape, self.act_dim,
             init_log_std=self.config.algo.init_log_std, generator=generator,
         )
-
-    def _make_optimizer(self, opt_cfg):
-        if opt_cfg.lr_schedule == "linear":
-            lr = linear_schedule(opt_cfg.lr, 0.0, opt_cfg.get("anneal_steps", 10_000))
-        else:
-            lr = opt_cfg.lr
-        return make_optimizer_chain(lr, opt_cfg.max_grad_norm, self.policy)
 
     # -- state ---------------------------------------------------------------
     def init(self, generator: torch.Generator | None = None) -> PPOState:

@@ -1,11 +1,17 @@
 """Network trunks, the port of ``surreal_tpu/models/encoders.py``
-(``orthogonal_init``, ``MLP``, ``make_trunk``).
+(``orthogonal_init``, ``MLP``, ``NatureCNN``, ``cnn_from_config``,
+``make_trunk``).
 
 Parameters are kept in float32; activations run in ``compute_dtype``.
 Every layer casts its input AND its weight and bias to the compute dtype
-explicitly, as flax ``Dense(dtype=...)`` does, rather than leaving it to
-``torch.autocast``, whose op lists round at other places. The Nature-CNN
-stem for pixel observations is not ported yet.
+explicitly, as flax ``Dense(dtype=...)`` and ``Conv(dtype=...)`` do, rather
+than leaving it to ``torch.autocast``, whose op lists round at other places.
+
+Layout: pixel observations are NHWC ([..., H, W, C], what the envs emit and
+what the reference's convolutions take) at every public function. The CNN
+permutes to NCHW for ``conv2d`` and back to NHWC before the flatten, so the
+dense layer sees features in the reference's (H, W, C) order and its weight
+is the flax kernel transposed, like every other dense layer.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 def orthogonal_init(
-    layer: nn.Linear, scale: float = math.sqrt(2.0), generator: torch.Generator | None = None
-) -> nn.Linear:
+    layer: nn.Linear | nn.Conv2d, scale: float = math.sqrt(2.0), generator: torch.Generator | None = None
+) -> nn.Linear | nn.Conv2d:
     """Orthogonal weight with gain ``scale`` and a zero bias (flax's
     ``orthogonal(scale)`` kernel init with its default zero bias)."""
     nn.init.orthogonal_(layer.weight, gain=scale, generator=generator)
@@ -71,19 +77,84 @@ class MLP(nn.Module):
         return x
 
 
+class NatureCNN(nn.Module):
+    """Nature-DQN conv stem for NHWC pixel observations: VALID convolutions
+    with ReLU, then one dense layer with ReLU. uint8 input is scaled to
+    [0, 1] and cast to the compute dtype, rounding as the reference does."""
+
+    def __init__(
+        self,
+        obs_shape: Sequence[int],
+        channels: Sequence[int] = (32, 64, 64),
+        kernels: Sequence[int] = (8, 4, 3),
+        strides: Sequence[int] = (4, 2, 1),
+        dense: int = 512,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        h, w, c = obs_shape
+        self.compute_dtype = compute_dtype
+        self.strides = tuple(strides)
+        convs = []
+        for ch, k, s in zip(channels, kernels, strides):
+            convs.append(orthogonal_init(nn.Conv2d(c, ch, k, stride=s), generator=generator))
+            h, w, c = (h - k) // s + 1, (w - k) // s + 1, ch
+            if h < 1 or w < 1:
+                raise ValueError(f"obs {tuple(obs_shape)} is too small for the conv stack")
+        self.convs = nn.ModuleList(convs)
+        self.dense = orthogonal_init(nn.Linear(h * w * c, dense), generator=generator)
+        self.out_dim = dense
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        lead = x.shape[:-3]
+        if x.dtype == torch.uint8:
+            # x.astype(cd) / 255 as XLA computes it under jit: a float32
+            # multiply by the reciprocal, then rounded to the compute dtype
+            x = (x.to(torch.float32) * (1.0 / 255.0)).to(cd)
+        else:
+            x = x.to(cd)
+        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for conv, s in zip(self.convs, self.strides):
+            x = F.relu(F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=s))
+        x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # flatten in (H, W, C) order
+        return F.relu(dense(x, self.dense, cd))
+
+
+def cnn_from_config(
+    cnn_cfg, obs_shape: Sequence[int], compute_dtype: torch.dtype, generator: torch.Generator | None = None
+) -> NatureCNN:
+    """NatureCNN from a ``model.cnn`` subtree."""
+    return NatureCNN(
+        obs_shape,
+        channels=tuple(cnn_cfg["channels"]),
+        kernels=tuple(cnn_cfg["kernels"]),
+        strides=tuple(cnn_cfg["strides"]),
+        dense=cnn_cfg["dense"],
+        compute_dtype=compute_dtype,
+        generator=generator,
+    )
+
+
 def make_trunk(
-    model_cfg, in_dim: int, hidden: Sequence[int], generator: torch.Generator | None = None
-) -> MLP:
+    model_cfg,
+    obs_shape: Sequence[int],
+    hidden: Sequence[int],
+    generator: torch.Generator | None = None,
+) -> MLP | NatureCNN:
     """Build the obs trunk from a materialized ``learner_config.model``
-    subtree (dtypes already resolved by the precision policy)."""
-    if model_cfg["cnn"]["enabled"]:
-        raise NotImplementedError("the Nature-CNN stem is not ported to PyTorch yet")
+    subtree (dtypes already resolved by the precision policy): the CNN stem
+    for pixel obs ([H, W, C]), an MLP for state obs otherwise."""
     if torch_dtype(model_cfg["dtype"]) != torch.float32:
         raise NotImplementedError("the port keeps parameters in float32 only")
+    compute_dtype = torch_dtype(model_cfg["compute_dtype"])
+    if model_cfg["cnn"]["enabled"]:
+        return cnn_from_config(model_cfg["cnn"], obs_shape, compute_dtype, generator)
     return MLP(
-        in_dim,
+        math.prod(obs_shape),
         hidden=tuple(hidden),
         activation=model_cfg["activation"],
-        compute_dtype=torch_dtype(model_cfg["compute_dtype"]),
+        compute_dtype=compute_dtype,
         generator=generator,
     )

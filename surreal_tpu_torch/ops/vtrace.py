@@ -1,0 +1,198 @@
+"""Fused V-trace: the CUDA kernel ``csrc/vtrace.cu`` and its plain PyTorch
+version, the port of ``surreal_tpu/ops/vtrace.py`` (``VTraceOutput``,
+``vtrace``, ``vtrace_nextobs``) and ``surreal_tpu/ops/pallas_vtrace.py``
+(``vtrace_pallas``, ``vtrace_nextobs_pallas``).
+
+One function computes V-trace in one reverse pass, :func:`vtrace_fused`
+(the Pallas module's ``_vtrace_call``); two entry points build its inputs,
+the counterparts of the reference's two contracts:
+
+- :func:`vtrace_nextobs` — the truncation-exact learner form: TD-delta
+  discount ``boot = gamma*(1-terminated)`` against V(pre-reset successor
+  obs), recursion coefficient ``edge = gamma*(1-done)``, and the done mask
+  that cuts the pg tail at episode boundaries; all inputs [T, B].
+- :func:`vtrace` — the simple contract: ``discounts`` serve as both
+  ``boot`` and ``edge``, ``values`` is the [T+1, B] stack, no done mask.
+
+Dtype contract: inputs of any real dtype are cast to float32 and both
+outputs are float32, detached (the reference applies ``stop_gradient``;
+there is no backward kernel).
+
+Routing is by the device of the tensors, never by a switch: on a CUDA
+tensor :func:`vtrace_fused` launches the kernel (or raises), on a CPU
+tensor it runs :func:`vtrace_fused_plain`. So in the IMPALA learner both
+``vtrace_impl='xla'`` (the default) and ``'pallas'`` reach the kernel on
+the card; the ``'assoc'`` forms are not ported yet.
+
+``vtrace_fused.launches`` counts kernel launches (and nothing else), so a
+run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from surreal_tpu_torch.utils.kernel_build import load_kernel_library
+
+_INT32_MAX = 2**31 - 1
+
+
+class VTraceOutput(NamedTuple):
+    vs: torch.Tensor             # [T, B] V-trace value targets
+    pg_advantages: torch.Tensor  # [T, B] policy-gradient advantages
+
+
+@torch.no_grad()
+def vtrace_fused_plain(
+    bl: torch.Tensor,
+    tl: torch.Tensor,
+    rewards: torch.Tensor,
+    boot: torch.Tensor,
+    edge: torch.Tensor,
+    values_t: torch.Tensor,
+    values_next: torch.Tensor,
+    done: torch.Tensor,
+    clip_rho: float = 1.0,
+    clip_c: float = 1.0,
+    clip_pg_rho: float = 1.0,
+) -> VTraceOutput:
+    """The plain PyTorch version: a reverse loop over T with the Pallas
+    kernel's order of operations (``pallas_vtrace.py:58-80``), which the
+    CUDA kernel follows too. Used for CPU tensors, and as the reference
+    the kernel is held against on the card."""
+    bl, tl, r, boot, edge, v_t, v_n, done = (
+        x.to(torch.float32) for x in (bl, tl, rewards, boot, edge, values_t, values_next, done)
+    )
+    rho = torch.exp(tl - bl)
+    deltas = torch.clamp_max(rho, clip_rho) * ((r + boot * v_n) - v_t)
+    coeffs = edge * torch.clamp_max(rho, clip_c)
+    vs = torch.empty_like(deltas)
+    acc = torch.zeros_like(deltas[0])
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        acc = deltas[t] + coeffs[t] * acc
+        vs[t] = acc + v_t[t]
+    vs_next = torch.cat([vs[1:], v_n[-1:]])
+    succ = done * v_n + (1.0 - done) * vs_next
+    pg = torch.clamp_max(rho, clip_pg_rho) * ((r + boot * succ) - v_t)
+    return VTraceOutput(vs=vs, pg_advantages=pg)
+
+
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, built and typed once, at first launch."""
+    fn = load_kernel_library("vtrace").vtrace_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(inputs: list[torch.Tensor], clips: tuple[float, float, float]) -> VTraceOutput:
+    T, B = inputs[0].shape
+    if T * B > _INT32_MAX:
+        raise ValueError(f"[T, B] = [{T}, {B}] exceeds the kernel's int32 index range")
+    fn = _kernel()
+    arrs = [x.detach().to(torch.float32).contiguous() for x in inputs]
+    vs = torch.empty((T, B), dtype=torch.float32, device=arrs[0].device)
+    pg = torch.empty_like(vs)
+    with torch.cuda.device(vs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(x.data_ptr() for x in arrs), vs.data_ptr(), pg.data_ptr(), T, B, *clips, stream)
+    if err != 0:
+        raise RuntimeError(f"vtrace kernel launch failed: cudaError {err}")
+    vtrace_fused.launches += 1
+    return VTraceOutput(vs=vs, pg_advantages=pg)
+
+
+def vtrace_fused(
+    bl: torch.Tensor,
+    tl: torch.Tensor,
+    rewards: torch.Tensor,
+    boot: torch.Tensor,
+    edge: torch.Tensor,
+    values_t: torch.Tensor,
+    values_next: torch.Tensor,
+    done: torch.Tensor,
+    clip_rho: float = 1.0,
+    clip_c: float = 1.0,
+    clip_pg_rho: float = 1.0,
+) -> VTraceOutput:
+    """Fused V-trace; all eight inputs [T, B] on one device (behaviour and
+    target log-probs, rewards, TD-delta discount, recursion coefficient,
+    V(s_t), V(s'_t), done mask).
+
+    Returns float32 (vs, pg_advantages). Launches the CUDA kernel for CUDA
+    tensors (on the current stream, without synchronising) and the plain
+    version for CPU tensors.
+    """
+    inputs = [bl, tl, rewards, boot, edge, values_t, values_next, done]
+    shape = rewards.shape
+    if len(shape) != 2 or 0 in shape:
+        raise ValueError(f"V-trace inputs must be non-empty [T, B]; got {tuple(shape)}")
+    for x in inputs:
+        if x.shape != shape:
+            raise ValueError(f"V-trace inputs disagree in shape: {tuple(x.shape)} vs {tuple(shape)}")
+        if x.device != rewards.device:
+            raise ValueError(f"V-trace inputs on different devices: {x.device} vs {rewards.device}")
+        if x.is_complex():
+            raise TypeError(f"V-trace inputs must be real numbers; got {x.dtype}")
+    clips = (float(clip_rho), float(clip_c), float(clip_pg_rho))
+    if rewards.device.type == "cuda":
+        return _launch(inputs, clips)
+    if rewards.device.type == "cpu":
+        return vtrace_fused_plain(*inputs, *clips)
+    raise ValueError(f"V-trace has no path for device {rewards.device}")
+
+
+vtrace_fused.launches = 0
+
+
+def vtrace_nextobs(
+    behaviour_logp: torch.Tensor,
+    target_logp: torch.Tensor,
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    values_next: torch.Tensor,
+    done: torch.Tensor,
+    terminated: torch.Tensor,
+    gamma: float,
+    clip_rho: float = 1.0,
+    clip_c: float = 1.0,
+    clip_pg_rho: float = 1.0,
+) -> VTraceOutput:
+    """Truncation-exact V-trace over auto-reset trajectories, all inputs
+    [T, B]: the counterpart of ``vtrace_nextobs`` and
+    ``vtrace_nextobs_pallas``, with their boot and edge arrays."""
+    done_f = done.to(torch.float32)
+    return vtrace_fused(
+        behaviour_logp, target_logp, rewards,
+        gamma * (1.0 - terminated.to(torch.float32)),  # boot: TD-delta discount
+        gamma * (1.0 - done_f),                        # edge: recursion coefficient
+        values, values_next, done_f,
+        clip_rho, clip_c, clip_pg_rho,
+    )
+
+
+def vtrace(
+    behaviour_logp: torch.Tensor,
+    target_logp: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    values: torch.Tensor,
+    clip_rho: float = 1.0,
+    clip_c: float = 1.0,
+    clip_pg_rho: float = 1.0,
+) -> VTraceOutput:
+    """Simple contract (log-probs, rewards, discounts [T, B]; values
+    [T+1, B]), the counterpart of ``vtrace`` and ``vtrace_pallas``."""
+    disc = discounts.to(torch.float32)
+    return vtrace_fused(
+        behaviour_logp, target_logp, rewards, disc, disc,
+        values[:-1], values[1:], torch.zeros_like(disc),
+        clip_rho, clip_c, clip_pg_rho,
+    )

@@ -1,6 +1,6 @@
-"""Parity of the PyTorch port's BlockLift / AutoReset with the JAX package.
-States, actions and reset draws come from numpy or from JAX itself and go
-through both packages."""
+"""Parity of the PyTorch port's BlockLift, Pong and AutoReset with the JAX
+package. States, actions and the env draws come from numpy or from JAX
+itself and go through both packages."""
 
 import jax
 import jax.numpy as jnp
@@ -12,9 +12,13 @@ from surreal_tpu.envs.jax.base import AutoReset as JaxAutoReset
 from surreal_tpu.envs.jax.base import batch_step
 from surreal_tpu.envs.jax.lift import BlockLift as JaxBlockLift
 from surreal_tpu.envs.jax.lift import LiftState as JaxLiftState
+from surreal_tpu.envs.jax.pong import Pong as JaxPong
+from surreal_tpu.envs.jax.pong import PongSmall as JaxPongSmall
+from surreal_tpu.envs.jax.pong import _serve as jax_serve
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.envs.device.base import AutoReset
 from surreal_tpu_torch.envs.device.lift import BlockLift, LiftState
+from surreal_tpu_torch.envs.device.pong import Pong, PongSmall
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.session.default_configs import BASE_ENV_CONFIG
 
@@ -133,6 +137,96 @@ def test_make_env_builds_lift_and_refuses_unported_envs():
     assert env.specs.obs.shape == (17,) and env.specs.action.shape == (4,)
     state, obs = env.reset(3, generator=torch.Generator().manual_seed(0))
     assert obs.shape == (3, 17) and state.step_count.dtype == torch.int32
+    with pytest.raises(ValueError, match="no step draws"):
+        env.step(state, torch.zeros(3, 4), step_draws=torch.zeros(3, 1))
     for name in ("jax:cartpole", "gym:CartPole-v1"):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_env(Config(name=name).extend(BASE_ENV_CONFIG), device="cpu")
+
+
+@pytest.mark.parametrize("name,port_cls,jax_cls", [
+    ("jax:pong", Pong, JaxPong), ("jax:pong16", PongSmall, JaxPongSmall),
+])
+def test_make_env_builds_pong_with_generator_draws(name, port_cls, jax_cls):
+    env = make_env(Config(name=name).extend(BASE_ENV_CONFIG), device="cpu")
+    assert isinstance(env.env, port_cls) and env.time_limit == jax_cls.max_episode_steps
+    for got, want in ((env.specs.obs, jax_cls.specs.obs), (env.specs.action, jax_cls.specs.action)):
+        assert (got.shape, got.dtype, got.name) == (want.shape, want.dtype, want.name)
+    assert env.specs.discrete and env.specs.action.n == 3 and env.step_draw_dim == 1
+    g = torch.Generator().manual_seed(0)
+    state, obs = env.reset(64, generator=g)
+    vel = state.env_state.vel
+    assert obs.dtype == torch.uint8 and obs.shape == (64, *jax_cls.specs.obs.shape)
+    assert (vel[:, 1].abs() <= 0.02).all() and (vel[:, 0] < 0).any() and (vel[:, 0] > 0).any()
+    for _ in range(40):
+        state, obs, reward, done, info = env.step(state, torch.randint(0, 3, (64,), generator=g), g)
+    assert (vel[:, 1].abs() <= 0.06).all()
+
+
+def _pong_draws(ar_state):
+    """The draws JAX's Pong makes on the next AutoReset.step, from its two
+    key chains: the serve vy of a point (the env's own key, split on every
+    step) and the fresh reset (AutoReset's key), as the port's step draws
+    [B, 1] and reset draws [B, 2]."""
+    serve_vy = jax.vmap(lambda k: jax_serve(jax.random.split(k)[1], False)[1][1])(ar_state.env_state.key)
+    reset, _ = jax.vmap(JaxPong().reset)(split_sub(ar_state.key))
+    reset_draws = jnp.stack([reset.vel[:, 1], (reset.vel[:, 0] < 0).astype(jnp.float32)], axis=1)
+    return serve_vy[:, None], reset_draws
+
+
+@pytest.mark.parametrize("port_cls,jax_cls", [(Pong, JaxPong), (PongSmall, JaxPongSmall)])
+def test_pong_trajectory_matches_jax(port_cls, jax_cls):
+    """300 steps of 16 envs with a 120-step time limit: paddle hits, points
+    both ways, wall bounces, time-limit truncations and (for two envs that
+    start at 20-20) wins at 21 all agree. Pixels are thresholds on f32
+    positions, so obs must be bit-equal, and reward, done and score equal.
+    The draws follow JAX's key chains; actions track the ball with noise."""
+    B, T, limit = 16, 300, 120
+    j_env = JaxAutoReset(jax_cls(), time_limit=limit)
+    t_env = AutoReset(port_cls("cpu"), time_limit=limit)
+    keys = jax.random.split(jax.random.key(11), B)
+    j_state, j_obs = jax.jit(jax.vmap(j_env.reset))(keys)
+    reset, _ = jax.vmap(JaxPong().reset)(split_sub(keys))
+    draws = np.stack([np.asarray(reset.vel[:, 1]), np.asarray(reset.vel[:, 0] < 0, np.float32)], 1)
+    t_state, t_obs = t_env.reset(B, draws=torch.from_numpy(draws))
+    np.testing.assert_array_equal(t_obs.numpy(), np.asarray(j_obs))
+    # four envs one point from a win, for either side
+    score = np.zeros(B, np.int32)
+    score[:4] = 20
+    j_state = j_state._replace(env_state=j_state.env_state._replace(
+        agent_score=jnp.asarray(score), opp_score=jnp.asarray(score)))
+    t_state = t_state._replace(env_state=t_state.env_state._replace(
+        agent_score=torch.from_numpy(score), opp_score=torch.from_numpy(score.copy())))
+
+    @jax.jit
+    def j_step(state, action):
+        """This step's draws (from the keys before it), then the step."""
+        draws = _pong_draws(state)
+        state, obs, reward, done, info = batch_step(j_env, state, action)
+        outs = (obs, info["terminal_obs"], reward, done, info["truncated"], info["score"], info["point"])
+        return state, draws, (*outs, *state.env_state[:-1])
+
+    rng = np.random.default_rng(0)
+    got, want = [], []
+    for t in range(T):
+        # track the ball, with noise (from the port's state, which equals JAX's)
+        ball_y, paddle_y = t_state.env_state.ball[:, 1].numpy(), t_state.env_state.agent_y.numpy()
+        track = np.where(ball_y < paddle_y - 0.02, 1, np.where(ball_y > paddle_y + 0.02, 2, 0))
+        action = np.where(rng.random(B) < 0.4, track, rng.integers(0, 3, B)).astype(np.int32)
+        j_state, (step_draws, reset_draws), j_outs = j_step(j_state, jnp.asarray(action))
+        t_state, t_obs, t_rew, t_done, t_info = t_env.step(
+            t_state, torch.from_numpy(action),
+            reset_draws=torch.from_numpy(np.asarray(reset_draws)), step_draws=torch.from_numpy(np.asarray(step_draws)),
+        )
+        got.append((t_obs, t_info["terminal_obs"], t_rew, t_done, t_info["truncated"], t_info["score"],
+                    t_info["point"], *t_state.env_state))
+        want.append(j_outs)
+    names = ("obs", "terminal_obs", "reward", "done", "truncated", "score", "point", *t_state.env_state._fields)
+    for i, name in enumerate(names):
+        g = np.stack([x[i].numpy() for x in got])
+        w = np.stack([np.asarray(x[i]) for x in want])
+        bad = np.nonzero((g != w).reshape(T, -1).any(axis=1))[0]
+        assert bad.size == 0, f"{name} differs first at step {bad[:1]}"
+    done, truncated, point, reward = (np.stack([x[i].numpy() for x in got]) for i in (3, 4, 6, 2))
+    assert point.sum() >= 8 and (done & ~truncated).sum() >= 2 and truncated.sum() >= B
+    assert set(np.unique(reward).tolist()) == {-1.0, 0.0, 1.0}

@@ -1,7 +1,8 @@
-"""Parity of the PyTorch port's ops with the JAX package: GAE (plain and
-kernel wrapper), distributions, running stats. Inputs come from a numpy
-seed and go through both packages; the Pallas GAE kernel runs in
-interpret mode, as the JAX package's own tests run it on the CPU.
+"""Parity of the PyTorch port's ops with the JAX package: GAE and V-trace
+(plain and kernel wrapper), distributions, running stats. Inputs come from
+a numpy seed and go through both packages; the Pallas GAE and V-trace
+kernels run in interpret mode, as the JAX package's own tests run them on
+the CPU.
 """
 
 import jax
@@ -13,10 +14,14 @@ import torch
 from surreal_tpu.ops import distributions as JD
 from surreal_tpu.ops import running_stats as JRS
 from surreal_tpu.ops.pallas_gae import gae_advantages_pallas, gae_advantages_pallas_masked
+from surreal_tpu.ops.pallas_vtrace import vtrace_nextobs_pallas, vtrace_pallas
 from surreal_tpu.ops.returns import gae_advantages as jax_gae_advantages
+from surreal_tpu.ops.vtrace import vtrace as jax_vtrace
+from surreal_tpu.ops.vtrace import vtrace_nextobs as jax_vtrace_nextobs
 from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops import gae as G
 from surreal_tpu_torch.ops import running_stats as RS
+from surreal_tpu_torch.ops import vtrace as V
 from surreal_tpu_torch.ops.returns import gae_advantages as torch_gae_loop
 
 GAMMA, LAM = 0.99, 0.95
@@ -121,6 +126,111 @@ def test_gae_kernel_matches_plain_on_card():
         ref_adv, ref_tgt = G.gae_masked_plain(*arrs)
         torch.cuda.synchronize()
         assert torch.equal(adv, ref_adv) and torch.equal(tgt, ref_tgt)
+
+
+# V-trace tolerance: the reference's own bar for its kernel-vs-scan tests
+# (tests/test_precision.py): the residual is XLA's FMA contraction inside
+# the compiled scan, a few f32 ulps at unit scale.
+VTRACE_TOL = dict(rtol=0, atol=5e-6)
+
+
+def _vtrace_inputs(T, B, seed):
+    """Log-ratios of order 0.3, so that every clip level takes effect; 15%
+    dones, half of them true terminations."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    done = rng.random((T, B)) < 0.15
+    return dict(
+        behaviour_logp=f(T, B) * 0.3 - 1.0,
+        target_logp=f(T, B) * 0.3 - 1.0,
+        rewards=f(T, B),
+        values=f(T, B),
+        values_next=f(T, B),
+        done=done,
+        terminated=done & (rng.random((T, B)) < 0.5),
+    )
+
+
+def test_vtrace_nextobs_matches_xla_and_pallas():
+    kw = _vtrace_inputs(16, 40, seed=0)
+    rho = np.exp(kw["target_logp"] - kw["behaviour_logp"])
+    assert (rho > 1.0).any() and (rho < 1.0).any()
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    refs = (
+        jax_vtrace_nextobs(**jkw, gamma=GAMMA, clip_rho=1.0, clip_c=0.9, clip_pg_rho=1.1),
+        vtrace_nextobs_pallas(**jkw, gamma=GAMMA, clip_rho=1.0, clip_c=0.9, clip_pg_rho=1.1, interpret=True),
+    )
+    got = V.vtrace_nextobs(
+        **{k: torch.from_numpy(v) for k, v in kw.items()}, gamma=GAMMA, clip_rho=1.0, clip_c=0.9, clip_pg_rho=1.1
+    )
+    for ref in refs:
+        for g, want in zip(got, ref):
+            assert g.dtype == torch.float32 and not g.requires_grad
+            np.testing.assert_allclose(g.numpy(), np.asarray(want), **VTRACE_TOL)
+
+
+def test_vtrace_simple_contract_matches_xla_and_pallas():
+    T, B = 12, 40
+    rng = np.random.default_rng(1)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    done = rng.random((T, B)) < 0.1
+    disc = (GAMMA * (1.0 - done)).astype(np.float32)
+    args = (f(T, B) * 0.3, f(T, B) * 0.3, f(T, B), disc, f(T + 1, B))
+    jargs = [jnp.asarray(a) for a in args]
+    got = V.vtrace(*_t(*args))
+    for ref in (jax_vtrace(*jargs), vtrace_pallas(*jargs, interpret=True)):
+        for g, want in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(want), **VTRACE_TOL)
+
+
+def test_vtrace_outputs_are_detached_f32_for_bf16_inputs_with_grad():
+    kw = _vtrace_inputs(9, 5, seed=2)
+    t = {k: torch.from_numpy(v) for k, v in kw.items()}
+    t["target_logp"] = t["target_logp"].to(torch.bfloat16).requires_grad_(True)
+    t["values"] = t["values"].requires_grad_(True)
+    got = V.vtrace_nextobs(**t, gamma=GAMMA)
+    ref = jax_vtrace_nextobs(
+        **{k: jnp.asarray(v) for k, v in kw.items() if k != "target_logp"},
+        target_logp=jnp.asarray(kw["target_logp"]).astype(jnp.bfloat16).astype(jnp.float32), gamma=GAMMA,
+    )
+    for g, want in zip(got, ref):
+        assert g.dtype == torch.float32 and not g.requires_grad
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), **VTRACE_TOL)
+
+
+def test_vtrace_wrapper_never_builds_the_kernel_for_cpu_tensors(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"CPU tensors must not build or load the {name} kernel")
+
+    monkeypatch.setattr(V, "load_kernel_library", refuse)
+    before = V.vtrace_fused.launches
+    V.vtrace_nextobs(**{k: torch.from_numpy(v) for k, v in _vtrace_inputs(5, 7, seed=0).items()}, gamma=GAMMA)
+    assert V.vtrace_fused.launches == before
+    with pytest.raises(ValueError, match="shape"):
+        V.vtrace(*_t(*(np.zeros((4, 3), np.float32) for _ in range(4))), torch.zeros(4, 3))
+
+
+@pytest.mark.cuda
+def test_vtrace_kernel_matches_plain_on_card():
+    """Bit-exact on the card: the kernel rounds where the plain version does
+    (non-contracting _rn intrinsics, see csrc/vtrace.cu), and rho is expf
+    in both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for T, B in [(32, 1025), (7, 1000), (1, 1)]:
+        kw = _vtrace_inputs(T, B, seed=T)
+        done = torch.from_numpy(kw["done"]).float().cuda()
+        arrs = [torch.from_numpy(kw[k]).cuda() for k in ("behaviour_logp", "target_logp", "rewards")]
+        boot = GAMMA * (1.0 - torch.from_numpy(kw["terminated"]).float().cuda())
+        edge = GAMMA * (1.0 - done)
+        vt, vn = (torch.from_numpy(kw[k]).cuda() for k in ("values", "values_next"))
+        inputs = [*arrs, boot, edge, vt, vn, done]
+        before = V.vtrace_fused.launches
+        got = V.vtrace_fused(*inputs, 1.0, 0.9, 1.1)
+        want = V.vtrace_fused_plain(*inputs, 1.0, 0.9, 1.1)
+        torch.cuda.synchronize()
+        assert V.vtrace_fused.launches == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @jax.jit
