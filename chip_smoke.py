@@ -3,28 +3,39 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 (any
-sm_90 card) and the CUDA toolkit. Two paths are driven: PPO on jax:lift
-(the GAE kernel) and IMPALA on pixel jax:pong (the V-trace kernel).
-Phases, each printing one JSON line:
+sm_90 card) and the CUDA toolkit. Three paths are driven: PPO on jax:lift
+(the GAE kernel), IMPALA on pixel jax:pong (the V-trace kernel) and DDPG
+with prioritized replay on jax:lift (the replay gather and scatter
+kernels). Five kernels are built and checked; the fifth, the reverse
+linear scan, is on no path. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
-2. build   - every CUDA kernel of both paths, compiled from csrc/, one nvcc
-             per source, all started together;
+2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
+             all started together;
 3. kernels - each kernel against its plain PyTorch version on the card,
              at its path's shapes and ragged ones, plus its time, its
-             bound and the plain version's time (GAE, then V-trace);
-4. parity  - one small f32 train iteration on the card and on the CPU
-             with the same injected randomness (the CPU path is the one
-             the tests hold against the JAX package), TF32 off: PPO on
-             jax:lift, then IMPALA on jax:pong;
-5. train   - ``Trainer(config).run`` with four warm-up iterations and
-             eight timed ones; checks finite metrics and that every learn
-             launched its path's kernel once:
+             bound, the plain version's time and, where one PyTorch call
+             computes the same function, that call's time (GAE, V-trace,
+             replay gather, replay scatter, reverse linear scan);
+4. parity  - one small f32 train iteration (two for DDPG) on the card and
+             on the CPU with the same injected randomness (the CPU path is
+             the one the tests hold against the JAX package), TF32 off:
+             PPO on jax:lift, IMPALA on jax:pong, DDPG on jax:lift under
+             uniform and under prioritized replay;
+5. train   - ``Trainer(config).run`` / ``OffPolicyTrainer(config).run``
+             with four warm-up iterations and eight timed ones; checks
+             finite metrics and that every iteration launched its path's
+             kernels as often as the path says:
              PPO at the north-star geometry (MLP 64x64, jax:lift, 4096
              envs x 256 steps, 4 epochs x 4 minibatches, 'mixed'), then
              IMPALA at the pong geometry (NatureCNN (32, 64, 64) / (8, 4,
              3) / (4, 2, 1) / 512, jax:pong [42, 42, 2] uint8 pixels, 1024
-             envs x 32 steps, 'mixed').
+             envs x 32 steps, 'mixed'), then DDPG at its headline
+             geometry (actor and critic 64x64 tanh with LayerNorm,
+             jax:lift, 2048 envs x 16 steps, 64 updates of 256 per
+             iteration, prioritized replay of 200,000, 'mixed'), with one
+             more DDPG iteration under ``torch.cuda.set_sync_debug_mode
+             ("error")`` to show that it makes no host sync.
 
 Then the kernels summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -50,16 +61,25 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 MAIN_T, MAIN_B = 256, 4096      # GAE's shape on the main path
 KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1)]
 PONG_T, PONG_B = 32, 1024       # V-trace's shape on the IMPALA path
+REV_SCAN_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000)]
 VTRACE_SHAPES = [(PONG_T, PONG_B), (1, 1), (7, 1000), (PONG_T, PONG_B + 1)]
 # V-trace's float operations per element (csrc/vtrace.cu): rho 2 (sub,
 # exp), delta 5, recursion 4, vs 1, successor 4, pg advantage 5
 VTRACE_OPS = 21
+# DDPG's headline geometry (the JAX package's perf_report.py::ddpg_prioritized_lift)
+DDPG_B, DDPG_H, DDPG_K, DDPG_BS = 2048, 16, 64, 256
+DDPG_CAPACITY = 200_000
+DDPG_ROW_SHAPES = {"obs": (17,), "next_obs": (17,), "action": (4,), "reward": (), "discount": ()}
 WARMUP_ITERS, TIMED_ITERS = 4, 8
 TRAIN_ITERS = WARMUP_ITERS + TIMED_ITERS
 SPIN_CYCLES = 1_000_000         # about 0.5 ms of the card's clock, see time_cuda_ms
+KERNEL_SOURCES = ["gae", "vtrace", "replay_rows", "rev_scan"]  # csrc/<name>.cu
 KERNEL_REPLACES = {  # the TPU kernel body each CUDA kernel replaces
     "gae": "surreal_tpu/ops/pallas_gae.py:51",
     "vtrace": "surreal_tpu/ops/pallas_vtrace.py:49",
+    "replay_gather": "surreal_tpu/ops/pallas_replay.py:40",
+    "replay_scatter": "surreal_tpu/ops/pallas_replay.py:45",
+    "rev_scan": "surreal_tpu/ops/pallas_returns.py:33",
 }
 
 
@@ -120,11 +140,13 @@ def time_cuda_ms(fn, runs: int, flush: torch.Tensor, spin: bool) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, writes: int, ops: int) -> dict:
+def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, writes: int, ops: int,
+                 tpu_kernel: str | None = None, extra_bytes_per_b: int = 0) -> dict:
     """One kernel against its plain version on the card, exactly, at each
     of ``shapes`` (the first is its path's, which is also timed), with its
     bound from ``reads`` f32 inputs read and ``writes`` f32 outputs written
-    once each, and ``ops`` f32 operations, per element."""
+    once each, and ``ops`` f32 operations, per element (plus
+    ``extra_bytes_per_b`` bytes per batch column, e.g. a [B] input)."""
     checks = []
     max_abs = 0.0
     for T, B in shapes:
@@ -145,14 +167,14 @@ def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, wri
     ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=flush, spin=True)
     issued_ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=flush, spin=False)
     plain_ms = time_cuda_ms(lambda: plain(*inputs), runs=5, flush=flush, spin=False)
-    bytes_ms = (reads + writes) * 4 * T * B / H100_BYTES_PER_S * 1e3
+    bytes_ms = ((reads + writes) * 4 * T * B + extra_bytes_per_b * B) / H100_BYTES_PER_S * 1e3
     ops_ms = ops * T * B / H100_F32_FLOPS * 1e3
     result = {
         "name": name,
         "route": "cuda",
         "source": f"surreal_tpu_torch/csrc/{name}.cu",
         "replaces": KERNEL_REPLACES[name],
-        "tpu_kernel": f"ops/pallas_{name}.py::_{name}_kernel",
+        "tpu_kernel": tpu_kernel or f"ops/pallas_{name}.py::_{name}_kernel",
         "max_abs_err": max_abs,
         "max_err": max_abs,
         "tolerance": "exact (0)",
@@ -326,11 +348,13 @@ def phase_parity_impala(Config, base_config, Trainer) -> None:
           "tf32": False, "final_obs_equal": True, "metric_abs_err": errs})
 
 
-def timed_run(trainer, wrapper, kernel: str):
-    """``trainer.run`` for TRAIN_ITERS iterations on the card, with the
+def timed_run(trainer, counters: dict):
+    """``trainer.run`` for TRAIN_ITERS iterations on the card, with every
     kernel wrapper's launch count set to 0 just before and read just
-    after; checks that every learn launched the kernel once and that
-    every metric is finite. Returns (state, timing and count fields)."""
+    after; ``counters`` maps a kernel's name to (wrapper, launches per
+    iteration), and each must have launched exactly that often. Checks
+    that every metric is finite. Returns (state, timing and count
+    fields)."""
     if trainer.device.type != "cuda":
         raise AssertionError(f"Trainer ran on {trainer.device}")
     stamps = []
@@ -341,15 +365,20 @@ def timed_run(trainer, wrapper, kernel: str):
         stamps.append((iteration, time.perf_counter(), metrics))
 
     torch.cuda.reset_peak_memory_stats()
-    wrapper.launches = 0
+    for wrapper, _ in counters.values():
+        wrapper.launches = 0
     t0 = time.perf_counter()
     state, _ = trainer.run(max_env_steps=TRAIN_ITERS * trainer.steps_per_iter, on_metrics=on_metrics)
-    launches = wrapper.launches
+    launches = {name: wrapper.launches for name, (wrapper, _) in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if len(stamps) != TRAIN_ITERS:
         raise AssertionError(f"expected {TRAIN_ITERS} iterations, got {len(stamps)}")
-    if launches != TRAIN_ITERS:
-        raise AssertionError(f"{kernel} kernel launched {launches} times in {TRAIN_ITERS} learn calls")
+    for name, (_, per_iter) in counters.items():
+        if launches[name] != per_iter * TRAIN_ITERS:
+            raise AssertionError(
+                f"{name} kernel launched {launches[name]} times in {TRAIN_ITERS} iterations, "
+                f"expected {per_iter} per iteration"
+            )
     for _, _, metrics in stamps:
         for k, v in metrics.items():
             if not math.isfinite(v) and not (k == "episode/return" and math.isnan(v)):
@@ -363,7 +392,7 @@ def timed_run(trainer, wrapper, kernel: str):
         "warmup_iters": WARMUP_ITERS, "timed_iters": TIMED_ITERS,
         "iter_ms_median": median_ms,
         "env_steps_per_s": trainer.steps_per_iter / (median_ms / 1e3),
-        f"{kernel}_launches": launches,
+        **{f"{name}_launches": n for name, n in launches.items()},
         "learn_calls": len(stamps),
         "peak_mem_gb": peak_gb,
         "metrics": stamps[-1][2],
@@ -377,7 +406,7 @@ def phase_train(Config, base_config, Trainer, ops_gae) -> dict:
         session_config=Config(folder="unused", metrics=Config(every_n_iters=1)),
     ).extend(base_config())
     trainer = Trainer(cfg)  # the default device: the card
-    state, timing = timed_run(trainer, ops_gae.gae_advantages_masked, "gae")
+    state, timing = timed_run(trainer, {"gae": (ops_gae.gae_advantages_masked, 1)})
     result = {
         "phase": "train",
         "num_envs": MAIN_B, "horizon": MAIN_T, "epochs": 4, "num_minibatches": 4,
@@ -395,7 +424,7 @@ def phase_train_impala(Config, base_config, Trainer, ops_vtrace) -> dict:
     coefficient 0.5, entropy coefficient 0.01)."""
     cfg = pong_config(Config, base_config, PONG_B, PONG_T, "mixed", {})
     trainer = Trainer(cfg)  # the default device: the card
-    state, timing = timed_run(trainer, ops_vtrace.vtrace_fused, "vtrace")
+    state, timing = timed_run(trainer, {"vtrace": (ops_vtrace.vtrace_fused, 1)})
     result = {
         "phase": "train",
         "path": "impala",
@@ -409,6 +438,15 @@ def phase_train_impala(Config, base_config, Trainer, ops_vtrace) -> dict:
     return result
 
 
+def fenced_ms(fn):
+    """(fn(), its host time in ms between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def breakdown(trainer, state, reps: int = 2) -> dict:
     """Where an iteration's time goes: the rollout and the learn, each
     fenced by synchronize, after the counted run (these launches are not
@@ -417,13 +455,6 @@ def breakdown(trainer, state, reps: int = 2) -> dict:
 
     generator = torch.Generator(device="cuda").manual_seed(1)
     carry = trainer.init_loop_state(generator)
-
-    def fenced_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
     rollout_ms, learn_ms = [], []
     for _ in range(reps):
@@ -437,13 +468,397 @@ def breakdown(trainer, state, reps: int = 2) -> dict:
     return {"rollout_ms": rollout_ms, "learn_ms": learn_ms}
 
 
+# -- DDPG + prioritized replay ------------------------------------------------
+
+def phase_replay_gather(RR) -> dict:
+    """Replay gather kernel vs its plain version (index_select per leaf),
+    bit for bit: at the DDPG path's shape (256 rows of the five leaves,
+    160 B a row, from a 200,000-row ring), with repeated indices, with the
+    obs leaves in bf16 (34 B rows), and at ragged shapes (3-byte and int64
+    rows, more rows than the ring holds, one row of a 7-row ring). Timed at
+    the path's shape; the library call is index_select per leaf, summed
+    over the five leaves."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def leaves(capacity, bf16_obs=False):
+        out = {}
+        for k, shape in DDPG_ROW_SHAPES.items():
+            x = torch.randn((capacity, *shape), generator=gen, device="cuda")
+            out[k] = x.to(torch.bfloat16) if bf16_obs and "obs" in k else x
+        return out
+
+    def indices(capacity, n, duplicates=False):
+        idx = torch.randint(0, capacity, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        if duplicates:
+            idx[n // 2:] = idx[: n - n // 2].flip(0)
+        return idx
+
+    ragged = {
+        "bytes": torch.randint(0, 256, (1000, 3), generator=gen, device="cuda").to(torch.uint8),
+        "ids": torch.randint(0, 2**40, (1000, 2), generator=gen, device="cuda"),
+        "reward": torch.randn(1000, generator=gen, device="cuda"),
+    }
+    path = (leaves(DDPG_CAPACITY), indices(DDPG_CAPACITY, DDPG_BS))
+    cases = [
+        ("path", *path),
+        ("path_duplicates", path[0], indices(DDPG_CAPACITY, DDPG_BS, duplicates=True)),
+        ("bf16_obs", leaves(DDPG_CAPACITY, bf16_obs=True), indices(DDPG_CAPACITY, DDPG_BS)),
+        ("ragged", ragged, indices(1000, 3000)),
+        ("one_row", leaves(7), indices(7, 1)),
+    ]
+    checks, max_abs = [], 0.0
+    for label, lv, idx in cases:
+        got, want = RR.gather_rows(lv, idx), RR.gather_rows_plain(lv, idx)
+        torch.cuda.synchronize()
+        for k in lv:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"replay_gather != plain for leaf {k} in case {label}")
+        err = max(float((got[k].double() - want[k].double()).abs().max()) for k in lv)
+        max_abs = max(max_abs, err)
+        checks.append({"case": label, "rows": idx.numel(), "capacity": next(iter(lv.values())).shape[0],
+                       "leaves": {k: [list(v.shape[1:]), str(v.dtype)] for k, v in lv.items()}, "max_abs_err": err})
+
+    lv, idx = path
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_cuda_ms(lambda: RR.gather_rows(lv, idx), runs=30, flush=flush, spin=True)
+    issued_ms = time_cuda_ms(lambda: RR.gather_rows(lv, idx), runs=30, flush=flush, spin=False)
+    plain_ms = time_cuda_ms(lambda: RR.gather_rows_plain(lv, idx), runs=30, flush=flush, spin=False)
+    library_ms = sum(
+        time_cuda_ms(lambda x=x: x.index_select(0, idx), runs=30, flush=flush, spin=True) for x in lv.values()
+    )
+    row_bytes = sum(x[0].numel() * x.element_size() for x in lv.values())
+    nbytes = 2 * DDPG_BS * row_bytes + idx.numel() * idx.element_size()
+    result = {
+        "name": "replay_gather",
+        "route": "cuda",
+        "source": "surreal_tpu_torch/csrc/replay_rows.cu",
+        "replaces": KERNEL_REPLACES["replay_gather"],
+        "tpu_kernel": "ops/pallas_replay.py::_copy_row_kernel",
+        "max_abs_err": max_abs,
+        "max_err": max_abs,
+        "tolerance": "exact (0)",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+    emit({"phase": "kernels", "kernel": "replay_gather", "checks": checks,
+          "timed_shape": {"rows": DDPG_BS, "capacity": DDPG_CAPACITY, "row_bytes": row_bytes},
+          "bound_bytes": nbytes, "ms_with_host_issue": issued_ms,
+          "library_call": "index_select per leaf, summed over the leaves", **result})
+    return result
+
+
+def phase_replay_scatter(RR) -> dict:
+    """Replay scatter kernel vs its plain version (index_copy_ of the last
+    occurrence of each index), bit for bit: 256 priorities into a
+    200,000-vector with forced duplicates (the path's shape), [n, 3] rows
+    with many duplicates, and one row. Timed at the path's shape; the
+    library call is index_copy_ with unique indices."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    path_idx = torch.randint(0, DDPG_CAPACITY, (DDPG_BS,), generator=gen, device="cuda", dtype=torch.int32)
+    path_idx[DDPG_BS // 2:: 4] = path_idx[:DDPG_BS // 8]  # forced duplicates
+    cases = [
+        ("path_duplicates", torch.rand(DDPG_CAPACITY, generator=gen, device="cuda"), path_idx,
+         torch.rand(DDPG_BS, generator=gen, device="cuda")),
+        ("rows3", torch.randn(1000, 3, generator=gen, device="cuda"),
+         torch.randint(0, 100, (500,), generator=gen, device="cuda", dtype=torch.int32),
+         torch.randn(500, 3, generator=gen, device="cuda")),
+        ("one_row", torch.randn(7, generator=gen, device="cuda"),
+         torch.randint(0, 7, (1,), generator=gen, device="cuda", dtype=torch.int32),
+         torch.randn(1, generator=gen, device="cuda")),
+    ]
+    checks, max_abs = [], 0.0
+    for label, dest, idx, upd in cases:
+        got = RR.scatter_rows(dest.clone(), idx, upd)
+        want = RR.scatter_rows_plain(dest.clone(), idx, upd)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"replay_scatter != plain in case {label}")
+        err = float((got - want).abs().max())
+        max_abs = max(max_abs, err)
+        dups = idx.numel() - torch.unique(idx).numel()
+        checks.append({"case": label, "shape": list(dest.shape), "rows": idx.numel(),
+                       "repeated_indices": dups, "max_abs_err": err})
+    if checks[0]["repeated_indices"] == 0:
+        raise AssertionError("the path case has no repeated indices")
+
+    _, dest, idx, upd = cases[0]
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_cuda_ms(lambda: RR.scatter_rows(dest, idx, upd), runs=30, flush=flush, spin=True)
+    issued_ms = time_cuda_ms(lambda: RR.scatter_rows(dest, idx, upd), runs=30, flush=flush, spin=False)
+    plain_ms = time_cuda_ms(lambda: RR.scatter_rows_plain(dest, idx, upd), runs=30, flush=flush, spin=False)
+    unique = torch.randperm(DDPG_CAPACITY, generator=gen, device="cuda")[:DDPG_BS]
+    library_ms = time_cuda_ms(lambda: dest.index_copy_(0, unique, upd), runs=30, flush=flush, spin=True)
+    nbytes = 3 * 4 * DDPG_BS  # idx and updates read, rows written
+    result = {
+        "name": "replay_scatter",
+        "route": "cuda",
+        "source": "surreal_tpu_torch/csrc/replay_rows.cu",
+        "replaces": KERNEL_REPLACES["replay_scatter"],
+        "tpu_kernel": "ops/pallas_replay.py::_scatter_row_kernel",
+        "max_abs_err": max_abs,
+        "max_err": max_abs,
+        "tolerance": "exact (0)",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+    emit({"phase": "kernels", "kernel": "replay_scatter", "checks": checks,
+          "timed_shape": {"rows": DDPG_BS, "capacity": DDPG_CAPACITY}, "bound_bytes": nbytes,
+          "ms_with_host_issue": issued_ms, "library_call": "index_copy_ with unique indices", **result})
+    return result
+
+
+def rev_scan_inputs(T: int, B: int, seed: int, device: str) -> list[torch.Tensor]:
+    """Random scan inputs (coeffs, deltas, init): discounts 0.99 with 15%
+    episode ends, normal deltas and init."""
+    rng = np.random.default_rng(seed)
+    arrays = [0.99 * (rng.random((T, B)) >= 0.15), rng.normal(size=(T, B)), rng.normal(size=B)]
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+def phase_rev_scan(RS) -> dict:
+    """Reverse linear scan kernel vs its plain version, exactly (_rn
+    intrinsics, csrc/rev_scan.cu), at [256, 4096] (GAE's shape; the scan is
+    on no path), [1, 1] and [7, 1000]. Per element: one mul, one add."""
+    return kernel_phase(
+        "rev_scan", lambda *x: (RS.reverse_linear_scan(*x),), lambda *x: (RS.reverse_linear_scan_plain(*x),),
+        rev_scan_inputs, REV_SCAN_SHAPES, reads=2, writes=1, ops=2,
+        tpu_kernel="ops/pallas_returns.py::_rev_scan_kernel", extra_bytes_per_b=4,
+    )
+
+
+def ddpg_config(Config, base_config, B, H, K, bs, capacity, kind, precision, n_step=1, warmup_steps=0, **env):
+    """DDPG on jax:lift with the DDPG defaults (actor and critic 64x64 tanh,
+    critic LayerNorm, OU noise sigma 0.2 theta 0.15, tau 0.005), sampling
+    from the first iteration's insert on (start_sample_size = B * H)."""
+    return Config(
+        learner_config=Config(
+            algo=Config(name="ddpg", horizon=H, updates_per_iter=K, n_step=n_step, precision=precision,
+                        exploration=Config(warmup_steps=warmup_steps)),
+            replay=Config(kind=kind, capacity=capacity, start_sample_size=B * H, batch_size=bs),
+        ),
+        env_config=Config(name="jax:lift", num_envs=B, **env),
+        session_config=Config(folder="unused", metrics=Config(every_n_iters=1)),
+    ).extend(base_config())
+
+
+class SampleRecorder:
+    """Wraps a prioritized replay's ``sample`` and keeps, per call, the
+    indices drawn, the scaled draws and the cdf they were drawn against
+    (recomputed with the same expressions), on the host."""
+
+    def __init__(self, replay):
+        self.replay, self.inner, self.calls = replay, replay.sample, []
+        replay.sample = self
+
+    def __call__(self, state, generator=None, batch_size=None, beta=None, uniforms=None):
+        out = self.inner(state, generator, batch_size, beta, uniforms)
+        p = state.priorities ** self.replay.alpha
+        bs = uniforms.shape[0]
+        u = (torch.arange(bs, dtype=torch.float32, device=p.device) + uniforms) / bs * p.sum()
+        self.calls.append((out[2]["idx"].cpu(), u.cpu(), torch.cumsum(p, 0).cpu()))
+        return out
+
+
+# a draw this close (in ulps of its value) to a boundary of the CPU cdf may
+# pick the neighbouring slot on the card: the two cumsums round differently
+# (the card's is a parallel scan), and the priorities differ by the learn's
+# rounding
+PARITY_BOUNDARY_ULPS = 64
+
+
+def phase_parity_ddpg(Config, base_config, OffPolicyTrainer) -> None:
+    """Two small f32 DDPG iterations (64 envs x 8 steps, time limit 5, 4
+    updates of 64 per iteration, capacity 2048, the first iteration under
+    warm-up actions) on the card and on the CPU, from the same weights and
+    the same injected draws (reset draws, OU normals, warm-up actions,
+    replay draws): uniform replay with n_step 3, prioritized with n_step 1.
+    TF32 is off. Tolerances as in the PPO parity phase: final obs and the
+    ring's rows 1e-4; metrics 1e-4 + 1e-3 relative, the update ratio 5e-2
+    (constant obs dims normalize to rounding noise whose sign can differ
+    between devices, and Adam moves those weights by up to lr); priorities
+    1e-4 (|td| at Q-values of ~0.1). Prioritized indices must be equal
+    except where a draw lies within PARITY_BOUNDARY_ULPS of a CPU cdf
+    boundary between the two slots; after such a draw the runs diverge
+    legitimately and the comparisons after it are skipped (and said so)."""
+    from surreal_tpu_torch.envs.device.lift import RESET_HIGH, RESET_LOW
+
+    B, H, K, BS, C = 64, 8, 4, 64, 2048
+    for kind, n_step in (("uniform", 3), ("prioritized", 1)):
+        prioritized = kind == "prioritized"
+        cfg = ddpg_config(Config, base_config, B, H, K, BS, C, kind, "f32", n_step=n_step,
+                          warmup_steps=B * H, time_limit=5)
+        gen = torch.Generator().manual_seed(5)
+        lo, hi = torch.tensor(RESET_LOW), torch.tensor(RESET_HIGH)
+        draws_init = lo + torch.rand((B, 5), generator=gen) * (hi - lo)
+        reset = lo + torch.rand((2, H, B, 5), generator=gen) * (hi - lo)
+        normals = torch.randn((2, H, B, 4), generator=gen)
+        warm = torch.rand((2, H, B, 4), generator=gen) * 2.0 - 1.0
+        if prioritized:
+            sample = torch.rand((2, K, BS), generator=gen)
+        else:
+            sample = torch.stack([torch.randint(0, (it + 1) * B * H, (K, BS), generator=gen) for it in range(2)])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tr = OffPolicyTrainer(cfg, device=dev)
+            recorder = SampleRecorder(tr.replay) if prioritized else None
+            state = tr.learner.init(torch.Generator().manual_seed(0))
+            carry, replay = tr.init_loop_state(reset_draws=draws_init.to(dev))
+            metrics = []
+            for it in range(2):
+                state, replay, carry, m = tr._device_train_iter(
+                    state, replay, carry, beta=tr._beta(it * B * H, 2 * B * H), warmup=it == 0, first=it == 0,
+                    action_noise=normals[it].to(dev), warmup_uniforms=warm[it].to(dev),
+                    reset_draws=reset[it].to(dev), sample_draws=sample[it].to(dev),
+                )
+                metrics.append({k: float(v) for k, v in m.items()})
+            ring = replay.ring if prioritized else replay
+            out[dev] = {
+                "obs": carry.obs.cpu(), "metrics": metrics,
+                "storage": {k: v.cpu() for k, v in ring.storage.items()},
+                "priorities": replay.priorities.cpu() if prioritized else None,
+                "samples": recorder.calls if prioritized else [],
+            }
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on; the f32 parity phase needs it off")
+
+        flips, first_flip = 0, None
+        for call, ((gi, _, _), (wi, u, cdf)) in enumerate(zip(out["cuda"]["samples"], out["cpu"]["samples"])):
+            for i in torch.nonzero(gi != wi).flatten().tolist():
+                a, b = int(gi[i]), int(wi[i])
+                gap = abs(float(u[i]) - float(cdf[min(a, b)]))
+                ulps = gap / float(np.spacing(np.float32(u[i])))
+                if abs(a - b) != 1 or ulps > PARITY_BOUNDARY_ULPS:
+                    raise AssertionError(f"ddpg {kind}: sample {call} draw {i} picked {a} on cuda, {b} on cpu "
+                                         f"({ulps:.1f} ulps from the boundary)")
+                flips += 1
+                first_flip = call if first_flip is None else first_flip
+        errs = {}
+        if first_flip is None:
+            obs_err = float((out["cuda"]["obs"] - out["cpu"]["obs"]).abs().max())
+            if obs_err > 1e-4:
+                raise AssertionError(f"ddpg {kind}: final obs differ between cuda and cpu by {obs_err}")
+            for k, want in out["cpu"]["storage"].items():
+                err = float((out["cuda"]["storage"][k] - want).abs().max())
+                if err > 1e-4:
+                    raise AssertionError(f"ddpg {kind}: replay leaf {k} differs by {err}")
+                errs[f"replay/{k}"] = err
+            if prioritized:
+                err = float((out["cuda"]["priorities"] - out["cpu"]["priorities"]).abs().max())
+                if err > 1e-4:
+                    raise AssertionError(f"ddpg prioritized: priorities differ by {err}")
+                errs["priorities"] = err
+            for it, (got_m, want_m) in enumerate(zip(out["cuda"]["metrics"], out["cpu"]["metrics"])):
+                for k, want in want_m.items():
+                    got = got_m[k]
+                    rtol = 5e-2 if k == "health/update_ratio" else 1e-3
+                    if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
+                        raise AssertionError(f"ddpg {kind} iteration {it} metric {k}: cuda {got} vs cpu {want}")
+                    errs[k] = max(errs.get(k, 0.0), abs(got - want))
+        emit({"phase": "parity", "path": "ddpg", "replay": kind, "n_step": n_step, "env": "jax:lift",
+              "num_envs": B, "horizon": H, "updates_per_iter": K, "batch_size": BS, "capacity": C,
+              "iterations": 2, "tf32": False, "prioritized_index_flips_at_boundaries": flips,
+              "compared": first_flip is None, "abs_err": errs})
+
+
+def device_profile(fn) -> dict:
+    """Device busy share and launch count of one call of ``fn``, from a
+    torch.profiler trace: the sum of CUDA kernel times over the fenced
+    host time of the call (the profiler's own overhead lengthens the call,
+    so the share is a lower bound), and the kernels with the most time.
+    Returns {"error": ...} where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_ms = fenced_ms(fn)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        launches = sum(e.count for e in kernels)
+    except Exception as exc:  # a measurement only: the run goes on without it
+        return {"error": f"{type(exc).__name__}: {exc}"}
+    if device_ms <= 0:
+        return {"error": "the trace holds no device time"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+        "kernel_launches": launches,
+        "top_kernels": [{"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top],
+    }
+
+
+def ddpg_breakdown(trainer, state, reps: int = 2) -> dict:
+    """After the counted run (these launches are not counted): one
+    iteration to fill a fresh ring to its sampling threshold; one
+    iteration under torch.cuda.set_sync_debug_mode("error"), which raises
+    on any host sync; then the rollout and the 64-update loop, each fenced
+    by synchronize, and a profiler trace of one whole iteration."""
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    carry, replay = trainer.init_loop_state(generator)
+    state, replay, carry, _ = trainer._device_train_iter(
+        state, replay, carry, beta=0.4, first=True, generator=generator)
+
+    def sync_free_iteration():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return trainer._device_train_iter(state, replay, carry, beta=0.4, generator=generator)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    (state, replay, carry, _), sync_free_ms = fenced_ms(sync_free_iteration)
+    rollout_ms, updates_ms = [], []
+    for _ in range(reps):
+        (carry, _), ms = fenced_ms(lambda: trainer._rollout(state, carry, False, generator))
+        rollout_ms.append(ms)
+        (state, replay, _), ms = fenced_ms(lambda: trainer._run_updates(state, replay, 0.4, generator))
+        updates_ms.append(ms)
+    profile = device_profile(
+        lambda: trainer._device_train_iter(state, replay, carry, beta=0.4, generator=generator))
+    return {"sync_free_iteration": True, "sync_free_iteration_ms": sync_free_ms,
+            "rollout_ms": rollout_ms, "updates_ms": updates_ms, "profile": profile}
+
+
+def phase_train_ddpg(Config, base_config, OffPolicyTrainer, RR) -> dict:
+    """DDPG with prioritized replay at the headline geometry, 'mixed',
+    warm-up 0: every iteration samples, learns and refreshes priorities 64
+    times, so the gather and the scatter must each launch 64 times per
+    iteration."""
+    cfg = ddpg_config(Config, base_config, DDPG_B, DDPG_H, DDPG_K, DDPG_BS, DDPG_CAPACITY, "prioritized", "mixed")
+    trainer = OffPolicyTrainer(cfg)  # the default device: the card
+    state, timing = timed_run(trainer, {
+        "replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K),
+    })
+    result = {
+        "phase": "train",
+        "path": "ddpg",
+        "env": "jax:lift",
+        "replay": "prioritized", "capacity": DDPG_CAPACITY,
+        "num_envs": DDPG_B, "horizon": DDPG_H, "updates_per_iter": DDPG_K, "batch_size": DDPG_BS,
+        "precision": "mixed",
+        **timing,
+        **ddpg_breakdown(trainer, state),
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from surreal_tpu_torch.launch.offpolicy_trainer import OffPolicyTrainer
     from surreal_tpu_torch.launch.trainer import Trainer
     from surreal_tpu_torch.ops import gae as ops_gae
+    from surreal_tpu_torch.ops import replay_rows as RR
+    from surreal_tpu_torch.ops import rev_scan as RS
     from surreal_tpu_torch.ops import vtrace as ops_vtrace
     from surreal_tpu_torch.session.config import Config
     from surreal_tpu_torch.session.default_configs import base_config
@@ -454,22 +869,30 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "name": kind, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    kernels = ["gae", "vtrace"]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, all at once
-        list(pool.map(build_kernel, kernels))
-    emit({"phase": "build", "kernels": kernels, "seconds": time.perf_counter() - t0})
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, all at once
+        list(pool.map(build_kernel, KERNEL_SOURCES))
+    emit({"phase": "build", "kernels": KERNEL_SOURCES, "seconds": time.perf_counter() - t0})
 
     gae = phase_kernels(ops_gae)
     vtrace = phase_vtrace_kernel(ops_vtrace)
+    gather = phase_replay_gather(RR)
+    scatter = phase_replay_scatter(RR)
+    rev_scan = phase_rev_scan(RS)
     phase_parity(Config, base_config, Trainer)
     phase_parity_impala(Config, base_config, Trainer)
+    phase_parity_ddpg(Config, base_config, OffPolicyTrainer)
+    RS.reverse_linear_scan.launches = 0  # on no path: counted over all three train phases
     train = phase_train(Config, base_config, Trainer, ops_gae)
     gae["launches"] = train["gae_launches"]
     train_impala = phase_train_impala(Config, base_config, Trainer, ops_vtrace)
     vtrace["launches"] = train_impala["vtrace_launches"]
+    train_ddpg = phase_train_ddpg(Config, base_config, OffPolicyTrainer, RR)
+    gather["launches"] = train_ddpg["replay_gather_launches"]
+    scatter["launches"] = train_ddpg["replay_scatter_launches"]
+    rev_scan["launches"] = RS.reverse_linear_scan.launches
 
-    emit({"kernels": [gae, vtrace]})
+    emit({"kernels": [gae, vtrace, gather, scatter, rev_scan]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -1,0 +1,370 @@
+"""Off-policy trainer (DDPG), the port of
+``surreal_tpu/launch/offpolicy_trainer.py`` in device mode on one device:
+per iteration, H env steps with OU (or Gaussian) exploration noise, n-step
+folding, a replay insert, then ``updates_per_iter`` sample + learn steps,
+with a priority refresh after each under prioritized replay.
+
+Two update loops, as in the reference:
+
+- uniform replay (``batched_uniform_sampling``, the default): all K index
+  sets are drawn at once and gathered by ONE gather launch of K * bs rows;
+- prioritized replay: K sequential samples (one gather launch each), each
+  followed by ``update_priorities`` (one scatter launch), since every draw
+  depends on the priorities the previous update wrote.
+
+The reference's ``lax.cond(can_sample)`` and its traced warm-up and
+first-chunk flags are host decisions here: the ring's cursor and size are
+host ints (see ``replay/base.py``), ``warmup`` and ``first`` host bools.
+Between metrics reads an iteration makes no host sync. The replay and the
+env carry are updated in place.
+
+Randomness is explicit. ``_device_train_iter`` takes, optionally, every
+draw the reference makes from its keys: env reset (and step) draws, the
+exploration normals, the warm-up actions, and the per-update sample draws
+(uniform indices, or prioritized uniforms); the parity tests replay JAX's
+key tree into them.
+
+Not ported yet: the host-env paths (in-process and the remote experience
+plane), the dp mesh, ``SessionHooks`` (checkpointing, telemetry, recovery),
+the ``LoopEngine`` and the autotuner.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from surreal_tpu_torch.envs import make_env
+from surreal_tpu_torch.launch.rollout import successor_and_termination
+from surreal_tpu_torch.launch.trainer import training_env_config
+from surreal_tpu_torch.learners import EVAL_DETERMINISTIC, TRAINING, build_learner
+from surreal_tpu_torch.learners.aggregator import nstep_transitions
+from surreal_tpu_torch.learners.ddpg import LEARN_METRIC_KEYS, ou_noise_step
+from surreal_tpu_torch.ops.precision import torch_dtype
+from surreal_tpu_torch.replay import build_replay
+from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.utils.device import resolve_device
+
+
+class OffPolicyCarry(NamedTuple):
+    env_state: Any
+    obs: torch.Tensor
+    noise: torch.Tensor      # [B, act_dim] OU state (zeros when gaussian)
+    ep_return: torch.Tensor  # [B]
+    ep_length: torch.Tensor  # [B] int32
+    tail: dict | None        # last n_step-1 steps of the previous chunk (None if n=1)
+
+
+TRANS_KEYS = ("obs", "next_obs", "action", "reward", "done", "terminated")
+
+
+def scrub_fake_prefix_windows(trans: dict, n: int, B: int) -> dict:
+    """Overwrite the n-1 fictitious leading windows of the run's FIRST
+    folded chunk with its first real window.
+
+    ``nstep_transitions`` flattens [S, B] windows row-major, so window s of
+    env b is flat row ``s*B+b``: the fabricated rows (windows starting in
+    the all-zero tail that seeds the cross-chunk carry) occupy
+    ``[0, (n-1)*B)`` and the first real window block is ``[(n-1)*B, n*B)``.
+    Tiling that block over the fake rows keeps per-env alignment; replay
+    never holds made-up transitions.
+    """
+    nb = (n - 1) * B
+    return {
+        k: torch.cat([x[nb : nb + B].repeat(n - 1, *([1] * (x.dim() - 1))), x[nb:]])
+        for k, x in trans.items()
+    }
+
+
+def _step_slice(draws: torch.Tensor | None, t: int) -> torch.Tensor | None:
+    return None if draws is None else draws[t]
+
+
+class OffPolicyTrainer:
+    """DDPG trainer with device replay on one device; ``device`` defaults to
+    the card and raises without it."""
+
+    def __init__(self, config, device: str | torch.device = "cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self.env = make_env(training_env_config(config.env_config), self.device)
+        self.learner = build_learner(config.learner_config, self.env.specs, self.device)
+        algo = self.learner.config.algo
+        self.algo = algo
+        if int(algo.get("update_unroll", 1)) != 1:
+            raise NotImplementedError(
+                "algo.update_unroll unrolls the JAX package's update scan; the port's "
+                "Python loop has no counterpart, so only 1 is accepted"
+            )
+        # replay_gather is injected into the replay build config so the
+        # replay layer stays algo-agnostic (both values reach the kernel)
+        self.replay = build_replay(
+            Config(gather_impl=algo.get("replay_gather", "xla")).extend(self.learner.config.replay)
+        )
+        self.prioritized = self.learner.config.replay.kind == "prioritized"
+        self._batched_sampling = (
+            not self.prioritized
+            and bool(algo.get("batched_uniform_sampling", True))
+            and hasattr(self.replay, "sample_many")
+        )
+        self.horizon = int(algo.horizon)
+        self.num_envs = int(config.env_config.num_envs)
+        self.act_dim = int(self.env.specs.action.shape[0])
+        self.seed = config.session_config.seed
+        self.steps_per_iter = self.horizon * self.num_envs
+
+    # -- loop state ----------------------------------------------------------
+    def _init_carry(
+        self, generator: torch.Generator | None = None, reset_draws: torch.Tensor | None = None
+    ) -> OffPolicyCarry:
+        """Fresh rollout carry for ``num_envs`` envs; with n_step > 1 a tail
+        of n-1 fake steps (done and terminated, so windows starting there
+        die at once with reward 0 and discount 0)."""
+        B, dev, f32 = self.num_envs, self.device, torch.float32
+        env_state, obs = self.env.reset(B, generator=generator, draws=reset_draws)
+        n = self.algo.n_step
+        tail = None
+        if n > 1:
+            obs_shape = tuple(self.env.specs.obs.shape)
+            tail = {
+                "obs": torch.zeros((n - 1, B, *obs_shape), dtype=f32, device=dev),
+                "next_obs": torch.zeros((n - 1, B, *obs_shape), dtype=f32, device=dev),
+                "action": torch.zeros((n - 1, B, self.act_dim), dtype=f32, device=dev),
+                "reward": torch.zeros((n - 1, B), dtype=f32, device=dev),
+                "done": torch.ones((n - 1, B), dtype=torch.bool, device=dev),
+                "terminated": torch.ones((n - 1, B), dtype=torch.bool, device=dev),
+            }
+        return OffPolicyCarry(
+            env_state=env_state,
+            obs=obs,
+            noise=torch.zeros((B, self.act_dim), dtype=f32, device=dev),
+            ep_return=torch.zeros(B, dtype=f32, device=dev),
+            ep_length=torch.zeros(B, dtype=torch.int32, device=dev),
+            tail=tail,
+        )
+
+    def init_loop_state(
+        self, generator: torch.Generator | None = None, reset_draws: torch.Tensor | None = None
+    ):
+        """(carry, replay_state): one constructor for ``run`` and the tests."""
+        return self._init_carry(generator, reset_draws), self.replay.init(self._replay_example())
+
+    def _replay_example(self) -> dict:
+        """Single-transition example sizing the replay storage: obs-class
+        leaves in the policy's staging dtype, reward and discount float32."""
+        obs_dtype = torch_dtype(self.learner.policy.data_dtype)
+        obs_shape = tuple(self.env.specs.obs.shape)
+        dev = self.device
+        return {
+            "obs": torch.zeros(obs_shape, dtype=obs_dtype, device=dev),
+            "next_obs": torch.zeros(obs_shape, dtype=obs_dtype, device=dev),
+            "action": torch.zeros((self.act_dim,), dtype=torch.float32, device=dev),
+            "reward": torch.zeros((), dtype=torch.float32, device=dev),
+            "discount": torch.zeros((), dtype=torch.float32, device=dev),
+        }
+
+    # -- one iteration -------------------------------------------------------
+    @torch.no_grad()
+    def _rollout(
+        self,
+        state,
+        carry: OffPolicyCarry,
+        warmup: bool,
+        generator: torch.Generator | None = None,
+        action_noise: torch.Tensor | None = None,
+        warmup_uniforms: torch.Tensor | None = None,
+        reset_draws: torch.Tensor | None = None,
+        step_draws: torch.Tensor | None = None,
+    ):
+        """H exploration steps. ``action_noise`` [H, B, A] are standard
+        normals (the OU diffusion draws, or the Gaussian exploration noise);
+        ``warmup_uniforms`` [H, B, A] are the uniform [-1, 1) actions taken
+        while ``warmup``. The OU state advances during warm-up too, as in
+        the reference. Returns (carry, traj of [H, B, ...] tensors)."""
+        explo = self.algo.exploration
+        c = carry
+        steps = []
+        for t in range(self.horizon):
+            if explo.noise == "ou":
+                noise = ou_noise_step(
+                    c.noise, explo.ou_theta, explo.sigma, explo.ou_dt, generator,
+                    normals=_step_slice(action_noise, t),
+                )
+            else:
+                noise = c.noise
+            if warmup:
+                # exploration warm-up: uniform-random actions
+                u = _step_slice(warmup_uniforms, t)
+                if u is None:
+                    u = torch.rand(noise.shape, generator=generator, device=self.device) * 2.0 - 1.0
+                action = u.to(device=self.device, dtype=torch.float32)
+            elif explo.noise == "ou":
+                a_det, _ = self.learner.act(state, c.obs, EVAL_DETERMINISTIC)
+                action = torch.clamp(a_det + noise, -1.0, 1.0)
+            else:
+                action, _ = self.learner.act(
+                    state, c.obs, TRAINING, generator, noise=_step_slice(action_noise, t)
+                )
+            env_state, obs2, reward, done, info = self.env.step(
+                c.env_state, action, generator,
+                reset_draws=_step_slice(reset_draws, t), step_draws=_step_slice(step_draws, t),
+            )
+            next_obs, terminated = successor_and_termination(obs2, done, info)
+            ep_return = c.ep_return + reward
+            ep_length = c.ep_length + 1
+            steps.append({
+                "obs": c.obs,
+                "next_obs": next_obs,
+                "action": action,
+                "reward": reward,
+                "done": done,
+                "terminated": terminated,
+                "ep_return": torch.where(done, ep_return, 0.0),
+                "ep_done": done,
+            })
+            c = c._replace(
+                env_state=env_state,
+                obs=obs2,
+                # the OU state restarts at episode boundaries
+                noise=torch.where(done[:, None], 0.0, noise),
+                ep_return=torch.where(done, 0.0, ep_return),
+                ep_length=torch.where(done, torch.zeros_like(ep_length), ep_length),
+            )
+        return c, {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+
+    def _run_updates(self, state, replay_state, beta: float, generator=None, sample_draws=None):
+        """``updates_per_iter`` sample + learn steps (+ priority refreshes).
+        ``sample_draws`` [K, bs]: uniform replay's indices, or prioritized
+        replay's uniforms. Returns (state, replay_state, mean metrics)."""
+        K = int(self.algo.updates_per_iter)
+        per_update = []
+        if self._batched_sampling:
+            replay_state, batches, idx = self.replay.sample_many(
+                replay_state, K, generator, idx=sample_draws
+            )
+            for k in range(K):
+                state, metrics = self.learner.learn(state, {n: x[k] for n, x in batches.items()})
+                metrics.pop("priority/td_abs")
+                metrics["replay/sample_age_frac"] = self.replay.age_frac(replay_state, idx[k])
+                per_update.append(metrics)
+        else:
+            for k in range(K):
+                draws = _step_slice(sample_draws, k)
+                if self.prioritized:
+                    replay_state, batch, info = self.replay.sample(
+                        replay_state, generator, beta=beta, uniforms=draws
+                    )
+                    batch = dict(batch, is_weights=info["is_weights"])
+                else:
+                    replay_state, batch, info = self.replay.sample(replay_state, generator, idx=draws)
+                state, metrics = self.learner.learn(state, batch)
+                td_abs = metrics.pop("priority/td_abs")
+                metrics["replay/sample_age_frac"] = self.replay.age_frac(replay_state, info["idx"])
+                if self.prioritized:
+                    replay_state = self.replay.update_priorities(replay_state, info["idx"], td_abs)
+                per_update.append(metrics)
+        mean = {k: torch.stack([m[k] for m in per_update]).mean() for k in per_update[0]}
+        return state, replay_state, mean
+
+    def _device_train_iter(
+        self,
+        state,
+        replay_state,
+        carry: OffPolicyCarry,
+        beta: float = 0.0,
+        warmup: bool = False,
+        first: bool = False,
+        generator: torch.Generator | None = None,
+        action_noise: torch.Tensor | None = None,
+        warmup_uniforms: torch.Tensor | None = None,
+        reset_draws: torch.Tensor | None = None,
+        step_draws: torch.Tensor | None = None,
+        sample_draws: torch.Tensor | None = None,
+    ):
+        """One iteration: rollout, n-step fold, replay insert, obs-filter
+        update, then the update loop once the replay holds
+        ``start_sample_size`` rows (zero metrics before). ``first`` marks
+        the run's first chunk, whose fake n-step prefix windows are
+        scrubbed. Returns (state, replay_state, carry, metrics)."""
+        carry, traj = self._rollout(
+            state, carry, warmup, generator, action_noise, warmup_uniforms, reset_draws, step_draws
+        )
+        chunk = {k: traj[k] for k in TRANS_KEYS}
+        n = self.algo.n_step
+        if n > 1:
+            # prepend the previous chunk's tail so the n-1 steps at every
+            # chunk boundary still become window starts; carry the new tail
+            full = {k: torch.cat([carry.tail[k], chunk[k]]) for k in TRANS_KEYS}
+            carry = carry._replace(tail={k: v[-(n - 1):] for k, v in full.items()})
+        else:
+            full = chunk
+        trans = nstep_transitions(full, self.algo.gamma, n)
+        if n > 1 and first:
+            trans = scrub_fake_prefix_windows(trans, n, chunk["reward"].shape[1])
+        replay_state = self.replay.insert(replay_state, trans)
+        # obs-normalizer: fold each fresh obs exactly once per chunk
+        state = self.learner.update_obs_stats(state, chunk["obs"])
+
+        if self.replay.can_sample(replay_state):
+            state, replay_state, metrics = self._run_updates(
+                state, replay_state, beta, generator, sample_draws
+            )
+        else:
+            metrics = {
+                k: torch.zeros((), dtype=torch.float32, device=self.device)
+                for k in (*LEARN_METRIC_KEYS, "replay/sample_age_frac")
+            }
+        metrics.update(self.replay.gauges(replay_state))
+        n_done = traj["ep_done"].sum()
+        ep_return_sum = traj["ep_return"].sum()
+        metrics["episode/return"] = torch.where(
+            n_done > 0, ep_return_sum / torch.clamp_min(n_done, 1), torch.nan
+        )
+        metrics["episode/count"] = n_done.to(torch.float32)
+        return state, replay_state, carry, metrics
+
+    def _beta(self, env_steps: int, total: int) -> float:
+        """Prioritized IS beta, annealed beta0 -> 1.0 over training."""
+        if not self.prioritized:
+            return 0.0
+        frac = min(env_steps / max(total, 1), 1.0)
+        b0 = self.learner.config.replay.priority_beta0
+        return b0 + (1.0 - b0) * frac
+
+    # -- main loop -----------------------------------------------------------
+    def run(
+        self,
+        max_env_steps: int | None = None,
+        on_metrics: Callable[[int, dict], object] | None = None,
+    ):
+        """Train until ``max_env_steps`` (default: session total_env_steps).
+
+        Returns (final_state, last_metrics). ``on_metrics(iteration, dict)``
+        fires every ``metrics.every_n_iters`` iterations, and after the
+        last, with host floats; returning truthy from it stops training.
+        """
+        cfg = self.config.session_config
+        total = max_env_steps or cfg.total_env_steps
+        every = max(1, int(cfg.metrics.every_n_iters))
+        state = self.learner.init(torch.Generator().manual_seed(self.seed))
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        carry, replay_state = self.init_loop_state(generator)
+        iteration, env_steps, last = 0, 0, {}
+        while env_steps < total:
+            state, replay_state, carry, metrics = self._device_train_iter(
+                state, replay_state, carry,
+                beta=self._beta(env_steps, total),
+                warmup=env_steps < self.algo.exploration.warmup_steps,
+                first=iteration == 0,
+                generator=generator,
+            )
+            iteration += 1
+            env_steps += self.steps_per_iter
+            if iteration % every == 0 or env_steps >= total:
+                # the one device -> host read of the cadence
+                values = torch.stack([v.to(torch.float32) for v in metrics.values()]).tolist()
+                last = dict(zip(metrics, values))
+                if on_metrics is not None and on_metrics(iteration, last):
+                    break
+        return state, last

@@ -1,5 +1,5 @@
-"""Algorithm layer of the PyTorch port (PPO and IMPALA so far), the port
-of ``surreal_tpu/learners/__init__.py``."""
+"""Algorithm layer of the PyTorch port (PPO, IMPALA and DDPG), the port of
+``surreal_tpu/learners/__init__.py``."""
 
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ from surreal_tpu_torch.learners.base import (
 
 def build_learner(learner_config, env_specs: EnvSpecs, device: str | torch.device = "cuda") -> Learner:
     """Dispatch on ``algo.name`` with the per-algorithm defaults extended
-    onto the user tree, as the reference does. 'ppo' and 'impala' are
-    ported."""
+    onto the user tree, as the reference does. 'ppo', 'impala' and 'ddpg'
+    are ported."""
     from surreal_tpu_torch.session.default_configs import BASE_LEARNER_CONFIG
 
     name = learner_config.algo.name
@@ -32,7 +32,10 @@ def build_learner(learner_config, env_specs: EnvSpecs, device: str | torch.devic
         cfg = learner_config.extend(IMPALA_LEARNER_CONFIG.extend(BASE_LEARNER_CONFIG))
         return IMPALALearner(cfg, env_specs, device)
     if name == "ddpg":
-        raise NotImplementedError(f"algorithm {name!r} is not ported to PyTorch yet; have ppo | impala")
+        from surreal_tpu_torch.learners.ddpg import DDPG_LEARNER_CONFIG, DDPGLearner
+
+        cfg = learner_config.extend(DDPG_LEARNER_CONFIG.extend(BASE_LEARNER_CONFIG))
+        return DDPGLearner(cfg, env_specs, device)
     raise ValueError(f"unknown algorithm {name!r}; have ppo | ddpg | impala")
 
 

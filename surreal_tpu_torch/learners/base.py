@@ -1,6 +1,6 @@
 """Learner base, the port of ``surreal_tpu/learners/base.py``
 (``training_health``, ``recovery_scale``, ``make_optimizer_chain``,
-``Learner``).
+``Learner``), plus optax's ``incremental_update``.
 
 A learner is a set of functions over an explicit state (a NamedTuple of
 tensors and dicts of tensors), as in the reference:
@@ -126,6 +126,12 @@ class OptimizerChain:
 
 def apply_updates(params: Params, updates: Params) -> Params:
     return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+
+
+def incremental_update(new: Params, old: Params, tau: float) -> Params:
+    """``optax.incremental_update``: Polyak averaging with optax's grouping,
+    ``tau * new + (1 - tau) * old``."""
+    return {k: tau * new[k] + (1.0 - tau) * old[k] for k in new}
 
 
 def make_optimizer_chain(lr, max_grad_norm: float, policy) -> OptimizerChain:

@@ -1,6 +1,7 @@
 """Network trunks, the port of ``surreal_tpu/models/encoders.py``
 (``orthogonal_init``, ``MLP``, ``NatureCNN``, ``cnn_from_config``,
-``make_trunk``).
+``make_trunk``), plus :class:`LayerNorm`, flax's ``nn.LayerNorm`` as it
+computes.
 
 Parameters are kept in float32; activations run in ``compute_dtype``.
 Every layer casts its input AND its weight and bias to the compute dtype
@@ -49,8 +50,43 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def uniform_init(layer: nn.Linear, scale: float, generator: torch.Generator | None = None) -> nn.Linear:
+    """Weight uniform in [0, scale) and a zero bias (flax's
+    ``initializers.uniform(scale)``, which draws from [0, scale), not
+    +-scale)."""
+    nn.init.uniform_(layer.weight, 0.0, scale, generator=generator)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=compute_dtype)`` over the last axis, as
+    flax 0.12 computes it rather than as ``F.layer_norm`` does: statistics
+    in float32 whatever the input dtype; the variance by the fast formula
+    ``max(0, E[x^2] - E[x]^2)``; epsilon 1e-6 (torch's default is 1e-5);
+    ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, then
+    cast to the compute dtype. ``scale`` starts at ones, ``bias`` at zeros,
+    both float32."""
+
+    def __init__(self, features: int, compute_dtype: torch.dtype = torch.bfloat16, eps: float = 1e-6):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        mean = x.mean(dim=-1, keepdim=True)
+        mean2 = (x * x).mean(dim=-1, keepdim=True)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((x - mean) * mul + self.bias).to(self.compute_dtype)
+
+
 class MLP(nn.Module):
-    """Plain MLP trunk with orthogonal init (gain sqrt(2))."""
+    """Plain MLP trunk with orthogonal init (gain sqrt(2)), optionally with
+    a :class:`LayerNorm` after each dense layer, before the activation."""
 
     def __init__(
         self,
@@ -59,6 +95,7 @@ class MLP(nn.Module):
         activation: str = "tanh",
         compute_dtype: torch.dtype = torch.bfloat16,
         generator: torch.Generator | None = None,
+        use_layer_norm: bool = False,
     ):
         super().__init__()
         self.act = ACTIVATIONS[activation]
@@ -68,12 +105,18 @@ class MLP(nn.Module):
             orthogonal_init(nn.Linear(a, b), generator=generator)
             for a, b in zip(widths[:-1], widths[1:])
         )
+        self.norms = (
+            nn.ModuleList(LayerNorm(b, compute_dtype) for b in widths[1:]) if use_layer_norm else None
+        )
         self.out_dim = widths[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
-        for layer in self.layers:
-            x = self.act(dense(x, layer, self.compute_dtype))
+        for i, layer in enumerate(self.layers):
+            x = dense(x, layer, self.compute_dtype)
+            if self.norms is not None:
+                x = self.norms[i](x)
+            x = self.act(x)
         return x
 
 

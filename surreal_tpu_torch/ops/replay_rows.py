@@ -1,0 +1,194 @@
+"""Replay row gather and priority scatter: the CUDA kernels of
+``csrc/replay_rows.cu`` and their plain PyTorch versions, the port of
+``surreal_tpu/ops/pallas_replay.py`` (``gather_rows_pallas``,
+``scatter_rows_pallas``).
+
+- :func:`gather_rows` — ``{k: leaf[idx]}`` over a dict of ``[capacity,
+  ...]`` leaves, every leaf in ONE kernel launch (the Pallas module takes
+  one leaf per call; the replay layer mapped it over the pytree).
+- :func:`scatter_rows` — ``dest[idx] = updates`` in place; where ``idx``
+  names a row more than once, the last occurrence wins, as the Pallas
+  kernel's grid order (and XLA's ``.at[].set`` on the CPU) leave it.
+
+Both copy rows verbatim, so any dtype is bit-exact. Indices are int32 on
+the card (the kernels take int32, as the Pallas kernels do); other integer
+dtypes are cast.
+
+Routing is by the device of the tensors, never by a switch: on a CUDA
+tensor the wrapper launches the kernel (or raises), on a CPU tensor it
+runs :func:`gather_rows_plain` / :func:`scatter_rows_plain`. Indices are
+bounds-checked only where they already lie on the host; on the card they
+are not read back (the kernel never dereferences an out-of-range row: the
+gather writes zeros for it, the scatter skips it).
+
+``gather_rows.launches`` and ``scatter_rows.launches`` count kernel
+launches (and nothing else), so a run can show that its main path went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Mapping
+
+import torch
+
+from surreal_tpu_torch.utils.kernel_build import load_kernel_library
+
+MAX_LEAVES = 8  # leaves one gather launch carries (csrc/replay_rows.cu)
+_INT32_MAX = 2**31 - 1
+
+
+def _row_bytes(x: torch.Tensor) -> int:
+    return x[0].numel() * x.element_size() if x.shape[0] else 0
+
+
+def _check_idx(idx: torch.Tensor, device: torch.device, capacity: int) -> None:
+    if idx.dim() != 1 or idx.dtype.is_floating_point or idx.is_complex() or idx.dtype == torch.bool:
+        raise ValueError(f"idx must be a 1-D integer tensor; got {idx.dtype} {tuple(idx.shape)}")
+    if idx.device != device:
+        raise ValueError(f"idx on {idx.device}, rows on {device}")
+    if idx.shape[0] > _INT32_MAX:
+        raise ValueError(f"{idx.shape[0]} indices exceed the kernel's int32 range")
+    if idx.device.type == "cpu" and idx.numel() and not (
+        0 <= int(idx.min()) and int(idx.max()) < capacity
+    ):
+        raise IndexError(f"idx out of range [0, {capacity}): min {int(idx.min())}, max {int(idx.max())}")
+
+
+# -- gather -----------------------------------------------------------------
+
+def gather_rows_plain(leaves: Mapping[str, torch.Tensor], idx: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The plain PyTorch version: ``index_select`` per leaf. Used for CPU
+    tensors, and as the reference the kernel is held against on the card."""
+    return {k: x.index_select(0, idx) for k, x in leaves.items()}
+
+
+@functools.cache
+def _gather_kernel():
+    """The gather's C entry point, built and typed once, at first launch."""
+    fn = load_kernel_library("replay_rows").replay_gather
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_gather(leaves: Mapping[str, torch.Tensor], idx: torch.Tensor, capacity: int) -> dict:
+    fn = _gather_kernel()
+    idx = idx.to(torch.int32).contiguous()
+    n = idx.shape[0]
+    out = {k: torch.empty((n, *x.shape[1:]), dtype=x.dtype, device=x.device) for k, x in leaves.items()}
+    k_leaves = len(leaves)
+    srcs = (ctypes.c_void_p * k_leaves)(*(x.data_ptr() for x in leaves.values()))
+    dsts = (ctypes.c_void_p * k_leaves)(*(y.data_ptr() for y in out.values()))
+    rows = (ctypes.c_longlong * k_leaves)(*(_row_bytes(x) for x in leaves.values()))
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(srcs, dsts, rows, k_leaves, idx.data_ptr(), n, capacity, stream)
+    if err != 0:
+        raise RuntimeError(f"replay gather kernel launch failed: cudaError {err}")
+    gather_rows.launches += 1
+    return out
+
+
+def gather_rows(leaves: Mapping[str, torch.Tensor], idx: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``{k: leaf[idx]}`` for a dict of ``[capacity, ...]`` leaves (at most
+    :data:`MAX_LEAVES`, each contiguous, one shared capacity, one device)
+    and integer ``idx`` [n]. Launches the CUDA kernel for CUDA tensors
+    (once for all leaves, on the current stream, without synchronising)
+    and the plain version for CPU tensors."""
+    if not leaves:
+        raise ValueError("gather_rows needs at least one leaf")
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(f"gather_rows takes at most {MAX_LEAVES} leaves; got {len(leaves)}")
+    first = next(iter(leaves.values()))
+    device = first.device
+    capacity = first.shape[0] if first.dim() else None
+    for k, x in leaves.items():
+        if x.dim() < 1 or x.shape[0] != capacity:
+            raise ValueError(f"leaf {k!r} {tuple(x.shape)} is not [capacity={capacity}, ...]")
+        if x.device != device:
+            raise ValueError(f"leaf {k!r} on {x.device}, others on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"leaf {k!r} is not contiguous")
+    _check_idx(idx, device, capacity)
+    if device.type == "cuda":
+        return _launch_gather(leaves, idx, capacity)
+    if device.type == "cpu":
+        return gather_rows_plain(leaves, idx)
+    raise ValueError(f"gather_rows has no path for device {device}")
+
+
+gather_rows.launches = 0
+
+
+# -- scatter ----------------------------------------------------------------
+
+def scatter_rows_plain(dest: torch.Tensor, idx: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version, in place: ``dest[idx[i]] = updates[i]`` as
+    a loop over i in order would leave it (the last occurrence of an index
+    wins), written as one ``index_copy_`` of the rows no later index
+    overwrites. Used for CPU tensors, and as the reference the kernel is
+    held against on the card."""
+    idx = idx.to(torch.long)
+    later = torch.triu(idx[:, None] == idx[None, :], diagonal=1).any(dim=1)
+    keep = ~later
+    dest.index_copy_(0, idx[keep], updates[keep].to(dest.dtype))
+    return dest
+
+
+@functools.cache
+def _scatter_kernel():
+    """The scatter's C entry point, built and typed once, at first launch."""
+    fn = load_kernel_library("replay_rows").replay_scatter
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_scatter(dest: torch.Tensor, idx: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
+    fn = _scatter_kernel()
+    idx = idx.to(torch.int32).contiguous()
+    upd = updates.to(dest.dtype).contiguous()
+    with torch.cuda.device(dest.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(dest.data_ptr(), idx.data_ptr(), upd.data_ptr(), idx.shape[0], _row_bytes(dest),
+                 dest.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"replay scatter kernel launch failed: cudaError {err}")
+    scatter_rows.launches += 1
+    return dest
+
+
+def scatter_rows(dest: torch.Tensor, idx: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
+    """``dest[idx] = updates`` in place for a contiguous ``[capacity, ...]``
+    ``dest``, integer ``idx`` [n] and ``updates`` [n, ...] (cast to
+    ``dest``'s dtype); the last occurrence of a repeated index wins.
+    Returns ``dest``. Launches the CUDA kernel for CUDA tensors (on the
+    current stream, without synchronising) and the plain version for CPU
+    tensors."""
+    if dest.dim() < 1:
+        raise ValueError("scatter_rows needs a [capacity, ...] destination")
+    if not dest.is_contiguous():
+        raise ValueError("dest is not contiguous")
+    _check_idx(idx, dest.device, dest.shape[0])
+    if tuple(updates.shape) != (idx.shape[0], *dest.shape[1:]):
+        raise ValueError(f"updates {tuple(updates.shape)} are not [{idx.shape[0]}, *{tuple(dest.shape[1:])}]")
+    if updates.device != dest.device:
+        raise ValueError(f"updates on {updates.device}, dest on {dest.device}")
+    if dest.device.type == "cuda":
+        return _launch_scatter(dest, idx, updates)
+    if dest.device.type == "cpu":
+        return scatter_rows_plain(dest, idx, updates)
+    raise ValueError(f"scatter_rows has no path for device {dest.device}")
+
+
+scatter_rows.launches = 0

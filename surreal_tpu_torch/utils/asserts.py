@@ -1,6 +1,7 @@
-"""Shape guards for the learn seam, the port of
-``surreal_tpu/utils/asserts.py::check_learn_batch`` with plain checks in
-place of ``chex``. They read shapes only, so they never wait on the device.
+"""Shape guards for the learn and replay-insert seams, the port of
+``surreal_tpu/utils/asserts.py`` (``check_learn_batch``,
+``check_insert_batch``) with plain checks in place of ``chex``. They read
+shapes only, so they never wait on the device.
 """
 
 from __future__ import annotations
@@ -38,3 +39,20 @@ def check_learn_batch(batch: Mapping, specs: EnvSpecs, name: str = "batch") -> N
     for k in ("done", "terminated", "discount", "behavior_logp", "is_weights"):
         if k in batch:
             _expect_shape(batch[k], lead, f"{name}: {k} must match reward dims")
+
+
+def check_insert_batch(batch: Mapping, storage: Mapping, name: str = "insert") -> None:
+    """Validate a replay-insert batch against the buffer storage (both flat
+    dicts of tensors): the same keys, one shared leading batch dim, and
+    per-leaf trailing dims matching the storage's per-transition shapes."""
+    if set(batch) != set(storage):
+        raise ValueError(
+            f"{name}: batch keys do not match replay storage "
+            f"(batch={sorted(batch)}, storage={sorted(storage)})"
+        )
+    n = next(iter(batch.values())).shape[0]
+    for k, buf in storage.items():
+        _expect_shape(
+            batch[k], (n, *buf.shape[1:]),
+            f"{name}: leaf {k!r} (storage per-transition shape {tuple(buf.shape[1:])})",
+        )

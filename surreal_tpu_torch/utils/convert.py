@@ -3,8 +3,10 @@
 :func:`params_from_jax` maps the flax parameter tree of
 ``surreal_tpu/models/ppo_net.py::PPOModel``, and
 :func:`categorical_params_from_jax` that of ``CategoricalPPOModel`` (as
-numpy arrays), onto the names of the port's models of the same names.
-The trees flax builds are::
+numpy arrays), onto the names of the port's models of the same names;
+:func:`ddpg_params_from_jax` maps the trees of
+``surreal_tpu/models/ddpg_net.py``'s ``DDPGActor`` and ``DDPGCritic``.
+The PPO-family trees flax builds are::
 
     MLP_0/Dense_{i}/{kernel,bias}   actor trunk, layer i      (state obs)
     MLP_1/Dense_{i}/{kernel,bias}   critic trunk, layer i     (state obs)
@@ -14,11 +16,19 @@ The trees flax builds are::
     Dense_1/{kernel,bias}           value head
     log_std                         (PPOModel only)
 
+The DDPG trees (state obs; a pixel-obs net has ``NatureCNN_0`` in place
+of ``MLP_0`` in the actor, and in front of the critic's dense layers)::
+
+    actor:  MLP_0/Dense_{i}, Dense_0 (head)
+    critic: Dense_{i} and LayerNorm_{i}/{scale,bias} for each hidden
+            layer, then Dense_{n} (the Q head)
+
 A flax ``Dense`` kernel is [in, out]; a torch ``Linear`` weight is
 [out, in], so kernels are transposed. A flax ``Conv`` kernel is HWIO; a
 torch ``Conv2d`` weight is OIHW. The port's CNN flattens its last conv
 output in the reference's (H, W, C) order, so the stem's dense kernel
-needs only the transpose. Optimizer state is not converted.
+needs only the transpose. LayerNorm leaves copy as they are. Optimizer
+state is not converted.
 """
 
 from __future__ import annotations
@@ -39,22 +49,28 @@ def _dense(leaf: Mapping, prefix: str, out: dict) -> None:
     out[f"{prefix}.bias"] = _tensor(leaf["bias"])
 
 
+def _cnn(cnn: Mapping, prefix: str, out: dict) -> None:
+    n_conv = sum(k.startswith("Conv_") for k in cnn)
+    if set(cnn) != {f"Conv_{i}" for i in range(n_conv)} | {"Dense_0"}:
+        raise ValueError(f"unexpected flax NatureCNN tree {sorted(cnn)}")
+    for i in range(n_conv):
+        conv = cnn[f"Conv_{i}"]
+        out[f"{prefix}.convs.{i}.weight"] = _tensor(conv["kernel"], (3, 2, 0, 1))  # HWIO -> OIHW
+        out[f"{prefix}.convs.{i}.bias"] = _tensor(conv["bias"])
+    _dense(cnn["Dense_0"], f"{prefix}.dense", out)
+
+
+def _mlp(node: Mapping, prefix: str, out: dict) -> None:
+    for i in range(len(node)):
+        _dense(node[f"Dense_{i}"], f"{prefix}.layers.{i}", out)
+
+
 def _trunks(tree: Mapping, out: dict) -> None:
     if "NatureCNN_0" in tree:
-        cnn = tree["NatureCNN_0"]
-        n_conv = sum(k.startswith("Conv_") for k in cnn)
-        if set(cnn) != {f"Conv_{i}" for i in range(n_conv)} | {"Dense_0"}:
-            raise ValueError(f"unexpected flax NatureCNN tree {sorted(cnn)}")
-        for i in range(n_conv):
-            conv = cnn[f"Conv_{i}"]
-            out[f"stem.convs.{i}.weight"] = _tensor(conv["kernel"], (3, 2, 0, 1))  # HWIO -> OIHW
-            out[f"stem.convs.{i}.bias"] = _tensor(conv["bias"])
-        _dense(cnn["Dense_0"], "stem.dense", out)
+        _cnn(tree["NatureCNN_0"], "stem", out)
         return
     for flax_name, torch_name in (("MLP_0", "actor"), ("MLP_1", "critic")):
-        node = tree[flax_name]
-        for i in range(len(node)):
-            _dense(node[f"Dense_{i}"], f"{torch_name}.layers.{i}", out)
+        _mlp(tree[flax_name], torch_name, out)
 
 
 def _convert(flax_params: Mapping, head0: str, extra: tuple[str, ...]) -> dict[str, torch.Tensor]:
@@ -82,3 +98,37 @@ def categorical_params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]
     """flax CategoricalPPOModel params, with the MLP or the CNN trunk ->
     the port's params dict (CPU float32 tensors)."""
     return _convert(flax_params, "logits_head", ())
+
+
+def ddpg_params_from_jax(
+    actor_params: Mapping, critic_params: Mapping
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """flax DDPGActor and DDPGCritic params (each ``{'params': {...}}`` or
+    its inner dict, leaves numpy arrays) -> the port's (actor, critic)
+    params dicts (CPU float32 tensors)."""
+    atree = actor_params.get("params", actor_params)
+    trunk = "NatureCNN_0" if "NatureCNN_0" in atree else "MLP_0"
+    if set(atree) != {trunk, "Dense_0"}:
+        raise ValueError(f"unexpected flax DDPGActor tree {sorted(atree)}")
+    actor: dict[str, torch.Tensor] = {}
+    (_cnn if trunk == "NatureCNN_0" else _mlp)(atree[trunk], "trunk", actor)
+    _dense(atree["Dense_0"], "head", actor)
+
+    ctree = critic_params.get("params", critic_params)
+    n_dense = sum(k.startswith("Dense_") for k in ctree)
+    n_norm = sum(k.startswith("LayerNorm_") for k in ctree)
+    expected = {f"Dense_{i}" for i in range(n_dense)} | {f"LayerNorm_{i}" for i in range(n_norm)}
+    if "NatureCNN_0" in ctree:
+        expected.add("NatureCNN_0")
+    if set(ctree) != expected or n_norm not in (0, n_dense - 1):
+        raise ValueError(f"unexpected flax DDPGCritic tree {sorted(ctree)}")
+    critic: dict[str, torch.Tensor] = {}
+    if "NatureCNN_0" in ctree:
+        _cnn(ctree["NatureCNN_0"], "trunk", critic)
+    for i in range(n_dense - 1):
+        _dense(ctree[f"Dense_{i}"], f"layers.{i}", critic)
+    for i in range(n_norm):
+        critic[f"norms.{i}.scale"] = _tensor(ctree[f"LayerNorm_{i}"]["scale"])
+        critic[f"norms.{i}.bias"] = _tensor(ctree[f"LayerNorm_{i}"]["bias"])
+    _dense(ctree[f"Dense_{n_dense - 1}"], "q_head", critic)
+    return actor, critic
