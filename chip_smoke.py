@@ -16,7 +16,9 @@ linear scan, is on no path. Phases, each printing one JSON line:
              at its path's shapes and ragged ones, plus its time, its
              bound, the plain version's time and, where one PyTorch call
              computes the same function, that call's time (GAE, V-trace,
-             replay gather, replay scatter, reverse linear scan);
+             replay gather, replay scatter, reverse linear scan); the two
+             replay kernels also give the launch floor (a one-element
+             fill_) beside their bound;
 4. parity  - one small f32 train iteration (two for DDPG) on the card and
              on the CPU with the same injected randomness (the CPU path is
              the one the tests hold against the JAX package), TF32 off:
@@ -70,6 +72,7 @@ VTRACE_OPS = 21
 DDPG_B, DDPG_H, DDPG_K, DDPG_BS = 2048, 16, 64, 256
 DDPG_CAPACITY = 200_000
 DDPG_ROW_SHAPES = {"obs": (17,), "next_obs": (17,), "action": (4,), "reward": (), "discount": ()}
+DDPG_MANY_ROWS = 64 * 256       # uniform sample_many: 64 batches of 256 in one gather
 WARMUP_ITERS, TIMED_ITERS = 4, 8
 TRAIN_ITERS = WARMUP_ITERS + TIMED_ITERS
 SPIN_CYCLES = 1_000_000         # about 0.5 ms of the card's clock, see time_cuda_ms
@@ -138,6 +141,14 @@ def time_cuda_ms(fn, runs: int, flush: torch.Tensor, spin: bool) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launch_floor_ms(flush: torch.Tensor) -> float:
+    """The card time of a one-element ``fill_``, timed as the kernels are
+    (spin, L2 flushed): the practical floor that a launch of a kernel this
+    small cannot beat."""
+    x = torch.empty(1, device="cuda")
+    return time_cuda_ms(lambda: x.fill_(1.0), runs=30, flush=flush, spin=True)
 
 
 def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, writes: int, ops: int,
@@ -474,10 +485,13 @@ def phase_replay_gather(RR) -> dict:
     """Replay gather kernel vs its plain version (index_select per leaf),
     bit for bit: at the DDPG path's shape (256 rows of the five leaves,
     160 B a row, from a 200,000-row ring), with repeated indices, with the
-    obs leaves in bf16 (34 B rows), and at ragged shapes (3-byte and int64
-    rows, more rows than the ring holds, one row of a 7-row ring). Timed at
-    the path's shape; the library call is index_select per leaf, summed
-    over the five leaves."""
+    obs leaves in bf16 (34 B rows), at uniform sample_many's 16,384 rows,
+    with a uint8 leaf whose base address is odd (1-byte units), and at
+    ragged shapes (3-byte and int64 rows, more rows than the ring holds,
+    one row of a 7-row ring). Timed at the path's shape, and at 16,384
+    rows against that size's byte bound; the library call is index_select
+    per leaf, summed over the five leaves; the launch floor is a
+    one-element fill_."""
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def leaves(capacity, bf16_obs=False):
@@ -498,11 +512,18 @@ def phase_replay_gather(RR) -> dict:
         "ids": torch.randint(0, 2**40, (1000, 2), generator=gen, device="cuda"),
         "reward": torch.randn(1000, generator=gen, device="cuda"),
     }
+    odd = torch.randint(0, 256, (1000 * 16 + 1,), generator=gen, device="cuda").to(torch.uint8)
+    u8_offset = {"u8": odd[1:].view(1000, 16), "reward": ragged["reward"]}
+    if u8_offset["u8"].data_ptr() % 2 != 1:
+        raise AssertionError("the u8_offset leaf is not odd-addressed")
     path = (leaves(DDPG_CAPACITY), indices(DDPG_CAPACITY, DDPG_BS))
+    many_idx = indices(DDPG_CAPACITY, DDPG_MANY_ROWS)
     cases = [
         ("path", *path),
         ("path_duplicates", path[0], indices(DDPG_CAPACITY, DDPG_BS, duplicates=True)),
         ("bf16_obs", leaves(DDPG_CAPACITY, bf16_obs=True), indices(DDPG_CAPACITY, DDPG_BS)),
+        ("sample_many", path[0], many_idx),
+        ("u8_offset", u8_offset, indices(1000, 300)),
         ("ragged", ragged, indices(1000, 3000)),
         ("one_row", leaves(7), indices(7, 1)),
     ]
@@ -526,8 +547,11 @@ def phase_replay_gather(RR) -> dict:
     library_ms = sum(
         time_cuda_ms(lambda x=x: x.index_select(0, idx), runs=30, flush=flush, spin=True) for x in lv.values()
     )
+    floor_ms = launch_floor_ms(flush)
+    many_ms = time_cuda_ms(lambda: RR.gather_rows(lv, many_idx), runs=30, flush=flush, spin=True)
     row_bytes = sum(x[0].numel() * x.element_size() for x in lv.values())
     nbytes = 2 * DDPG_BS * row_bytes + idx.numel() * idx.element_size()
+    many_bytes = 2 * DDPG_MANY_ROWS * row_bytes + many_idx.numel() * many_idx.element_size()
     result = {
         "name": "replay_gather",
         "route": "cuda",
@@ -540,12 +564,15 @@ def phase_replay_gather(RR) -> dict:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+        "launch_floor_ms": floor_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
     }
     emit({"phase": "kernels", "kernel": "replay_gather", "checks": checks,
           "timed_shape": {"rows": DDPG_BS, "capacity": DDPG_CAPACITY, "row_bytes": row_bytes},
           "bound_bytes": nbytes, "ms_with_host_issue": issued_ms,
+          "sample_many": {"rows": DDPG_MANY_ROWS, "ms": many_ms, "bound_bytes": many_bytes,
+                          "bound_ms": many_bytes / H100_BYTES_PER_S * 1e3},
           "library_call": "index_select per leaf, summed over the leaves", **result})
     return result
 
@@ -553,18 +580,27 @@ def phase_replay_gather(RR) -> dict:
 def phase_replay_scatter(RR) -> dict:
     """Replay scatter kernel vs its plain version (index_copy_ of the last
     occurrence of each index), bit for bit: 256 priorities into a
-    200,000-vector with forced duplicates (the path's shape), [n, 3] rows
-    with many duplicates, and one row. Timed at the path's shape; the
-    library call is index_copy_ with unique indices."""
+    200,000-vector with forced duplicates (the path's shape), 256 copies
+    of one index, [n, 3] rows with many duplicates, more rows than one
+    block takes (the grid-wide kernel) with duplicates, and one row.
+    Timed at the path's shape; the library call is index_copy_ with unique
+    indices; the launch floor is a one-element fill_."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     path_idx = torch.randint(0, DDPG_CAPACITY, (DDPG_BS,), generator=gen, device="cuda", dtype=torch.int32)
     path_idx[DDPG_BS // 2:: 4] = path_idx[:DDPG_BS // 8]  # forced duplicates
     cases = [
         ("path_duplicates", torch.rand(DDPG_CAPACITY, generator=gen, device="cuda"), path_idx,
          torch.rand(DDPG_BS, generator=gen, device="cuda")),
+        ("all_same", torch.rand(DDPG_CAPACITY, generator=gen, device="cuda"),
+         torch.full((DDPG_BS,), DDPG_CAPACITY // 3, device="cuda", dtype=torch.int32),
+         torch.rand(DDPG_BS, generator=gen, device="cuda")),
         ("rows3", torch.randn(1000, 3, generator=gen, device="cuda"),
          torch.randint(0, 100, (500,), generator=gen, device="cuda", dtype=torch.int32),
          torch.randn(500, 3, generator=gen, device="cuda")),
+        ("grid_wide", torch.rand(DDPG_CAPACITY, generator=gen, device="cuda"),
+         torch.randint(0, 2 * RR.SCATTER_BLOCK_ROWS, (3 * RR.SCATTER_BLOCK_ROWS,), generator=gen, device="cuda",
+                       dtype=torch.int32),
+         torch.rand(3 * RR.SCATTER_BLOCK_ROWS, generator=gen, device="cuda")),
         ("one_row", torch.randn(7, generator=gen, device="cuda"),
          torch.randint(0, 7, (1,), generator=gen, device="cuda", dtype=torch.int32),
          torch.randn(1, generator=gen, device="cuda")),
@@ -591,6 +627,7 @@ def phase_replay_scatter(RR) -> dict:
     plain_ms = time_cuda_ms(lambda: RR.scatter_rows_plain(dest, idx, upd), runs=30, flush=flush, spin=False)
     unique = torch.randperm(DDPG_CAPACITY, generator=gen, device="cuda")[:DDPG_BS]
     library_ms = time_cuda_ms(lambda: dest.index_copy_(0, unique, upd), runs=30, flush=flush, spin=True)
+    floor_ms = launch_floor_ms(flush)
     nbytes = 3 * 4 * DDPG_BS  # idx and updates read, rows written
     result = {
         "name": "replay_scatter",
@@ -604,6 +641,7 @@ def phase_replay_scatter(RR) -> dict:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+        "launch_floor_ms": floor_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
     }

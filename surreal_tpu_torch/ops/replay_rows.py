@@ -14,6 +14,15 @@ Both copy rows verbatim, so any dtype is bit-exact. Indices are int32 on
 the card (the kernels take int32, as the Pallas kernels do); other integer
 dtypes are cast.
 
+What the kernels need to know about the buffers is worked out here, where
+the CPU tests can hold it: the gather's row plan (:func:`gather_plan`:
+each leaf's copy unit, units per row and threads per row), passed to the
+kernel by value, and the scatter's copy unit (:func:`copy_unit`). A
+scatter of more than :data:`SCATTER_BLOCK_ROWS` rows (or into more rows
+than its 32-bit table words can name) runs grid-wide and takes device
+scratch for its hash table (:func:`scatter_scratch_bytes`), allocated
+here; the kernel allocates nothing.
+
 Routing is by the device of the tensors, never by a switch: on a CUDA
 tensor the wrapper launches the kernel (or raises), on a CPU tensor it
 runs :func:`gather_rows_plain` / :func:`scatter_rows_plain`. Indices are
@@ -30,18 +39,41 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Mapping
+import math
+import struct
+from typing import Mapping, Sequence
 
 import torch
 
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 MAX_LEAVES = 8  # leaves one gather launch carries (csrc/replay_rows.cu)
+GATHER_TASKS = 2  # units of a row one gather thread copies per pass (csrc/replay_rows.cu)
+MAX_GROUP = 128  # gather threads per row at most: one block (csrc/replay_rows.cu)
+SCATTER_BLOCK_ROWS = 1024  # rows the one-block scatter takes; more go grid-wide (csrc/replay_rows.cu)
 _INT32_MAX = 2**31 - 1
+# csrc/replay_rows.cu's GatherPlan: per leaf (src, dst, row_bytes, unit,
+# units, group, pad), then num_leaves and pad, in the C layout
+_PLAN = struct.Struct("@" + "PPqiiii" * MAX_LEAVES + "ii")
 
 
 def _row_bytes(x: torch.Tensor) -> int:
-    return x[0].numel() * x.element_size() if x.shape[0] else 0
+    # from the shape: indexing a row would build a view, a few microseconds
+    # of host time per leaf per launch
+    return math.prod(x.shape[1:]) * x.element_size()
+
+
+def copy_unit(row_bytes: int, *ptrs: int) -> int:
+    """The widest copy unit (16, 8, 4, 2 or 1 bytes) that divides
+    ``row_bytes`` and every base address in ``ptrs``, so that each row of
+    each buffer starts on a unit boundary."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    for unit in (16, 8, 4, 2):
+        if row_bytes % unit == 0 and bits % unit == 0:
+            return unit
+    return 1
 
 
 def _check_idx(idx: torch.Tensor, device: torch.device, capacity: int) -> None:
@@ -65,15 +97,43 @@ def gather_rows_plain(leaves: Mapping[str, torch.Tensor], idx: torch.Tensor) -> 
     return {k: x.index_select(0, idx) for k, x in leaves.items()}
 
 
+def gather_plan(row_bytes: Sequence[int], srcs: Sequence[int], dsts: Sequence[int]) -> tuple:
+    """The gather kernel's row plan for leaves of ``row_bytes`` each, at
+    base addresses ``srcs`` (storage) and ``dsts`` (outputs): one ``(unit,
+    units, group)`` per leaf.
+
+    Each leaf's rows are copied in ``units`` units of ``unit`` bytes
+    (:func:`copy_unit` of its row size and both base addresses), by
+    ``group`` threads a row, thread ``j`` units ``j, j + group, ...``: the
+    largest power of two, up to :data:`MAX_GROUP`, that is no more than
+    the units, so that every thread has a unit and none more than
+    :data:`GATHER_TASKS` (a row of more than ``GATHER_TASKS * MAX_GROUP``
+    units takes passes). A block of the kernel copies rows of one leaf.
+    """
+    return _plan(tuple((b, s % 16, d % 16) for b, s, d in zip(row_bytes, srcs, dsts)))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(leaves: tuple) -> tuple:
+    # base addresses matter only modulo the widest unit (16), so the plan
+    # of a replay dict is built once and reused
+    plan = []
+    for b, s, d in leaves:
+        unit = copy_unit(b, s, d)
+        units = b // unit
+        plan.append((unit, units, min(MAX_GROUP, 1 << (max(units, 1).bit_length() - 1))))
+    return tuple(plan)
+
+
 @functools.cache
 def _gather_kernel():
-    """The gather's C entry point, built and typed once, at first launch."""
-    fn = load_kernel_library("replay_rows").replay_gather
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p,
-    ]
+    """The gather's C entry point, built and typed once, at first launch;
+    checks that the packed plan has the C struct's size."""
+    lib = load_kernel_library("replay_rows")
+    if lib.replay_gather_plan_bytes() != _PLAN.size:
+        raise RuntimeError(f"gather plan packs {_PLAN.size} bytes, the kernel takes {lib.replay_gather_plan_bytes()}")
+    fn = lib.replay_gather
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -83,13 +143,16 @@ def _launch_gather(leaves: Mapping[str, torch.Tensor], idx: torch.Tensor, capaci
     idx = idx.to(torch.int32).contiguous()
     n = idx.shape[0]
     out = {k: torch.empty((n, *x.shape[1:]), dtype=x.dtype, device=x.device) for k, x in leaves.items()}
-    k_leaves = len(leaves)
-    srcs = (ctypes.c_void_p * k_leaves)(*(x.data_ptr() for x in leaves.values()))
-    dsts = (ctypes.c_void_p * k_leaves)(*(y.data_ptr() for y in out.values()))
-    rows = (ctypes.c_longlong * k_leaves)(*(_row_bytes(x) for x in leaves.values()))
+    srcs = [x.data_ptr() for x in leaves.values()]
+    dsts = [y.data_ptr() for y in out.values()]
+    rows = [_row_bytes(x) for x in leaves.values()]
+    fields = []
+    for src, dst, row, leaf_plan in zip(srcs, dsts, rows, gather_plan(rows, srcs, dsts)):
+        fields += [src, dst, row, *leaf_plan, 0]
+    fields += [0] * (7 * (MAX_LEAVES - len(rows))) + [len(rows), 0]
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(srcs, dsts, rows, k_leaves, idx.data_ptr(), n, capacity, stream)
+        err = fn(_PLAN.pack(*fields), idx.data_ptr(), n, capacity, stream)
     if err != 0:
         raise RuntimeError(f"replay gather kernel launch failed: cudaError {err}")
     gather_rows.launches += 1
@@ -142,13 +205,25 @@ def scatter_rows_plain(dest: torch.Tensor, idx: torch.Tensor, updates: torch.Ten
     return dest
 
 
+def scatter_scratch_bytes(n: int, capacity: int) -> int:
+    """Device scratch the scatter of ``n`` rows into ``capacity`` needs.
+    None where the one-block kernel takes it: n up to
+    :data:`SCATTER_BLOCK_ROWS`, and the row index and the position fit
+    one 32-bit word (capacity << ceil(log2 n) < 2**32). Otherwise the
+    grid-wide kernel's hash table: 8-byte slots, the next power of two
+    >= 2n of them."""
+    if n <= SCATTER_BLOCK_ROWS and capacity << max(n - 1, 0).bit_length() < 2**32:
+        return 0
+    return 8 << (2 * n - 1).bit_length()
+
+
 @functools.cache
 def _scatter_kernel():
     """The scatter's C entry point, built and typed once, at first launch."""
     fn = load_kernel_library("replay_rows").replay_scatter
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -158,10 +233,14 @@ def _launch_scatter(dest: torch.Tensor, idx: torch.Tensor, updates: torch.Tensor
     fn = _scatter_kernel()
     idx = idx.to(torch.int32).contiguous()
     upd = updates.to(dest.dtype).contiguous()
+    n, row = idx.shape[0], _row_bytes(dest)
+    nbytes = scatter_scratch_bytes(n, dest.shape[0])
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dest.device) if nbytes else None
     with torch.cuda.device(dest.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(dest.data_ptr(), idx.data_ptr(), upd.data_ptr(), idx.shape[0], _row_bytes(dest),
-                 dest.shape[0], stream)
+        err = fn(dest.data_ptr(), idx.data_ptr(), upd.data_ptr(), n, row,
+                 copy_unit(row, dest.data_ptr(), upd.data_ptr()), dest.shape[0],
+                 scratch.data_ptr() if nbytes else None, nbytes, stream)
     if err != 0:
         raise RuntimeError(f"replay scatter kernel launch failed: cudaError {err}")
     scatter_rows.launches += 1

@@ -152,6 +152,77 @@ def test_wrappers_reject_bad_inputs():
         RS.reverse_linear_scan(torch.ones(3, 2), torch.ones(3, 2), init=torch.zeros(3))
 
 
+# The DDPG path's replay leaves (jax:lift): 160 B a transition.
+DDPG_ROW_SHAPES = {"obs": (17,), "next_obs": (17,), "action": (4,), "reward": (), "discount": ()}
+
+
+def _u8_offset_leaf(capacity, row, device, generator=None):
+    """A uint8 [capacity, row] leaf that is a contiguous slice starting one
+    byte into its buffer, so its base address is odd."""
+    buf = torch.randint(0, 256, (capacity * row + 1,), dtype=torch.uint8, device=device, generator=generator)
+    return buf[1:].view(capacity, row)
+
+
+def _plan_leaves():
+    """Leaf dicts whose row plans differ: DDPG's, bf16 obs, odd-sized and
+    odd-addressed uint8 rows, int64 rows, and one 1-D leaf."""
+    ddpg = {k: torch.zeros((8, *shape)) for k, shape in DDPG_ROW_SHAPES.items()}
+    return [
+        ddpg,
+        {**ddpg, "obs": torch.zeros(8, 17, dtype=torch.bfloat16)},
+        {"u8": _u8_offset_leaf(8, 16, "cpu"), "bytes": torch.zeros(8, 3, dtype=torch.uint8),
+         "ids": torch.zeros(8, 2, dtype=torch.int64)},
+        {"reward": torch.zeros(8)},
+        {"wide": torch.zeros(8, 200)},
+    ]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_gather_plan_units_and_threads(case):
+    """The row plan the gather kernel walks: every unit divides its leaf's
+    row size and both base addresses (16-byte units only where both allow),
+    and each leaf's threads per row are the largest power of two (up to
+    MAX_GROUP) that is no more than its units, so that thread j's units
+    j, j + group, ... cover the row once, at most GATHER_TASKS each."""
+    leaves = _plan_leaves()[case]
+    outs = {k: torch.empty((3, *x.shape[1:]), dtype=x.dtype) for k, x in leaves.items()}
+    rows = [RR._row_bytes(x) for x in leaves.values()]
+    srcs = [x.data_ptr() for x in leaves.values()]
+    dsts = [y.data_ptr() for y in outs.values()]
+    plan = RR.gather_plan(rows, srcs, dsts)
+    assert len(plan) == len(leaves)
+    for row, src, dst, (unit, units, group) in zip(rows, srcs, dsts, plan):
+        assert unit in (16, 8, 4, 2, 1) and unit * units == row
+        assert src % unit == 0 and dst % unit == 0
+        if unit < 16:  # no wider unit would have been legal
+            wider = 2 * unit
+            assert row % wider or src % wider or dst % wider
+        assert group & (group - 1) == 0 and 1 <= group <= max(units, 1)
+        assert group == RR.MAX_GROUP or units < 2 * group
+        copied = sorted(j + k * group for j in range(group) for k in range(-(-units // group)) if j + k * group < units)
+        assert copied == list(range(units))
+    if case == 0:  # DDPG: obs rows in 17 4-byte units, action rows in one 16-byte unit
+        assert plan == ((4, 17, 16), (4, 17, 16), (16, 1, 1), (4, 1, 1), (4, 1, 1))
+    if case == 2:  # the odd-addressed 16-byte rows fall back to bytes
+        assert plan[0] == (1, 16, 16) and plan[2][0] in (16, 8)
+    if case == 4:  # 800-byte rows: 50 16-byte units, 32 threads a row
+        assert plan == ((16, 50, 32),)
+
+
+def test_copy_unit_and_scatter_scratch():
+    assert [RR.copy_unit(b, 0) for b in (16, 32, 24, 12, 6, 3, 0)] == [16, 16, 8, 4, 2, 1, 16]
+    assert RR.copy_unit(16, 0, 4) == 4 and RR.copy_unit(16, 1) == 1 and RR.copy_unit(8, 8, 16) == 8
+    # one block: the row index and the position share a 32-bit word
+    n = RR.SCATTER_BLOCK_ROWS  # positions take log2(n) bits
+    wide = 2 ** (32 - (n - 1).bit_length())
+    assert RR.scatter_scratch_bytes(1, 2**32 - 1) == RR.scatter_scratch_bytes(n, wide - 1) == 0
+    assert RR.scatter_scratch_bytes(256, 200_000) == 0
+    # grid-wide: 8-byte slots, the next power of two >= 2n of them
+    assert RR.scatter_scratch_bytes(n, wide) == 8 * 2 * n
+    assert RR.scatter_scratch_bytes(n + 1, 10) == RR.scatter_scratch_bytes(2 * n, 10) == 8 * 4 * n
+    assert RR.scatter_scratch_bytes(256, 2**24) == 8 * 512  # 24 + 8 bits do not fit 32
+
+
 def _require_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -160,29 +231,41 @@ def _require_card():
 @pytest.mark.cuda
 def test_replay_kernels_match_plain_on_card():
     """Bit-exact on the card: rows copied verbatim (f32, bf16, int64, odd
-    byte counts), duplicates resolved to the last write."""
+    byte counts, an odd-addressed uint8 leaf), duplicates resolved to the
+    last write; the one-block scatter and the grid-wide one (n above
+    SCATTER_BLOCK_ROWS, or row indices too wide for the one-block table),
+    at the low and high end of the rows, every index the same; the DDPG
+    leaves at 256 and at 16,384 rows (uniform sample_many)."""
     _require_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for capacity, n in [(200_000, 256), (7, 1), (1000, 3000)]:
+    for capacity, n in [(200_000, 256), (7, 1), (1000, 3000), (200_000, 16_384)]:
         leaves = {
             "obs": torch.randn(capacity, 17, device="cuda", generator=gen),
             "obs16": torch.randn(capacity, 17, device="cuda", generator=gen).to(torch.bfloat16),
             "bytes": torch.randint(0, 255, (capacity, 3), device="cuda", generator=gen, dtype=torch.uint8),
+            "u8": _u8_offset_leaf(capacity, 16, "cuda", gen),
             "ids": torch.randint(0, 2**40, (capacity, 2), device="cuda", generator=gen),
             "reward": torch.randn(capacity, device="cuda", generator=gen),
         }
+        ddpg = {k: torch.randn((capacity, *shape), device="cuda", generator=gen) for k, shape in DDPG_ROW_SHAPES.items()}
         idx = torch.randint(0, capacity, (n,), device="cuda", generator=gen, dtype=torch.int32)
-        got, want = RR.gather_rows(leaves, idx), RR.gather_rows_plain(leaves, idx)
-        torch.cuda.synchronize()
-        assert all(torch.equal(got[k], want[k]) for k in leaves)
+        for lv in (leaves, ddpg):
+            got, want = RR.gather_rows(lv, idx), RR.gather_rows_plain(lv, idx)
+            torch.cuda.synchronize()
+            assert all(torch.equal(got[k], want[k]) for k in lv)
+    # the scatter: one block; grid-wide above SCATTER_BLOCK_ROWS rows, or
+    # where capacity << log2(n) does not fit 32 bits (2**24 rows at n 256)
+    for capacity, n in [(200_000, 256), (7, 1), (1000, 3000), (200_000, 16_384), (2**24 + 3, 256)]:
         for row_shape in [(), (3,)]:
             dest = torch.randn(capacity, *row_shape, device="cuda", generator=gen)
-            idx = torch.randint(0, min(capacity, 64), (n,), device="cuda", generator=gen, dtype=torch.int32)
             upd = torch.randn(n, *row_shape, device="cuda", generator=gen)
-            got = RR.scatter_rows(dest.clone(), idx, upd)
-            want = RR.scatter_rows_plain(dest.clone(), idx, upd)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want)
+            for idx in (torch.randint(0, min(capacity, 64), (n,), device="cuda", generator=gen, dtype=torch.int32),
+                        torch.randint(max(capacity - 64, 0), capacity, (n,), device="cuda", generator=gen, dtype=torch.int32),
+                        torch.full((n,), capacity // 2, device="cuda", dtype=torch.int32)):
+                got = RR.scatter_rows(dest.clone(), idx, upd)
+                want = RR.scatter_rows_plain(dest.clone(), idx, upd)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
