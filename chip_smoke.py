@@ -13,12 +13,12 @@ linear scan, is on no path. Phases, each printing one JSON line:
 2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
              all started together;
 3. kernels - each kernel against its plain PyTorch version on the card,
-             at its path's shapes and ragged ones, plus its time, its
-             bound, the plain version's time and, where one PyTorch call
-             computes the same function, that call's time (GAE, V-trace,
-             replay gather, replay scatter, reverse linear scan); the two
-             replay kernels also give the launch floor (a one-element
-             fill_) beside their bound;
+             at its path's shapes and ragged ones (for GAE and V-trace
+             also the edges of their shared-memory ring), plus its time,
+             its bound, the launch floor (a one-element fill_), the plain
+             version's time and, where one PyTorch call computes the same
+             function, that call's time (GAE, V-trace, replay gather,
+             replay scatter, reverse linear scan);
 4. parity  - one small f32 train iteration (two for DDPG) on the card and
              on the CPU with the same injected randomness (the CPU path is
              the one the tests hold against the JAX package), TF32 off:
@@ -61,10 +61,14 @@ import torch
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 MAIN_T, MAIN_B = 256, 4096      # GAE's shape on the main path
-KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1)]
 PONG_T, PONG_B = 32, 1024       # V-trace's shape on the IMPALA path
+# the edges of the scan kernels' ring (ops/scan_tiles.py): T longer than the
+# ring, T not a multiple of a stage, B below one tile or not a multiple of
+# 4 (the cp.async copy), several waves of blocks, T below one stage
+SCAN_EDGE_SHAPES = [(1000, 33), (MAIN_T - 1, MAIN_B), (MAIN_T, 5), (PONG_T, PONG_B - 1), (64, 65536), (3, 1000)]
+KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1), *SCAN_EDGE_SHAPES]
 REV_SCAN_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000)]
-VTRACE_SHAPES = [(PONG_T, PONG_B), (1, 1), (7, 1000), (PONG_T, PONG_B + 1)]
+VTRACE_SHAPES = [(PONG_T, PONG_B), (1, 1), (7, 1000), (PONG_T, PONG_B + 1), (PONG_T, 5), *SCAN_EDGE_SHAPES]
 # V-trace's float operations per element (csrc/vtrace.cu): rho 2 (sub,
 # exp), delta 5, recursion 4, vs 1, successor 4, pg advantage 5
 VTRACE_OPS = 21
@@ -115,10 +119,11 @@ def gae_inputs(T: int, B: int, seed: int, device: str) -> list[torch.Tensor]:
     return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
 
 
-def time_cuda_ms(fn, runs: int, flush: torch.Tensor, spin: bool) -> float:
+def time_cuda_ms(fn, runs: int, flush: torch.Tensor | None, spin: bool) -> float:
     """Median CUDA-event time of one call, over ``runs`` calls after two
-    warm-up calls, with L2 flushed before each (the 50 MB L2 would
-    otherwise hold the whole working set between calls).
+    warm-up calls, with L2 flushed before each by zeroing ``flush`` (the
+    50 MB L2 would otherwise hold the whole working set between calls;
+    ``None`` leaves it warm).
 
     With ``spin``, the card then spins for about half a millisecond
     (``torch.cuda._sleep``) before the start event, so that the host has
@@ -131,7 +136,8 @@ def time_cuda_ms(fn, runs: int, flush: torch.Tensor, spin: bool) -> float:
         fn()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -152,17 +158,24 @@ def launch_floor_ms(flush: torch.Tensor) -> float:
 
 
 def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, writes: int, ops: int,
-                 tpu_kernel: str | None = None, extra_bytes_per_b: int = 0) -> dict:
+                 tpu_kernel: str | None = None, extra_bytes_per_b: int = 0, plan=None, counter=None) -> dict:
     """One kernel against its plain version on the card, exactly, at each
-    of ``shapes`` (the first is its path's, which is also timed), with its
-    bound from ``reads`` f32 inputs read and ``writes`` f32 outputs written
-    once each, and ``ops`` f32 operations, per element (plus
-    ``extra_bytes_per_b`` bytes per batch column, e.g. a [B] input)."""
+    of ``shapes`` (the first is its path's, which is also timed, L2
+    flushed and warm), each call one launch, with its bound from ``reads``
+    f32 inputs read and ``writes`` f32 outputs written once each, and
+    ``ops`` f32 operations, per element (plus ``extra_bytes_per_b`` bytes
+    per batch column, e.g. a [B] input), and the launch floor beside it.
+    ``plan(T, B)``, where given, is how the kernel cuts that shape;
+    ``counter`` holds the launch count, where ``wrapper`` does not."""
+    counter = counter or wrapper
     checks = []
     max_abs = 0.0
     for T, B in shapes:
         inputs = make_inputs(T, B, seed=T * 7919 + B, device="cuda")
+        before = counter.launches
         got = wrapper(*inputs)
+        if counter.launches != before + 1:
+            raise AssertionError(f"{name} at [{T}, {B}]: {counter.launches - before} launches, expected 1")
         want = plain(*inputs)
         torch.cuda.synchronize()
         abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -170,14 +183,17 @@ def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, wri
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{name} kernel != plain at [{T}, {B}]: max abs err {abs_err}")
         max_abs = max(max_abs, abs_err)
-        checks.append({"shape": [T, B], "max_abs_err": abs_err, "max_rel_err": rel_err})
+        checks.append({"shape": [T, B], "max_abs_err": abs_err, "max_rel_err": rel_err,
+                       **({"plan": plan(T, B)} if plan else {})})
 
     T, B = shapes[0]
     inputs = make_inputs(T, B, seed=0, device="cuda")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=flush, spin=True)
+    warm_ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=None, spin=True)
     issued_ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=flush, spin=False)
     plain_ms = time_cuda_ms(lambda: plain(*inputs), runs=5, flush=flush, spin=False)
+    floor_ms = launch_floor_ms(flush)
     bytes_ms = ((reads + writes) * 4 * T * B + extra_bytes_per_b * B) / H100_BYTES_PER_S * 1e3
     ops_ms = ops * T * B / H100_F32_FLOPS * 1e3
     result = {
@@ -193,11 +209,22 @@ def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, wri
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_share": max(bytes_ms, ops_ms) / ms,
+        "launch_floor_ms": floor_ms,
         "library_ms": None,  # no single PyTorch call computes either
     }
     emit({"phase": "kernels", "kernel": name, "checks": checks, "timed_shape": [T, B],
-          "ms_with_host_issue": issued_ms, **result})
+          "ms_with_host_issue": issued_ms, "ms_warm_l2": warm_ms, **result})
     return result
+
+
+def scan_plan_of(arrays: int):
+    """(T, B) -> the tile and stage length ops/scan_tiles.py gives the
+    GAE (5 arrays) or V-trace (8) kernel on this card."""
+    from surreal_tpu_torch.ops.scan_tiles import multiprocessors, scan_plan
+
+    sms = multiprocessors(torch.device("cuda", torch.cuda.current_device()))
+    return lambda T, B: scan_plan(T, B, arrays, sms)._asdict()
 
 
 def phase_kernels(ops_gae) -> dict:
@@ -207,7 +234,7 @@ def phase_kernels(ops_gae) -> dict:
     add."""
     return kernel_phase(
         "gae", ops_gae.gae_advantages_masked, ops_gae.gae_masked_plain, gae_inputs, KERNEL_SHAPES,
-        reads=5, writes=2, ops=6,
+        reads=5, writes=2, ops=6, plan=scan_plan_of(5),
     )
 
 
@@ -246,7 +273,7 @@ def phase_vtrace_kernel(ops_vtrace) -> dict:
             raise AssertionError(f"vtrace inputs at [{T}, {B}] do not exercise the clips")
     return kernel_phase(
         "vtrace", ops_vtrace.vtrace_fused, ops_vtrace.vtrace_fused_plain, vtrace_inputs, VTRACE_SHAPES,
-        reads=8, writes=2, ops=VTRACE_OPS,
+        reads=8, writes=2, ops=VTRACE_OPS, plan=scan_plan_of(8),
     )
 
 
@@ -564,8 +591,9 @@ def phase_replay_gather(RR) -> dict:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
-        "launch_floor_ms": floor_ms,
         "bound_by": "bytes",
+        "bound_share": nbytes / H100_BYTES_PER_S * 1e3 / ms,
+        "launch_floor_ms": floor_ms,
         "library_ms": library_ms,
     }
     emit({"phase": "kernels", "kernel": "replay_gather", "checks": checks,
@@ -641,8 +669,9 @@ def phase_replay_scatter(RR) -> dict:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
-        "launch_floor_ms": floor_ms,
         "bound_by": "bytes",
+        "bound_share": nbytes / H100_BYTES_PER_S * 1e3 / ms,
+        "launch_floor_ms": floor_ms,
         "library_ms": library_ms,
     }
     emit({"phase": "kernels", "kernel": "replay_scatter", "checks": checks,
@@ -666,7 +695,7 @@ def phase_rev_scan(RS) -> dict:
     return kernel_phase(
         "rev_scan", lambda *x: (RS.reverse_linear_scan(*x),), lambda *x: (RS.reverse_linear_scan_plain(*x),),
         rev_scan_inputs, REV_SCAN_SHAPES, reads=2, writes=1, ops=2,
-        tpu_kernel="ops/pallas_returns.py::_rev_scan_kernel", extra_bytes_per_b=4,
+        tpu_kernel="ops/pallas_returns.py::_rev_scan_kernel", extra_bytes_per_b=4, counter=RS.reverse_linear_scan,
     )
 
 

@@ -19,6 +19,10 @@ runs :func:`gae_masked_plain`. So in the PPO learner both
 ``gae_impl='xla'`` (the default) and ``'pallas'`` reach the kernel on the
 card; ``'assoc'`` is not ported yet.
 
+The kernel cuts [T, B] into column tiles and time stages; the wrapper
+passes it :func:`~surreal_tpu_torch.ops.scan_tiles.scan_plan`'s choice
+for the shape and the card.
+
 ``gae_advantages_masked.launches`` counts kernel launches (and nothing
 else), so a run can show that its main path went through the kernel.
 """
@@ -30,6 +34,7 @@ import functools
 
 import torch
 
+from surreal_tpu_torch.ops.scan_tiles import ScanPlan, multiprocessors, scan_plan
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 _INT32_MAX = 2**31 - 1
@@ -59,12 +64,13 @@ def gae_masked_plain(
 def _kernel():
     """The kernel's C entry point, built and typed once, at first launch."""
     fn = load_kernel_library("gae").gae_masked_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(inputs: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(inputs: list[torch.Tensor], plan: ScanPlan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launches the kernel, cut by ``plan`` (default: :func:`scan_plan`'s)."""
     T, B = inputs[0].shape
     if T * B > _INT32_MAX:
         raise ValueError(f"[T, B] = [{T}, {B}] exceeds the kernel's int32 index range")
@@ -72,9 +78,10 @@ def _launch(inputs: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
     arrs = [x.to(torch.float32).contiguous() for x in inputs]
     adv = torch.empty((T, B), dtype=torch.float32, device=arrs[0].device)
     tgt = torch.empty_like(adv)
+    plan = plan or scan_plan(T, B, len(arrs), multiprocessors(adv.device))
     with torch.cuda.device(adv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(x.data_ptr() for x in arrs), adv.data_ptr(), tgt.data_ptr(), T, B, stream)
+        err = fn(*(x.data_ptr() for x in arrs), adv.data_ptr(), tgt.data_ptr(), T, B, stream, *plan)
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed: cudaError {err}")
     gae_advantages_masked.launches += 1

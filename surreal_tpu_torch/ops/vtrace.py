@@ -24,6 +24,10 @@ tensor it runs :func:`vtrace_fused_plain`. So in the IMPALA learner both
 ``vtrace_impl='xla'`` (the default) and ``'pallas'`` reach the kernel on
 the card; the ``'assoc'`` forms are not ported yet.
 
+The kernel cuts [T, B] into column tiles and time stages; the wrapper
+passes it :func:`~surreal_tpu_torch.ops.scan_tiles.scan_plan`'s choice
+for the shape and the card.
+
 ``vtrace_fused.launches`` counts kernel launches (and nothing else), so a
 run can show that its main path went through the kernel.
 """
@@ -36,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from surreal_tpu_torch.ops.scan_tiles import ScanPlan, multiprocessors, scan_plan
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 _INT32_MAX = 2**31 - 1
@@ -87,12 +92,16 @@ def _kernel():
     fn = load_kernel_library("vtrace").vtrace_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_int]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(inputs: list[torch.Tensor], clips: tuple[float, float, float]) -> VTraceOutput:
+def _launch(
+    inputs: list[torch.Tensor], clips: tuple[float, float, float], plan: ScanPlan | None = None
+) -> VTraceOutput:
+    """Launches the kernel, cut by ``plan`` (default: :func:`scan_plan`'s)."""
     T, B = inputs[0].shape
     if T * B > _INT32_MAX:
         raise ValueError(f"[T, B] = [{T}, {B}] exceeds the kernel's int32 index range")
@@ -100,9 +109,10 @@ def _launch(inputs: list[torch.Tensor], clips: tuple[float, float, float]) -> VT
     arrs = [x.detach().to(torch.float32).contiguous() for x in inputs]
     vs = torch.empty((T, B), dtype=torch.float32, device=arrs[0].device)
     pg = torch.empty_like(vs)
+    plan = plan or scan_plan(T, B, len(arrs), multiprocessors(vs.device))
     with torch.cuda.device(vs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(x.data_ptr() for x in arrs), vs.data_ptr(), pg.data_ptr(), T, B, *clips, stream)
+        err = fn(*(x.data_ptr() for x in arrs), vs.data_ptr(), pg.data_ptr(), T, B, *clips, stream, *plan)
     if err != 0:
         raise RuntimeError(f"vtrace kernel launch failed: cudaError {err}")
     vtrace_fused.launches += 1

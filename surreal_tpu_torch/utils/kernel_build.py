@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library, and loaded with ``ctypes``.
 The library lands in ``build/torch_kernels/`` at the repository root
-(listed in ``.gitignore``), named by a hash of its source and flags, so an
-edited source rebuilds and an unchanged one is reused.
+(listed in ``.gitignore``), named by a hash of its source, the headers it
+includes from ``csrc/`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 
 Nothing here runs at import time: a kernel is built at its first launch,
 or up front by :func:`build_kernel` (``chip_smoke.py`` does that to time
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -43,10 +45,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes from
+    ``csrc/``, directly or through another header, each once."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, the headers that
+    source includes and the flags, so that an edit to any of them rebuilds."""
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_kernel(name: str) -> None:

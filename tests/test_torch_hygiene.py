@@ -27,7 +27,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    files = sorted(_PKG.rglob("*.py")) + [_REPO / "chip_smoke.py", _REPO / "ab_replay_rows.py"]
+    scripts = ("chip_smoke.py", "ab_replay_rows.py", "ab_scan_kernels.py")
+    files = sorted(_PKG.rglob("*.py")) + [_REPO / name for name in scripts]
     assert len(files) > 20, "the scan did not find the port"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"

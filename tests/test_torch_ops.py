@@ -22,6 +22,7 @@ from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops import gae as G
 from surreal_tpu_torch.ops import running_stats as RS
 from surreal_tpu_torch.ops import vtrace as V
+from surreal_tpu_torch.ops.scan_tiles import RING_STAGES, ScanPlan, scan_plan
 from surreal_tpu_torch.ops.returns import gae_advantages as torch_gae_loop
 
 GAMMA, LAM = 0.99, 0.95
@@ -114,18 +115,72 @@ def test_gae_wrapper_rejects_bad_inputs():
         G.gae_advantages_masked(*(a[0] for a in arrs))
 
 
+# Shapes at the edges of the scan kernels' shared-memory ring
+# (ops/scan_tiles.py): T longer than the ring, T not a multiple of a stage,
+# B below one tile or not a multiple of 4 (the cp.async copy), several waves
+# of blocks, T below one stage.
+SCAN_EDGE_SHAPES = [(1000, 33), (255, 4096), (256, 5), (32, 1023), (64, 65536), (3, 1000)]
+
+
 @pytest.mark.cuda
 def test_gae_kernel_matches_plain_on_card():
     """Bit-exact on the card: the kernel rounds where the plain version
-    does (no FMA contraction, see csrc/gae.cu)."""
+    does (no FMA contraction, see csrc/gae.cu), one launch a call, at the
+    path's shape, ragged ones and the ring's edges; and at a plan whose
+    ring needs more than 48 KB of shared memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for T, B in [(256, 4097), (7, 1000), (1, 1)]:
+    big = ScanPlan(tile=32, steps=16)
+    assert big.shared_bytes(256, 5) > 48 * 1024
+    for T, B in [(256, 4097), (7, 1000), (1, 1), (256, 4096), *SCAN_EDGE_SHAPES]:
         arrs = [x.cuda() for x in _t(*_gae_inputs(T, B, seed=T))]
-        adv, tgt = G.gae_advantages_masked(*arrs)
-        ref_adv, ref_tgt = G.gae_masked_plain(*arrs)
+        before = G.gae_advantages_masked.launches
+        got = G.gae_advantages_masked(*arrs)
+        want = G.gae_masked_plain(*arrs)
         torch.cuda.synchronize()
-        assert torch.equal(adv, ref_adv) and torch.equal(tgt, ref_tgt)
+        assert G.gae_advantages_masked.launches == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (T, B)
+        if (T, B) == (256, 4096):
+            assert all(torch.equal(g, w) for g, w in zip(G._launch(arrs, big), want))
+
+
+@pytest.mark.parametrize("arrays", [5, 8])
+@pytest.mark.parametrize("T, B", [(1, 1), (7, 1000), (256, 4096), (32, 1024), *SCAN_EDGE_SHAPES])
+def test_scan_plan_fills_the_card_and_fits_the_ring(T, B, arrays):
+    """The tile is the widest that gives at least half of 132 SMs a block
+    (else the narrowest); a stage holds whole 128 B of each array, and the
+    whole T where that slab fits 16 KB, else at most an eighth of T and 5 KB
+    (where that leaves a whole 128 B); the ring fits in 48 KB."""
+    plan = scan_plan(T, B, arrays, sms=132)
+    blocks = -(-B // plan.tile)
+    wider = [w for w in (16, 32) if w > plan.tile]
+    assert blocks * 2 >= 132 or plan.tile == 8
+    assert all(-(-B // w) * 2 < 132 for w in wider)
+    align = 32 // plan.tile
+    assert plan.steps >= 1 and plan.steps % align == 0
+    if 4 * arrays * plan.tile * T <= 16 * 1024:
+        assert T <= plan.steps < T + align
+    else:
+        assert plan.steps - align < max(1, -(-T // RING_STAGES))
+        assert plan.steps == align or plan.steps * plan.tile * arrays * 4 <= 5 * 1024
+    assert plan.shared_bytes(T, arrays) <= 48 * 1024
+
+
+def test_scan_plan_at_the_path_shapes_and_edges():
+    """GAE at PPO's [256, 4096]: 128 blocks of 32 columns, stages of 8
+    timesteps. V-trace at IMPALA's [32, 1024]: 128 blocks of 8 columns, and
+    one stage holds all 32 timesteps. The edge shapes land where the card
+    tests need them."""
+    assert scan_plan(256, 4096, 5, sms=132) == ScanPlan(tile=32, steps=8)
+    assert scan_plan(32, 1024, 8, sms=132) == ScanPlan(tile=8, steps=32)
+    long_t = scan_plan(1000, 33, 5, sms=132)
+    assert long_t.steps * RING_STAGES < 1000            # T longer than the ring
+    assert 255 % scan_plan(255, 4096, 5, sms=132).steps  # a partial last stage
+    assert scan_plan(256, 5, 5, sms=132).tile > 5        # B below one tile
+    assert scan_plan(3, 1000, 5, sms=132).steps > 3      # T below one stage
+    assert -(-65536 // scan_plan(64, 65536, 5, sms=132).tile) > 132 * 4  # several waves
+    with pytest.raises(ValueError):
+        scan_plan(0, 4, 5, sms=132)
 
 
 # V-trace tolerance: the reference's own bar for its kernel-vs-scan tests
@@ -214,10 +269,13 @@ def test_vtrace_wrapper_never_builds_the_kernel_for_cpu_tensors(monkeypatch):
 def test_vtrace_kernel_matches_plain_on_card():
     """Bit-exact on the card: the kernel rounds where the plain version does
     (non-contracting _rn intrinsics, see csrc/vtrace.cu), and rho is expf
-    in both."""
+    in both; one launch a call, at the path's shape, ragged ones and the
+    ring's edges, and at a plan whose ring needs more than 48 KB."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for T, B in [(32, 1025), (7, 1000), (1, 1)]:
+    big = ScanPlan(tile=16, steps=32)
+    assert big.shared_bytes(255, 8) > 48 * 1024
+    for T, B in [(32, 1025), (7, 1000), (1, 1), (32, 1024), *SCAN_EDGE_SHAPES]:
         kw = _vtrace_inputs(T, B, seed=T)
         done = torch.from_numpy(kw["done"]).float().cuda()
         arrs = [torch.from_numpy(kw[k]).cuda() for k in ("behaviour_logp", "target_logp", "rewards")]
@@ -230,7 +288,9 @@ def test_vtrace_kernel_matches_plain_on_card():
         want = V.vtrace_fused_plain(*inputs, 1.0, 0.9, 1.1)
         torch.cuda.synchronize()
         assert V.vtrace_fused.launches == before + 1
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (T, B)
+        if (T, B) == (255, 4096):
+            assert all(torch.equal(g, w) for g, w in zip(V._launch(inputs, (1.0, 0.9, 1.1), big), want))
 
 
 @jax.jit
