@@ -4,44 +4,52 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 (any
 sm_90 card) and the CUDA toolkit. Three paths are driven: PPO on jax:lift
-(the GAE kernel), IMPALA on pixel jax:pong (the V-trace kernel) and DDPG
-with prioritized replay on jax:lift (the replay gather and scatter
-kernels). Five kernels are built and checked; the fifth, the reverse
-linear scan, is on no path. Phases, each printing one JSON line:
+(the GAE kernel; at gae_impl='assoc' the reverse linear scan), IMPALA on
+pixel jax:pong (the V-trace kernel; at vtrace_impl='assoc' the reverse
+linear scan) and DDPG with prioritized replay on jax:lift (the replay
+gather and scatter kernels). Five kernels are built and checked. Phases,
+each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
 2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
              all started together;
 3. kernels - each kernel against its plain PyTorch version on the card,
-             at its path's shapes and ragged ones (for GAE and V-trace
-             also the edges of their shared-memory ring), plus its time,
-             its bound, the launch floor (a one-element fill_), the plain
-             version's time and, where one PyTorch call computes the same
-             function, that call's time (GAE, V-trace, replay gather,
-             replay scatter, reverse linear scan);
+             at its path's shapes and ragged ones (for the three scan
+             kernels also the edges of their shared-memory ring), plus its
+             time, its bound, a copy_ of as many bytes (the scans), the
+             launch floor (a one-element fill_), the plain version's time
+             and, where one PyTorch call computes the same function, that
+             call's time (GAE, V-trace, replay gather, replay scatter,
+             reverse linear scan; the scan also at IMPALA's shape);
 4. parity  - one small f32 train iteration (two for DDPG) on the card and
              on the CPU with the same injected randomness (the CPU path is
-             the one the tests hold against the JAX package), TF32 off:
-             PPO on jax:lift, IMPALA on jax:pong, DDPG on jax:lift under
-             uniform and under prioritized replay;
+             the one the tests hold against the JAX package), TF32 off,
+             with the launches of each scan kernel counted on the card:
+             PPO on jax:lift at gae_impl 'xla' and 'assoc', IMPALA on
+             jax:pong at vtrace_impl 'xla' and 'assoc', DDPG on jax:lift
+             under uniform and under prioritized replay;
 5. train   - ``Trainer(config).run`` / ``OffPolicyTrainer(config).run``
-             with four warm-up iterations and eight timed ones; checks
-             finite metrics and that every iteration launched its path's
-             kernels as often as the path says:
+             with four warm-up iterations and eight timed ones (two and
+             four at 'assoc'); checks finite metrics and that every
+             iteration launched its path's kernels as often as the path
+             says:
              PPO at the north-star geometry (MLP 64x64, jax:lift, 4096
-             envs x 256 steps, 4 epochs x 4 minibatches, 'mixed'), then
-             IMPALA at the pong geometry (NatureCNN (32, 64, 64) / (8, 4,
-             3) / (4, 2, 1) / 512, jax:pong [42, 42, 2] uint8 pixels, 1024
-             envs x 32 steps, 'mixed'), then DDPG at its headline
-             geometry (actor and critic 64x64 tanh with LayerNorm,
-             jax:lift, 2048 envs x 16 steps, 64 updates of 256 per
-             iteration, prioritized replay of 200,000, 'mixed'), with one
-             more DDPG iteration under ``torch.cuda.set_sync_debug_mode
+             envs x 256 steps, 4 epochs x 4 minibatches, 'mixed'), at
+             gae_impl 'xla' and 'assoc', then IMPALA at the pong geometry
+             (NatureCNN (32, 64, 64) / (8, 4, 3) / (4, 2, 1) / 512,
+             jax:pong [42, 42, 2] uint8 pixels, 1024 envs x 32 steps,
+             'mixed') at vtrace_impl 'xla' and 'assoc', then DDPG at its
+             headline geometry (actor and critic 64x64 tanh with
+             LayerNorm, jax:lift, 2048 envs x 16 steps, 64 updates of 256
+             per iteration, prioritized replay of 200,000, 'mixed'), with
+             one more DDPG iteration under ``torch.cuda.set_sync_debug_mode
              ("error")`` to show that it makes no host sync.
 
-Then the kernels summary line, the nvidia-smi line, and as the last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without CUDA, or outside a checkout, it exits non-zero before printing.
+Then the kernels summary line (each kernel's launches from its path's
+train phase: the reverse scan's from PPO at 'assoc'), the nvidia-smi line,
+and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
+and exits non-zero; without CUDA, or outside a checkout, it exits
+non-zero before printing.
 """
 
 from __future__ import annotations
@@ -67,7 +75,10 @@ PONG_T, PONG_B = 32, 1024       # V-trace's shape on the IMPALA path
 # 4 (the cp.async copy), several waves of blocks, T below one stage
 SCAN_EDGE_SHAPES = [(1000, 33), (MAIN_T - 1, MAIN_B), (MAIN_T, 5), (PONG_T, PONG_B - 1), (64, 65536), (3, 1000)]
 KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1), *SCAN_EDGE_SHAPES]
-REV_SCAN_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000)]
+# the reverse scan runs at PPO's and IMPALA's shapes (the 'assoc' forms); its
+# 8 KB stages hold all of T = 1000 in the ring at 33 columns, so two shapes
+# more wrap the ring, under cp.async and under TMA
+REV_SCAN_SHAPES = [*KERNEL_SHAPES, (PONG_T, PONG_B), (2000, 33), (2 * MAIN_T, MAIN_B)]
 VTRACE_SHAPES = [(PONG_T, PONG_B), (1, 1), (7, 1000), (PONG_T, PONG_B + 1), (PONG_T, 5), *SCAN_EDGE_SHAPES]
 # V-trace's float operations per element (csrc/vtrace.cu): rho 2 (sub,
 # exp), delta 5, recursion 4, vs 1, successor 4, pg advantage 5
@@ -79,6 +90,7 @@ DDPG_ROW_SHAPES = {"obs": (17,), "next_obs": (17,), "action": (4,), "reward": ()
 DDPG_MANY_ROWS = 64 * 256       # uniform sample_many: 64 batches of 256 in one gather
 WARMUP_ITERS, TIMED_ITERS = 4, 8
 TRAIN_ITERS = WARMUP_ITERS + TIMED_ITERS
+ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS = 2, 4  # the 'assoc' train phases, shorter
 SPIN_CYCLES = 1_000_000         # about 0.5 ms of the card's clock, see time_cuda_ms
 KERNEL_SOURCES = ["gae", "vtrace", "replay_rows", "rev_scan"]  # csrc/<name>.cu
 KERNEL_REPLACES = {  # the TPU kernel body each CUDA kernel replaces
@@ -158,15 +170,18 @@ def launch_floor_ms(flush: torch.Tensor) -> float:
 
 
 def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, writes: int, ops: int,
-                 tpu_kernel: str | None = None, extra_bytes_per_b: int = 0, plan=None, counter=None) -> dict:
+                 tpu_kernel: str | None = None, extra_bytes_per_b: int = 0, plan=None, counter=None,
+                 also_timed=()) -> dict:
     """One kernel against its plain version on the card, exactly, at each
     of ``shapes`` (the first is its path's, which is also timed, L2
-    flushed and warm), each call one launch, with its bound from ``reads``
-    f32 inputs read and ``writes`` f32 outputs written once each, and
-    ``ops`` f32 operations, per element (plus ``extra_bytes_per_b`` bytes
-    per batch column, e.g. a [B] input), and the launch floor beside it.
-    ``plan(T, B)``, where given, is how the kernel cuts that shape;
-    ``counter`` holds the launch count, where ``wrapper`` does not."""
+    flushed and warm, beside one ``copy_`` of as many bytes), each call one
+    launch, with its bound from ``reads`` f32 inputs read and ``writes``
+    f32 outputs written once each, and ``ops`` f32 operations, per element
+    (plus ``extra_bytes_per_b`` bytes per batch column, e.g. a [B] input),
+    and the launch floor beside it. ``plan(T, B)``, where given, is how the
+    kernel cuts that shape; ``counter`` holds the launch count, where
+    ``wrapper`` does not; ``also_timed`` are more shapes timed the same way
+    (another path's)."""
     counter = counter or wrapper
     checks = []
     max_abs = 0.0
@@ -186,16 +201,30 @@ def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, wri
         checks.append({"shape": [T, B], "max_abs_err": abs_err, "max_rel_err": rel_err,
                        **({"plan": plan(T, B)} if plan else {})})
 
-    T, B = shapes[0]
-    inputs = make_inputs(T, B, seed=0, device="cuda")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=flush, spin=True)
-    warm_ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=None, spin=True)
+
+    def bound_ms(T, B):
+        bytes_ms = ((reads + writes) * 4 * T * B + extra_bytes_per_b * B) / H100_BYTES_PER_S * 1e3
+        ops_ms = ops * T * B / H100_F32_FLOPS * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    def timed(T, B):
+        inputs = make_inputs(T, B, seed=0, device="cuda")
+        src = torch.empty(((reads + writes) * 4 * T * B + extra_bytes_per_b * B) // 8, device="cuda")
+        dst = torch.empty_like(src)
+        ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=flush, spin=True)
+        return inputs, {
+            "shape": [T, B], "ms": ms, "bound_ms": bound_ms(T, B)[0], "bound_share": bound_ms(T, B)[0] / ms,
+            "ms_warm_l2": time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=None, spin=True),
+            "copy_same_bytes_ms": time_cuda_ms(lambda: dst.copy_(src), runs=30, flush=flush, spin=True),
+        }
+
+    T, B = shapes[0]
+    inputs, main = timed(T, B)
     issued_ms = time_cuda_ms(lambda: wrapper(*inputs), runs=30, flush=flush, spin=False)
     plain_ms = time_cuda_ms(lambda: plain(*inputs), runs=5, flush=flush, spin=False)
     floor_ms = launch_floor_ms(flush)
-    bytes_ms = ((reads + writes) * 4 * T * B + extra_bytes_per_b * B) / H100_BYTES_PER_S * 1e3
-    ops_ms = ops * T * B / H100_F32_FLOPS * 1e3
+    bound, bound_by = bound_ms(T, B)
     result = {
         "name": name,
         "route": "cuda",
@@ -205,26 +234,29 @@ def kernel_phase(name: str, wrapper, plain, make_inputs, shapes, reads: int, wri
         "max_abs_err": max_abs,
         "max_err": max_abs,
         "tolerance": "exact (0)",
-        "ms": ms,
+        "ms": main["ms"],
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bound_share": max(bytes_ms, ops_ms) / ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "bound_share": bound / main["ms"],
         "launch_floor_ms": floor_ms,
         "library_ms": None,  # no single PyTorch call computes either
     }
     emit({"phase": "kernels", "kernel": name, "checks": checks, "timed_shape": [T, B],
-          "ms_with_host_issue": issued_ms, "ms_warm_l2": warm_ms, **result})
+          "ms_with_host_issue": issued_ms, "ms_warm_l2": main["ms_warm_l2"],
+          "copy_same_bytes_ms": main["copy_same_bytes_ms"],
+          "also_timed": [timed(*shape)[1] for shape in also_timed], **result})
     return result
 
 
-def scan_plan_of(arrays: int):
+def scan_plan_of(arrays: int, **budget):
     """(T, B) -> the tile and stage length ops/scan_tiles.py gives the
-    GAE (5 arrays) or V-trace (8) kernel on this card."""
+    GAE (5 arrays), V-trace (8) or reverse scan (2, with its own stage
+    budget) kernel on this card."""
     from surreal_tpu_torch.ops.scan_tiles import multiprocessors, scan_plan
 
     sms = multiprocessors(torch.device("cuda", torch.cuda.current_device()))
-    return lambda T, B: scan_plan(T, B, arrays, sms)._asdict()
+    return lambda T, B: scan_plan(T, B, arrays, sms, **budget)._asdict()
 
 
 def phase_kernels(ops_gae) -> dict:
@@ -277,9 +309,26 @@ def phase_vtrace_kernel(ops_vtrace) -> dict:
     )
 
 
-def phase_parity(Config, base_config, Trainer) -> None:
-    """One small f32 iteration on the card and on the CPU from the same
-    weights and the same injected draws. Tolerances: the rollout is f32
+def count_launches(counters: dict, fn):
+    """fn() with every kernel wrapper's launch count set to 0 just before
+    and read just after; ``counters`` maps a kernel's name to (wrapper,
+    launches expected), and each must have launched exactly that often.
+    Returns (fn's result, the counts)."""
+    for wrapper, _ in counters.values():
+        wrapper.launches = 0
+    out = fn()
+    launches = {name: wrapper.launches for name, (wrapper, _) in counters.items()}
+    for name, (_, expected) in counters.items():
+        if launches[name] != expected:
+            raise AssertionError(f"{name} kernel launched {launches[name]} times, expected {expected}")
+    return out, launches
+
+
+def phase_parity(Config, base_config, Trainer, gae_impl: str = "xla", counters: dict | None = None) -> None:
+    """One small f32 iteration at ``gae_impl`` on the card and on the CPU
+    from the same weights and the same injected draws; on the card each
+    kernel of ``counters`` (see count_launches) launches as often as it
+    says. Tolerances: the rollout is f32
     elementwise physics and small matmuls, whose transcendental functions
     and sums round differently on the two devices (1e-4); the metrics sum
     sixteen Adam steps (1e-3 relative). The update-ratio metric is held
@@ -292,7 +341,7 @@ def phase_parity(Config, base_config, Trainer) -> None:
     B, T, epochs, num_mb = 64, 32, 4, 4
     cfg = Config(
         learner_config=Config(algo=Config(
-            name="ppo", horizon=T, epochs=epochs, num_minibatches=num_mb, precision="f32")),
+            name="ppo", horizon=T, epochs=epochs, num_minibatches=num_mb, precision="f32", gae_impl=gae_impl)),
         env_config=Config(name="jax:lift", num_envs=B, time_limit=20),
         session_config=Config(folder="unused"),
     ).extend(base_config())
@@ -304,14 +353,18 @@ def phase_parity(Config, base_config, Trainer) -> None:
     bpm = _block_layout(T * B, num_mb, 17 * 4)
     domain = num_mb * bpm if bpm else T * B
     perms = torch.stack([torch.randperm(domain, generator=gen) for _ in range(epochs)])
-    out = {}
+    out, launches = {}, {}
     for dev in ("cuda", "cpu"):
         tr = Trainer(cfg, device=dev)
         state = tr.learner.init(torch.Generator().manual_seed(0))
         carry = tr.init_loop_state(reset_draws=draws_init.to(dev))
-        state, carry, metrics = tr._device_train_iter(
+        iteration = lambda: tr._device_train_iter(  # noqa: E731
             state, carry, action_noise=noise.to(dev), reset_draws=draws.to(dev), perms=perms.to(dev),
         )
+        if dev == "cuda" and counters:
+            (state, carry, metrics), launches = count_launches(counters, iteration)
+        else:
+            state, carry, metrics = iteration()
         out[dev] = (carry.obs.cpu(), {k: float(v) for k, v in metrics.items()})
     obs_err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
     if obs_err > 1e-4:
@@ -323,14 +376,15 @@ def phase_parity(Config, base_config, Trainer) -> None:
         if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
             raise AssertionError(f"metric {k}: cuda {got} vs cpu {want}")
         errs[k] = abs(got - want)
-    emit({"phase": "parity", "num_envs": B, "horizon": T, "final_obs_max_abs_err": obs_err,
-          "metric_abs_err": errs})
+    emit({"phase": "parity", "gae_impl": gae_impl, "launches": launches, "num_envs": B, "horizon": T,
+          "final_obs_max_abs_err": obs_err, "metric_abs_err": errs})
 
 
-def pong_config(Config, base_config, num_envs: int, horizon: int, precision: str, cnn: dict, **env):
+def pong_config(Config, base_config, num_envs: int, horizon: int, precision: str, cnn: dict,
+                vtrace_impl: str = "xla", **env):
     return Config(
         learner_config=Config(
-            algo=Config(name="impala", horizon=horizon, precision=precision),
+            algo=Config(name="impala", horizon=horizon, precision=precision, vtrace_impl=vtrace_impl),
             model=Config(cnn=Config(enabled=True, **cnn)),
         ),
         env_config=Config(name="jax:pong", num_envs=num_envs, **env),
@@ -338,11 +392,13 @@ def pong_config(Config, base_config, num_envs: int, horizon: int, precision: str
     ).extend(base_config())
 
 
-def phase_parity_impala(Config, base_config, Trainer) -> None:
-    """One small f32 IMPALA iteration on jax:pong (narrow NatureCNN, dense
-    64, 8 envs x 16 steps, time limit 6 so envs reset mid-rollout) on the
-    card and on the CPU, from the same weights and the same injected draws
-    (Gumbel noise, Pong's serve and reset draws). TF32 is off for cuDNN
+def phase_parity_impala(Config, base_config, Trainer, vtrace_impl: str = "xla", counters: dict | None = None) -> None:
+    """One small f32 IMPALA iteration at ``vtrace_impl`` on jax:pong
+    (narrow NatureCNN, dense 64, 8 envs x 16 steps, time limit 6 so envs
+    reset mid-rollout) on the card and on the CPU, from the same weights
+    and the same injected draws (Gumbel noise, Pong's serve and reset
+    draws); on the card each kernel of ``counters`` (see count_launches)
+    launches as often as it says. TF32 is off for cuDNN
     and matmuls (utils/device.py), so both devices convolve in f32.
     Tolerances: the pixels are thresholds on f32 positions that the two
     devices compute with the same elementwise operations, and the actions
@@ -353,7 +409,8 @@ def phase_parity_impala(Config, base_config, Trainer) -> None:
     whose gradient is near zero moves by up to lr on a last-bit difference
     of its gradient sum."""
     B, T = 8, 16
-    cfg = pong_config(Config, base_config, B, T, "f32", dict(channels=(16, 32, 32), dense=64), time_limit=6)
+    cfg = pong_config(Config, base_config, B, T, "f32", dict(channels=(16, 32, 32), dense=64),
+                      vtrace_impl=vtrace_impl, time_limit=6)
     gen = torch.Generator().manual_seed(2)
     u = lambda *shape: torch.rand(shape, generator=gen)  # noqa: E731
     side = lambda *shape: (u(*shape) < 0.5).float()  # noqa: E731
@@ -361,15 +418,19 @@ def phase_parity_impala(Config, base_config, Trainer) -> None:
     reset_draws = torch.stack([u(T, B) * 0.04 - 0.02, side(T, B)], dim=2)
     step_draws = u(T, B, 1) * 0.04 - 0.02
     gumbel = -torch.log(-torch.log(u(T, B, 3).clamp_min(1e-20)))
-    out = {}
+    out, launches = {}, {}
     for dev in ("cuda", "cpu"):
         tr = Trainer(cfg, device=dev)
         state = tr.learner.init(torch.Generator().manual_seed(0))
         carry = tr.init_loop_state(reset_draws=init_draws.to(dev))
-        state, carry, metrics = tr._device_train_iter(
+        iteration = lambda: tr._device_train_iter(  # noqa: E731
             state, carry, action_noise=gumbel.to(dev), reset_draws=reset_draws.to(dev),
             step_draws=step_draws.to(dev),
         )
+        if dev == "cuda" and counters:
+            (state, carry, metrics), launches = count_launches(counters, iteration)
+        else:
+            state, carry, metrics = iteration()
         out[dev] = (carry.obs.cpu(), {k: float(v) for k, v in metrics.items()})
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on; the f32 parity phase needs it off")
@@ -382,19 +443,21 @@ def phase_parity_impala(Config, base_config, Trainer) -> None:
         if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
             raise AssertionError(f"impala metric {k}: cuda {got} vs cpu {want}")
         errs[k] = abs(got - want)
-    emit({"phase": "parity", "path": "impala", "env": "jax:pong", "num_envs": B, "horizon": T,
+    emit({"phase": "parity", "path": "impala", "vtrace_impl": vtrace_impl, "launches": launches,
+          "env": "jax:pong", "num_envs": B, "horizon": T,
           "tf32": False, "final_obs_equal": True, "metric_abs_err": errs})
 
 
-def timed_run(trainer, counters: dict):
-    """``trainer.run`` for TRAIN_ITERS iterations on the card, with every
-    kernel wrapper's launch count set to 0 just before and read just
+def timed_run(trainer, counters: dict, warmup: int = WARMUP_ITERS, timed: int = TIMED_ITERS):
+    """``trainer.run`` for ``warmup + timed`` iterations on the card, with
+    every kernel wrapper's launch count set to 0 just before and read just
     after; ``counters`` maps a kernel's name to (wrapper, launches per
     iteration), and each must have launched exactly that often. Checks
     that every metric is finite. Returns (state, timing and count
     fields)."""
     if trainer.device.type != "cuda":
         raise AssertionError(f"Trainer ran on {trainer.device}")
+    iters = warmup + timed
     stamps = []
 
     def on_metrics(iteration, metrics):
@@ -403,31 +466,25 @@ def timed_run(trainer, counters: dict):
         stamps.append((iteration, time.perf_counter(), metrics))
 
     torch.cuda.reset_peak_memory_stats()
-    for wrapper, _ in counters.values():
-        wrapper.launches = 0
     t0 = time.perf_counter()
-    state, _ = trainer.run(max_env_steps=TRAIN_ITERS * trainer.steps_per_iter, on_metrics=on_metrics)
-    launches = {name: wrapper.launches for name, (wrapper, _) in counters.items()}
+    (state, _), launches = count_launches(
+        {name: (wrapper, per_iter * iters) for name, (wrapper, per_iter) in counters.items()},
+        lambda: trainer.run(max_env_steps=iters * trainer.steps_per_iter, on_metrics=on_metrics),
+    )
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if len(stamps) != TRAIN_ITERS:
-        raise AssertionError(f"expected {TRAIN_ITERS} iterations, got {len(stamps)}")
-    for name, (_, per_iter) in counters.items():
-        if launches[name] != per_iter * TRAIN_ITERS:
-            raise AssertionError(
-                f"{name} kernel launched {launches[name]} times in {TRAIN_ITERS} iterations, "
-                f"expected {per_iter} per iteration"
-            )
+    if len(stamps) != iters:
+        raise AssertionError(f"expected {iters} iterations, got {len(stamps)}")
     for _, _, metrics in stamps:
         for k, v in metrics.items():
             if not math.isfinite(v) and not (k == "episode/return" and math.isnan(v)):
                 raise AssertionError(f"metric {k} is {v}")
     # iter_ms[i] is iteration i + 2; the median is over the timed ones
     iter_ms = [(b[1] - a[1]) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    median_ms = statistics.median(iter_ms[WARMUP_ITERS - 1:])
+    median_ms = statistics.median(iter_ms[warmup - 1:])
     return state, {
         "first_iter_ms": (stamps[0][1] - t0) * 1e3,
         "iter_ms": iter_ms,
-        "warmup_iters": WARMUP_ITERS, "timed_iters": TIMED_ITERS,
+        "warmup_iters": warmup, "timed_iters": timed,
         "iter_ms_median": median_ms,
         "env_steps_per_s": trainer.steps_per_iter / (median_ms / 1e3),
         **{f"{name}_launches": n for name, n in launches.items()},
@@ -437,16 +494,22 @@ def timed_run(trainer, counters: dict):
     }
 
 
-def phase_train(Config, base_config, Trainer, ops_gae) -> dict:
+def phase_train(Config, base_config, Trainer, counters: dict, gae_impl: str = "xla",
+                warmup: int = WARMUP_ITERS, timed: int = TIMED_ITERS) -> dict:
+    """PPO at the north-star geometry (4096 envs x 256 steps, 4 epochs x 4
+    minibatches, 'mixed') at ``gae_impl``; ``counters`` as timed_run takes
+    them."""
     cfg = Config(
-        learner_config=Config(algo=Config(name="ppo", horizon=MAIN_T, epochs=4, num_minibatches=4, precision="mixed")),
+        learner_config=Config(algo=Config(
+            name="ppo", horizon=MAIN_T, epochs=4, num_minibatches=4, precision="mixed", gae_impl=gae_impl)),
         env_config=Config(name="jax:lift", num_envs=MAIN_B),
         session_config=Config(folder="unused", metrics=Config(every_n_iters=1)),
     ).extend(base_config())
     trainer = Trainer(cfg)  # the default device: the card
-    state, timing = timed_run(trainer, {"gae": (ops_gae.gae_advantages_masked, 1)})
+    state, timing = timed_run(trainer, counters, warmup, timed)
     result = {
         "phase": "train",
+        "gae_impl": gae_impl,
         "num_envs": MAIN_B, "horizon": MAIN_T, "epochs": 4, "num_minibatches": 4,
         "precision": "mixed",
         **timing,
@@ -456,16 +519,19 @@ def phase_train(Config, base_config, Trainer, ops_gae) -> dict:
     return result
 
 
-def phase_train_impala(Config, base_config, Trainer, ops_vtrace) -> dict:
+def phase_train_impala(Config, base_config, Trainer, counters: dict, vtrace_impl: str = "xla",
+                       warmup: int = WARMUP_ITERS, timed: int = TIMED_ITERS) -> dict:
     """IMPALA at the pong geometry: the default NatureCNN, 1024 envs x 32
     steps, 'mixed', IMPALA's defaults (lr 6e-4, clip levels 1.0, value
-    coefficient 0.5, entropy coefficient 0.01)."""
-    cfg = pong_config(Config, base_config, PONG_B, PONG_T, "mixed", {})
+    coefficient 0.5, entropy coefficient 0.01), at ``vtrace_impl``;
+    ``counters`` as timed_run takes them."""
+    cfg = pong_config(Config, base_config, PONG_B, PONG_T, "mixed", {}, vtrace_impl=vtrace_impl)
     trainer = Trainer(cfg)  # the default device: the card
-    state, timing = timed_run(trainer, {"vtrace": (ops_vtrace.vtrace_fused, 1)})
+    state, timing = timed_run(trainer, counters, warmup, timed)
     result = {
         "phase": "train",
         "path": "impala",
+        "vtrace_impl": vtrace_impl,
         "env": "jax:pong",
         "num_envs": PONG_B, "horizon": PONG_T, "precision": "mixed",
         "cnn": {k: list(v) if isinstance(v, tuple) else v for k, v in trainer.learner.model_cfg["cnn"].items()},
@@ -690,12 +756,17 @@ def rev_scan_inputs(T: int, B: int, seed: int, device: str) -> list[torch.Tensor
 
 def phase_rev_scan(RS) -> dict:
     """Reverse linear scan kernel vs its plain version, exactly (_rn
-    intrinsics, csrc/rev_scan.cu), at [256, 4096] (GAE's shape; the scan is
-    on no path), [1, 1] and [7, 1000]. Per element: one mul, one add."""
+    intrinsics, csrc/rev_scan.cu), at PPO's [256, 4096] (the 'assoc' GAE),
+    the edges of the ring (KERNEL_SHAPES, and two shapes that wrap it) and
+    IMPALA's [32, 1024] (the 'assoc' V-trace), which is timed too. Per
+    element: one mul, one add."""
+    from surreal_tpu_torch.ops.scan_tiles import REV_SCAN_STAGE_BYTES
+
     return kernel_phase(
         "rev_scan", lambda *x: (RS.reverse_linear_scan(*x),), lambda *x: (RS.reverse_linear_scan_plain(*x),),
         rev_scan_inputs, REV_SCAN_SHAPES, reads=2, writes=1, ops=2,
         tpu_kernel="ops/pallas_returns.py::_rev_scan_kernel", extra_bytes_per_b=4, counter=RS.reverse_linear_scan,
+        plan=scan_plan_of(2, stage_bytes=REV_SCAN_STAGE_BYTES), also_timed=[(PONG_T, PONG_B)],
     )
 
 
@@ -946,18 +1017,26 @@ def main() -> int:
     gather = phase_replay_gather(RR)
     scatter = phase_replay_scatter(RR)
     rev_scan = phase_rev_scan(RS)
-    phase_parity(Config, base_config, Trainer)
-    phase_parity_impala(Config, base_config, Trainer)
+    # which scan kernel each form of GAE and V-trace launches, per learn
+    gae_xla = {"gae": (ops_gae.gae_advantages_masked, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    gae_assoc = {"gae": (ops_gae.gae_advantages_masked, 0), "rev_scan": (RS.reverse_linear_scan, 1)}
+    vtrace_xla = {"vtrace": (ops_vtrace.vtrace_fused, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    vtrace_assoc = {"vtrace": (ops_vtrace.vtrace_fused, 0), "rev_scan": (RS.reverse_linear_scan, 1)}
+    phase_parity(Config, base_config, Trainer, "xla", gae_xla)
+    phase_parity(Config, base_config, Trainer, "assoc", gae_assoc)
+    phase_parity_impala(Config, base_config, Trainer, "xla", vtrace_xla)
+    phase_parity_impala(Config, base_config, Trainer, "assoc", vtrace_assoc)
     phase_parity_ddpg(Config, base_config, OffPolicyTrainer)
-    RS.reverse_linear_scan.launches = 0  # on no path: counted over all three train phases
-    train = phase_train(Config, base_config, Trainer, ops_gae)
+    train = phase_train(Config, base_config, Trainer, gae_xla)
     gae["launches"] = train["gae_launches"]
-    train_impala = phase_train_impala(Config, base_config, Trainer, ops_vtrace)
+    train_assoc = phase_train(Config, base_config, Trainer, gae_assoc, "assoc", ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS)
+    rev_scan["launches"] = train_assoc["rev_scan_launches"]
+    train_impala = phase_train_impala(Config, base_config, Trainer, vtrace_xla)
     vtrace["launches"] = train_impala["vtrace_launches"]
+    phase_train_impala(Config, base_config, Trainer, vtrace_assoc, "assoc", ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS)
     train_ddpg = phase_train_ddpg(Config, base_config, OffPolicyTrainer, RR)
     gather["launches"] = train_ddpg["replay_gather_launches"]
     scatter["launches"] = train_ddpg["replay_scatter_launches"]
-    rev_scan["launches"] = RS.reverse_linear_scan.launches
 
     emit({"kernels": [gae, vtrace, gather, scatter, rev_scan]})
     print(smi, flush=True)

@@ -1,5 +1,5 @@
 // A ring of shared-memory stages for reverse-time scans over [T, B] arrays,
-// shared by csrc/gae.cu and csrc/vtrace.cu.
+// shared by csrc/gae.cu, csrc/vtrace.cu and csrc/rev_scan.cu.
 //
 // A block owns a tile of TW batch columns (TW = 8, 16 or 32: each array's
 // row segment is one to four whole 32 B sectors) and walks time from

@@ -40,6 +40,7 @@ from surreal_tpu_torch.launch.rollout import successor_and_termination
 from surreal_tpu_torch.launch.trainer import training_env_config
 from surreal_tpu_torch.learners import EVAL_DETERMINISTIC, TRAINING, build_learner
 from surreal_tpu_torch.learners.aggregator import nstep_transitions
+from surreal_tpu_torch.learners.base import check_scan_unroll
 from surreal_tpu_torch.learners.ddpg import LEARN_METRIC_KEYS, ou_noise_step
 from surreal_tpu_torch.ops.precision import torch_dtype
 from surreal_tpu_torch.replay import build_replay
@@ -92,11 +93,10 @@ class OffPolicyTrainer:
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
         algo = self.learner.config.algo
         self.algo = algo
-        if int(algo.get("update_unroll", 1)) != 1:
-            raise NotImplementedError(
-                "algo.update_unroll unrolls the JAX package's update scan; the port's "
-                "Python loop has no counterpart, so only 1 is accepted"
-            )
+        # the rollout and update scans' unrolls in the JAX package: accepted,
+        # nothing to unroll in the port's loops (learners/base.py)
+        check_scan_unroll(algo, "rollout_unroll")
+        check_scan_unroll(algo, "update_unroll")
         # replay_gather is injected into the replay build config so the
         # replay layer stays algo-agnostic (both values reach the kernel)
         self.replay = build_replay(

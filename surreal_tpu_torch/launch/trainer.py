@@ -19,6 +19,7 @@ import torch
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.launch.rollout import RolloutCarry, device_rollout, init_device_carry
 from surreal_tpu_torch.learners import build_learner
+from surreal_tpu_torch.learners.base import check_scan_unroll
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.utils.device import resolve_device
 
@@ -42,6 +43,9 @@ class Trainer:
         self.env = make_env(training_env_config(config.env_config), self.device)
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
         self.horizon = self.learner.config.algo.horizon
+        # the rollout scan's unroll in the JAX package: accepted, nothing to
+        # unroll in the port's rollout loop (learners/base.py)
+        check_scan_unroll(self.learner.config.algo, "rollout_unroll")
         self.num_envs = config.env_config.num_envs
         self.seed = config.session_config.seed
         self.steps_per_iter = self.horizon * self.num_envs

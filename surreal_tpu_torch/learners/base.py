@@ -36,6 +36,16 @@ Params = dict[str, torch.Tensor]
 _INT32_MAX = 2**31 - 1
 
 
+def check_scan_unroll(algo, name: str) -> None:
+    """Reads an ``algo.*_unroll`` knob (``rollout_unroll``, ``gae_unroll``,
+    ``sgd_unroll``, ``update_unroll``) as the JAX package does, with
+    ``int(x)``. There it unrolls a ``lax.scan`` (the autotuner searches
+    it); eager PyTorch runs the same loop step by step, so every value the
+    reference accepts is accepted and changes nothing, and a value the
+    reference refuses raises here too."""
+    int(algo.get(name, 1))
+
+
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """``optax.global_norm``: sqrt of the sum of squares of every leaf."""
     return torch.sqrt(sum(torch.sum(x * x) for x in tree.values()))

@@ -58,7 +58,9 @@ DDPG_LEARNER_CONFIG = Config(
             warmup_steps=2000,  # uniform-random actions before policy acting
         ),
         updates_per_iter=64,   # SGD updates per collect chunk (off-policy ratio)
-        update_unroll=1,       # a lax.scan unroll in the JAX package; only 1 here
+        # the update scan's unroll in the JAX package; any value it accepts
+        # is accepted, and changes nothing in the port's eager update loop
+        update_unroll=1,
         # uniform replay only: gather all updates_per_iter index sets in one
         # launch before the update loop (launch/offpolicy_trainer.py)
         batched_uniform_sampling=True,

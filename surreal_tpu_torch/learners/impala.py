@@ -6,11 +6,12 @@ Pong path, with the NatureCNN stem) and a diagonal-Gaussian head
 otherwise. It shares the PPO batch contract, so the same Trainer and
 device collector drive it.
 
-V-trace goes to ``ops/vtrace.py``, which launches the CUDA kernel for CUDA
-tensors and runs the plain version for CPU tensors; ``vtrace_impl`` 'xla'
-(the default) and 'pallas' both reach it. Not ported yet: the 'assoc'
-forms, the trajectory encoder, and the 'bf16' precision policies (dynamic
-loss scaling); each raises at construction.
+V-trace goes to ``ops/vtrace.py``: ``vtrace_impl`` 'xla' (the default)
+and 'pallas' both reach the fused V-trace kernel, 'assoc' the reference's
+'assoc' form, whose recurrence is the reverse scan's kernel; each wrapper
+launches its CUDA kernel for CUDA tensors and runs its plain version for
+CPU tensors. Not ported yet: the trajectory encoder and the 'bf16'
+precision policies (dynamic loss scaling); each raises at construction.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from surreal_tpu_torch.learners.base import (
     OptState,
     Params,
     apply_updates,
+    check_scan_unroll,
     global_norm,
     optimizer_from_config,
     training_health,
@@ -36,7 +38,7 @@ from surreal_tpu_torch.learners.seq_policy import PolicyHeadMixin
 from surreal_tpu_torch.models.ppo_net import CategoricalPPOModel, PPOModel
 from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops.running_stats import RunningStats, init_stats, normalize, update_stats
-from surreal_tpu_torch.ops.vtrace import VTraceOutput, vtrace_nextobs
+from surreal_tpu_torch.ops.vtrace import VTraceOutput, vtrace_nextobs, vtrace_nextobs_assoc
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.utils.asserts import check_learn_batch
 
@@ -52,7 +54,8 @@ IMPALA_LEARNER_CONFIG = Config(
         init_log_std=-0.5,    # continuous-action variant
         # 'xla' and 'pallas' both mean the fused V-trace of ops/vtrace.py:
         # the CUDA kernel on the card, its plain version on the CPU.
-        # 'assoc' is not ported yet.
+        # 'assoc' means ops/vtrace.py::vtrace_nextobs_assoc, whose
+        # recurrence is the reverse scan's CUDA kernel on the card.
         vtrace_impl="xla",
     ),
     optimizer=Config(lr=6e-4),
@@ -74,8 +77,7 @@ class IMPALALearner(PolicyHeadMixin, Learner):
         impl = learner_config.algo.get("vtrace_impl", "xla")
         if impl not in ("xla", "assoc", "pallas"):
             raise ValueError(f"vtrace_impl {impl!r} not in xla|assoc|pallas")
-        if impl == "assoc":
-            raise NotImplementedError("vtrace_impl='assoc' is not ported to PyTorch yet")
+        check_scan_unroll(learner_config.algo, "gae_unroll")
         self.model_cfg = self.policy.model_config(learner_config.model)
         # the module defines the computation (applied with functional_call);
         # the parameters it is applied with live in the learner state
@@ -192,10 +194,13 @@ class IMPALALearner(PolicyHeadMixin, Learner):
 
     def _vtrace(self, batch, target_logp, values, values_next) -> VTraceOutput:
         """Truncation-exact V-trace over [T, B]; 'xla' and 'pallas' both go
-        to ops/vtrace.py, which launches the CUDA kernel for CUDA tensors
-        and runs the plain version for CPU tensors."""
+        to ops/vtrace.py::vtrace_nextobs (the fused kernel), 'assoc' to
+        ops/vtrace.py::vtrace_nextobs_assoc (the reverse scan's kernel).
+        Each launches its CUDA kernel for CUDA tensors and runs its plain
+        version for CPU tensors."""
         algo = self.config.algo
-        return vtrace_nextobs(
+        form = vtrace_nextobs_assoc if algo.get("vtrace_impl", "xla") == "assoc" else vtrace_nextobs
+        return form(
             batch["behavior_logp"], target_logp, batch["reward"], values, values_next,
             batch["done"], batch["terminated"], algo.gamma,
             clip_rho=algo.clip_rho, clip_c=algo.clip_c, clip_pg_rho=algo.clip_pg_rho,

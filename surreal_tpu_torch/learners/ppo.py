@@ -39,6 +39,7 @@ from surreal_tpu_torch.learners.base import (
     OptState,
     Params,
     apply_updates,
+    check_scan_unroll,
     global_norm,
     optimizer_from_config,
     training_health,
@@ -47,6 +48,7 @@ from surreal_tpu_torch.learners.seq_policy import PolicyHeadMixin
 from surreal_tpu_torch.models.ppo_net import PolicyOutput, PPOModel
 from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops.gae import gae_advantages_masked
+from surreal_tpu_torch.ops.returns import reverse_linear_scan_assoc
 from surreal_tpu_torch.ops.running_stats import RunningStats, init_stats, normalize, update_stats
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.utils.asserts import check_learn_batch
@@ -71,10 +73,13 @@ PPO_LEARNER_CONFIG = Config(
         norm_adv=True,
         init_log_std=-0.5,
         # 'xla' and 'pallas' both mean the fused GAE of ops/gae.py: the CUDA
-        # kernel on the card, its plain version on the CPU. 'assoc' is not
-        # ported yet.
+        # kernel on the card, its plain version on the CPU. 'assoc' means the
+        # reference's deltas then ops/returns.py::reverse_linear_scan_assoc:
+        # the reverse scan's CUDA kernel on the card, its plain loop on the CPU.
         gae_impl="xla",
-        sgd_unroll=1,         # a lax.scan unroll in the JAX package; only 1 here
+        # the minibatch scan's unroll in the JAX package; any value it
+        # accepts is accepted, and changes nothing in the port's Python loop
+        sgd_unroll=1,
         shuffle="block",      # 'block' permutes contiguous blocks | 'row'
         value_bootstrap="exact",  # 'shared' is not ported yet
     ),
@@ -121,11 +126,8 @@ class PPOLearner(PolicyHeadMixin, Learner):
             raise NotImplementedError(
                 f"value_bootstrap={algo.value_bootstrap!r} is not ported to PyTorch yet"
             )
-        if algo.get("sgd_unroll", 1) != 1:
-            raise NotImplementedError(
-                "algo.sgd_unroll unrolls the JAX package's minibatch scan; the port's "
-                "Python loop has no counterpart, so only 1 is accepted"
-            )
+        check_scan_unroll(algo, "gae_unroll")
+        check_scan_unroll(algo, "sgd_unroll")
         self.model_cfg = self.policy.model_config(learner_config.model)
         self.act_dim = int(env_specs.action.shape[0])
         # the module defines the computation (applied with functional_call);
@@ -238,15 +240,18 @@ class PPOLearner(PolicyHeadMixin, Learner):
 
     def _gae(self, batch, values, v_next):
         """Truncation-exact GAE over [T, B]. 'xla' and 'pallas' both go to
-        ops/gae.py, which launches the CUDA kernel for CUDA tensors and
-        runs the plain version for CPU tensors."""
+        ops/gae.py; 'assoc' builds the reference's TD deltas and solves the
+        recurrence with ops/returns.py::reverse_linear_scan_assoc. Each
+        launches its CUDA kernel for CUDA tensors and runs its plain version
+        for CPU tensors."""
         algo = self.config.algo
         gamma = torch.tensor(algo.gamma, dtype=torch.float32, device=values.device)
         boot_disc = gamma * (1.0 - batch["terminated"].to(torch.float32))
         decay = gamma * algo.lam * (1.0 - batch["done"].to(torch.float32))
-        gae_impl = algo.get("gae_impl", "xla")
-        if gae_impl == "assoc":
-            raise NotImplementedError("gae_impl='assoc' is not ported to PyTorch yet")
+        if algo.get("gae_impl", "xla") == "assoc":
+            deltas = batch["reward"] + boot_disc * v_next - values
+            advantages = reverse_linear_scan_assoc(decay, deltas)
+            return advantages, advantages + values
         return gae_advantages_masked(batch["reward"], boot_disc, decay, values, v_next)
 
     def _norm_advantages(self, advantages):

@@ -17,7 +17,8 @@ Routing is by the device of the tensors, never by a switch: on a CUDA
 tensor the wrapper launches the kernel (or raises), on a CPU tensor it
 runs :func:`gae_masked_plain`. So in the PPO learner both
 ``gae_impl='xla'`` (the default) and ``'pallas'`` reach the kernel on the
-card; ``'assoc'`` is not ported yet.
+card; ``'assoc'`` goes to ``ops/returns.py::reverse_linear_scan_assoc``
+(the reverse scan's kernel) instead.
 
 The kernel cuts [T, B] into column tiles and time stages; the wrapper
 passes it :func:`~surreal_tpu_torch.ops.scan_tiles.scan_plan`'s choice

@@ -4,7 +4,9 @@ plain PyTorch version, the port of ``surreal_tpu/ops/pallas_returns.py``
 
 ``x_t = deltas_t + coeffs_t * x_{t+1}`` with ``x_T = init`` is the
 recurrence every return estimator solves; GAE and V-trace have their own
-fused kernels (``ops/gae.py``, ``ops/vtrace.py``), this is the generic one.
+fused kernels (``ops/gae.py``, ``ops/vtrace.py``), this is the generic one,
+which the 'assoc' forms (``ops/returns.py::reverse_linear_scan_assoc``) and
+``ops/returns.py::discounted_returns`` launch.
 
 Dtype contract: inputs of any real dtype are cast to float32 and the
 output is float32; the recurrence accumulates T terms and needs f32.
@@ -12,6 +14,11 @@ output is float32; the recurrence accumulates T terms and needs f32.
 Routing is by the device of the tensors, never by a switch: on a CUDA
 tensor :func:`reverse_linear_scan` launches the kernel (or raises), on a
 CPU tensor it runs :func:`reverse_linear_scan_plain`.
+The kernel cuts [T, B] into column tiles and time stages; the wrapper
+passes it :func:`~surreal_tpu_torch.ops.scan_tiles.scan_plan`'s choice
+for the shape and the card, with the scan's own stage budget
+(``REV_SCAN_STAGE_BYTES``).
+
 ``reverse_linear_scan.launches`` counts kernel launches (and nothing
 else).
 """
@@ -23,6 +30,7 @@ import functools
 
 import torch
 
+from surreal_tpu_torch.ops.scan_tiles import REV_SCAN_STAGE_BYTES, ScanPlan, multiprocessors, scan_plan
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 _INT32_MAX = 2**31 - 1
@@ -47,21 +55,25 @@ def reverse_linear_scan_plain(
 def _kernel():
     """The kernel's C entry point, built and typed once, at first launch."""
     fn = load_kernel_library("rev_scan").rev_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(coeffs: torch.Tensor, deltas: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
+def _launch(
+    coeffs: torch.Tensor, deltas: torch.Tensor, init: torch.Tensor, plan: ScanPlan | None = None
+) -> torch.Tensor:
+    """Launches the kernel, cut by ``plan`` (default: :func:`scan_plan`'s)."""
     T, B = deltas.shape
     if T * B > _INT32_MAX:
         raise ValueError(f"[T, B] = [{T}, {B}] exceeds the kernel's int32 index range")
     fn = _kernel()
     c, d, x0 = (x.to(torch.float32).contiguous() for x in (coeffs, deltas, init))
     out = torch.empty((T, B), dtype=torch.float32, device=d.device)
+    plan = plan or scan_plan(T, B, 2, multiprocessors(out.device), REV_SCAN_STAGE_BYTES)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(c.data_ptr(), d.data_ptr(), x0.data_ptr(), out.data_ptr(), T, B, stream)
+        err = fn(c.data_ptr(), d.data_ptr(), x0.data_ptr(), out.data_ptr(), T, B, stream, *plan)
     if err != 0:
         raise RuntimeError(f"rev_scan kernel launch failed: cudaError {err}")
     reverse_linear_scan.launches += 1
@@ -99,11 +111,3 @@ def reverse_linear_scan(
 
 reverse_linear_scan.launches = 0
 
-
-def discounted_returns(
-    rewards: torch.Tensor, discounts: torch.Tensor, bootstrap_value: torch.Tensor
-) -> torch.Tensor:
-    """Monte-Carlo discounted returns with bootstrap (rewards, discounts
-    [T, B]; bootstrap [B]): ``ret_t = r_t + d_t * ret_{t+1}``, ``ret_T =
-    bootstrap``, i.e. the scan seeded with the bootstrap value."""
-    return reverse_linear_scan(discounts, rewards, init=bootstrap_value)

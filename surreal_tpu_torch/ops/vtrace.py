@@ -1,28 +1,39 @@
-"""Fused V-trace: the CUDA kernel ``csrc/vtrace.cu`` and its plain PyTorch
+"""V-trace: the fused CUDA kernel ``csrc/vtrace.cu`` and its plain PyTorch
 version, the port of ``surreal_tpu/ops/vtrace.py`` (``VTraceOutput``,
-``vtrace``, ``vtrace_nextobs``) and ``surreal_tpu/ops/pallas_vtrace.py``
-(``vtrace_pallas``, ``vtrace_nextobs_pallas``).
+``vtrace``, ``vtrace_nextobs``, ``vtrace_assoc``, ``vtrace_nextobs_assoc``)
+and ``surreal_tpu/ops/pallas_vtrace.py`` (``vtrace_pallas``,
+``vtrace_nextobs_pallas``).
 
-One function computes V-trace in one reverse pass, :func:`vtrace_fused`
-(the Pallas module's ``_vtrace_call``); two entry points build its inputs,
-the counterparts of the reference's two contracts:
+One function computes V-trace in one reverse pass over [T, B], the
+kernel-level :func:`vtrace_fused` (the Pallas module's ``_vtrace_call``):
+float32 outputs for inputs of any real dtype. Two entry points build its
+inputs, the counterparts of the reference's two contracts:
 
 - :func:`vtrace_nextobs` — the truncation-exact learner form: TD-delta
   discount ``boot = gamma*(1-terminated)`` against V(pre-reset successor
   obs), recursion coefficient ``edge = gamma*(1-done)``, and the done mask
-  that cuts the pg tail at episode boundaries; all inputs [T, B].
+  that cuts the pg tail at episode boundaries.
 - :func:`vtrace` — the simple contract: ``discounts`` serve as both
-  ``boot`` and ``edge``, ``values`` is the [T+1, B] stack, no done mask.
+  ``boot`` and ``edge``, ``values`` is the [T+1, ...] stack, no done mask.
 
-Dtype contract: inputs of any real dtype are cast to float32 and both
-outputs are float32, detached (the reference applies ``stop_gradient``;
-there is no backward kernel).
+Their 'assoc' twins, :func:`vtrace_nextobs_assoc` and :func:`vtrace_assoc`,
+follow the reference's structure instead: the elementwise rhos, clipped
+rhos, cs and deltas in PyTorch, one
+``ops/returns.py::reverse_linear_scan_assoc`` (``csrc/rev_scan.cu`` on the
+card), then the successor values and the pg advantages.
+
+The four entry points keep the reference's contract: inputs [T, ...] of
+any rank >= 1 (folded into one column axis around the kernels and unfolded
+after), ``unroll`` accepted and ignored where the reference takes it (a
+``lax.scan`` unroll), and outputs in the reference's dtype, computed in
+float32. Every output is detached (the reference applies
+``stop_gradient``; there is no backward kernel).
 
 Routing is by the device of the tensors, never by a switch: on a CUDA
 tensor :func:`vtrace_fused` launches the kernel (or raises), on a CPU
 tensor it runs :func:`vtrace_fused_plain`. So in the IMPALA learner both
-``vtrace_impl='xla'`` (the default) and ``'pallas'`` reach the kernel on
-the card; the ``'assoc'`` forms are not ported yet.
+``vtrace_impl='xla'`` (the default) and ``'pallas'`` reach the fused
+kernel on the card, and ``'assoc'`` the reverse scan's.
 
 The kernel cuts [T, B] into column tiles and time stages; the wrapper
 passes it :func:`~surreal_tpu_torch.ops.scan_tiles.scan_plan`'s choice
@@ -40,6 +51,13 @@ from typing import NamedTuple
 
 import torch
 
+from surreal_tpu_torch.ops.returns import (
+    as_columns,
+    check_time_major,
+    check_values,
+    result_dtype,
+    reverse_linear_scan_assoc,
+)
 from surreal_tpu_torch.ops.scan_tiles import ScanPlan, multiprocessors, scan_plan
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
@@ -162,6 +180,10 @@ def vtrace_fused(
 vtrace_fused.launches = 0
 
 
+def _unfold(out: VTraceOutput, shape: torch.Size, dtype: torch.dtype) -> VTraceOutput:
+    return VTraceOutput(*(x.reshape(shape).to(dtype) for x in out))
+
+
 def vtrace_nextobs(
     behaviour_logp: torch.Tensor,
     target_logp: torch.Tensor,
@@ -174,18 +196,24 @@ def vtrace_nextobs(
     clip_rho: float = 1.0,
     clip_c: float = 1.0,
     clip_pg_rho: float = 1.0,
+    unroll: int = 1,
 ) -> VTraceOutput:
     """Truncation-exact V-trace over auto-reset trajectories, all inputs
-    [T, B]: the counterpart of ``vtrace_nextobs`` and
-    ``vtrace_nextobs_pallas``, with their boot and edge arrays."""
-    done_f = done.to(torch.float32)
-    return vtrace_fused(
-        behaviour_logp, target_logp, rewards,
-        gamma * (1.0 - terminated.to(torch.float32)),  # boot: TD-delta discount
-        gamma * (1.0 - done_f),                        # edge: recursion coefficient
-        values, values_next, done_f,
+    [T, ...]: the counterpart of ``vtrace_nextobs`` and
+    ``vtrace_nextobs_pallas``, through :func:`vtrace_fused`."""
+    del unroll  # a lax.scan unroll in the reference; the math is the same
+    shape = rewards.shape
+    check_time_major("V-trace", shape, behaviour_logp, target_logp, values, values_next, done, terminated)
+    dtype = result_dtype(behaviour_logp, target_logp, rewards, values, values_next)
+    done_f = as_columns(done)
+    out = vtrace_fused(
+        as_columns(behaviour_logp), as_columns(target_logp), as_columns(rewards),
+        gamma * (1.0 - as_columns(terminated)),  # boot: TD-delta discount
+        gamma * (1.0 - done_f),                  # edge: recursion coefficient
+        as_columns(values), as_columns(values_next), done_f,
         clip_rho, clip_c, clip_pg_rho,
     )
+    return _unfold(out, shape, dtype)
 
 
 def vtrace(
@@ -197,12 +225,82 @@ def vtrace(
     clip_rho: float = 1.0,
     clip_c: float = 1.0,
     clip_pg_rho: float = 1.0,
+    unroll: int = 1,
 ) -> VTraceOutput:
-    """Simple contract (log-probs, rewards, discounts [T, B]; values
-    [T+1, B]), the counterpart of ``vtrace`` and ``vtrace_pallas``."""
-    disc = discounts.to(torch.float32)
-    return vtrace_fused(
-        behaviour_logp, target_logp, rewards, disc, disc,
-        values[:-1], values[1:], torch.zeros_like(disc),
+    """Simple contract (log-probs, rewards, discounts [T, ...]; values
+    [T+1, ...]), the counterpart of ``vtrace`` and ``vtrace_pallas``,
+    through :func:`vtrace_fused`."""
+    del unroll  # a lax.scan unroll in the reference; the math is the same
+    shape = rewards.shape
+    check_time_major("V-trace", shape, behaviour_logp, target_logp, discounts)
+    check_values("V-trace", shape, values)
+    dtype = result_dtype(behaviour_logp, target_logp, rewards, discounts, values)
+    disc, v = as_columns(discounts), as_columns(values)
+    out = vtrace_fused(
+        as_columns(behaviour_logp), as_columns(target_logp), as_columns(rewards), disc, disc,
+        v[:-1], v[1:], torch.zeros_like(disc),
         clip_rho, clip_c, clip_pg_rho,
     )
+    return _unfold(out, shape, dtype)
+
+
+@torch.no_grad()
+def vtrace_assoc(
+    behaviour_logp: torch.Tensor,
+    target_logp: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    values: torch.Tensor,
+    clip_rho: float = 1.0,
+    clip_c: float = 1.0,
+    clip_pg_rho: float = 1.0,
+) -> VTraceOutput:
+    """:func:`vtrace` through ``reverse_linear_scan_assoc``, the reference's
+    expressions (``surreal_tpu/ops/vtrace.py::vtrace_assoc``)."""
+    shape = rewards.shape
+    check_time_major("V-trace", shape, behaviour_logp, target_logp, discounts)
+    check_values("V-trace", shape, values)
+    dtype = result_dtype(behaviour_logp, target_logp, rewards, discounts, values)
+    bl, tl, r, disc, v = (x.to(torch.float32) for x in (behaviour_logp, target_logp, rewards, discounts, values))
+    rhos = torch.exp(tl - bl)
+    cs = torch.clamp_max(rhos, clip_c)
+    deltas = torch.clamp_max(rhos, clip_rho) * (r + disc * v[1:] - v[:-1])
+    vs = reverse_linear_scan_assoc(disc * cs, deltas) + v[:-1]
+    vs_next = torch.cat([vs[1:], v[-1:]])
+    pg = torch.clamp_max(rhos, clip_pg_rho) * (r + disc * vs_next - v[:-1])
+    return VTraceOutput(vs=vs.to(dtype), pg_advantages=pg.to(dtype))
+
+
+@torch.no_grad()
+def vtrace_nextobs_assoc(
+    behaviour_logp: torch.Tensor,
+    target_logp: torch.Tensor,
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    values_next: torch.Tensor,
+    done: torch.Tensor,
+    terminated: torch.Tensor,
+    gamma: float,
+    clip_rho: float = 1.0,
+    clip_c: float = 1.0,
+    clip_pg_rho: float = 1.0,
+) -> VTraceOutput:
+    """:func:`vtrace_nextobs` through ``reverse_linear_scan_assoc``, the
+    reference's expressions (``surreal_tpu/ops/vtrace.py::vtrace_nextobs_assoc``):
+    the per-step coefficient ``gamma * (1 - done) * c_t``, the additive term
+    the clipped TD delta."""
+    shape = rewards.shape
+    check_time_major("V-trace", shape, behaviour_logp, target_logp, values, values_next, done, terminated)
+    dtype = result_dtype(behaviour_logp, target_logp, rewards, values, values_next)
+    bl, tl, r, v, v_n, done_f, term = (
+        x.to(torch.float32) for x in (behaviour_logp, target_logp, rewards, values, values_next, done, terminated)
+    )
+    rhos = torch.exp(tl - bl)
+    cs = torch.clamp_max(rhos, clip_c)
+    boot = gamma * (1.0 - term)
+    deltas = torch.clamp_max(rhos, clip_rho) * (r + boot * v_n - v)
+    vs = reverse_linear_scan_assoc(gamma * (1.0 - done_f) * cs, deltas) + v
+    vs_shift = torch.cat([vs[1:], v_n[-1:]])
+    vs_next = done_f * v_n + (1.0 - done_f) * vs_shift
+    pg = torch.clamp_max(rhos, clip_pg_rho) * (r + boot * vs_next - v)
+    return VTraceOutput(vs=vs.to(dtype), pg_advantages=pg.to(dtype))

@@ -17,6 +17,11 @@ BASE_LEARNER_CONFIG = Config(
         use_obs_filter=True,
         max_staleness=None,
         autotune="off",
+        # lax.scan unrolls of the JAX package (its autotuner searches
+        # them): the rollout scan, and the time recurrences of GAE and
+        # V-trace. Accepted with any value the reference accepts; eager
+        # PyTorch has no scan to unroll, so they change nothing here
+        # (learners/base.py::check_scan_unroll).
         rollout_unroll=1,
         gae_unroll=1,
         precision="mixed",

@@ -236,9 +236,6 @@ def test_ddpg_rejects_unported_options():
     """Options the port does not carry raise instead of being ignored."""
     with pytest.raises(NotImplementedError):
         build_learner(Config(algo=Config(name="ddpg", precision="bf16")), _specs()[1], device="cpu")
-    jcfg, tcfg = _slice_configs("uniform", algo=dict(update_unroll=2))
-    with pytest.raises(NotImplementedError):
-        OffPolicyTrainer(tcfg, device="cpu")
     jcfg, tcfg = _slice_configs("fifo")
     with pytest.raises(NotImplementedError):
         OffPolicyTrainer(tcfg, device="cpu")
@@ -403,8 +400,14 @@ def _assert_updates_close(got: dict, want: dict, start: dict):
         assert (got[k] - want[k]).norm() <= SLICE_UPDATE_RTOL * moved, (k, float((got[k] - want[k]).norm() / moved))
 
 
-@pytest.mark.parametrize("kind", ["uniform", "prioritized"])
-def test_offpolicy_slice_matches_jax(kind):
+@pytest.mark.parametrize("kind,algo", [
+    pytest.param("uniform", {}, id="uniform"),
+    pytest.param("prioritized", {}, id="prioritized"),
+    # the update scan's unroll in the reference, which changes nothing in
+    # the port's update loop
+    pytest.param("uniform", {"update_unroll": 2}, id="uniform-update_unroll2"),
+])
+def test_offpolicy_slice_matches_jax(kind, algo):
     """The slice as a whole: two fused iterations on jax:lift (8 envs x 8
     steps, time limit 5 so envs reset mid-rollout, capacity 512, batch
     32, 4 updates per iteration, 'f32'), the first under warm-up actions,
@@ -413,7 +416,8 @@ def test_offpolicy_slice_matches_jax(kind):
     carry and the first-chunk scrub) through the batched gather;
     prioritized replay n_step 1 through the sequential sample / learn /
     priority-refresh loop. Compared: params and target params, the ring,
-    priorities, max priority and every metric.
+    priorities, max priority and every metric. Both trainers are built
+    from the same algo config (``update_unroll=2`` in one case).
 
     Prioritized indices: a draw that picked another slot than JAX's would
     leave |td| + eps at another slot and max priority at this one, far
@@ -421,7 +425,7 @@ def test_offpolicy_slice_matches_jax(kind):
     that every one of the 256 draws picked JAX's slot. (The module-level
     rule for draws next to a cdf boundary is tested in
     tests/test_torch_replay.py.)"""
-    jcfg, tcfg = _slice_configs(kind)
+    jcfg, tcfg = _slice_configs(kind, algo)
     jt, tt = JaxOffPolicyTrainer(jcfg), OffPolicyTrainer(tcfg, device="cpu")
     # one device: the test session simulates eight CPU devices, over which
     # the JAX trainer shards its replay; its single-device replay is the

@@ -123,13 +123,21 @@ def _assert_metrics_close(t_metrics, j_metrics, **tol):
         np.testing.assert_allclose(float(t_metrics[k]), float(j_metrics[k]), err_msg=k, **tol)
 
 
-@pytest.mark.parametrize("kind", ["pong16", "lift"])
-def test_impala_learn_matches_jax(kind):
+@pytest.mark.parametrize("kind,knobs", [
+    pytest.param("pong16", {}, id="pong16"),
+    pytest.param("lift", {}, id="lift"),
+    # 'assoc' V-trace: the reference's associative_scan against the port's
+    # reverse scan, which reassociate the sum (tests/test_torch_returns.py)
+    pytest.param("pong16", {"vtrace_impl": "assoc"}, id="pong16-assoc"),
+    # the V-trace scan's unroll in the reference, which changes nothing here
+    pytest.param("lift", {"gae_unroll": 2}, id="lift-unroll2"),
+])
+def test_impala_learn_matches_jax(kind, knobs):
     """One learn from the same params and batch: categorical head and
     pixel CNN on pong16, Gaussian head and MLP (with the obs filter) on
-    lift, both in f32."""
+    lift, both in f32, both learners built from the same algo config."""
     T, B = 8, 6
-    jl, tl = _learners(kind, {"precision": "f32"})
+    jl, tl = _learners(kind, {"precision": "f32", **knobs})
     batch = _batch(kind, T, B, seed=3)
     params = _params(jl, batch["obs"][0, :1], seed=4)
     obs_shape = jl.specs.obs.shape if jl._use_obs_filter else (1,)
@@ -155,7 +163,6 @@ def test_impala_learn_matches_jax(kind):
 
 
 @pytest.mark.parametrize("algo,model", [
-    ({"vtrace_impl": "assoc"}, {}),
     ({}, {"encoder": {"kind": "trajectory"}}),
     ({"precision": "bf16"}, {}),
 ])

@@ -22,7 +22,7 @@ from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops import gae as G
 from surreal_tpu_torch.ops import running_stats as RS
 from surreal_tpu_torch.ops import vtrace as V
-from surreal_tpu_torch.ops.scan_tiles import RING_STAGES, ScanPlan, scan_plan
+from surreal_tpu_torch.ops.scan_tiles import REV_SCAN_STAGE_BYTES, RING_STAGES, ScanPlan, scan_plan
 from surreal_tpu_torch.ops.returns import gae_advantages as torch_gae_loop
 
 GAMMA, LAM = 0.99, 0.95
@@ -144,7 +144,7 @@ def test_gae_kernel_matches_plain_on_card():
             assert all(torch.equal(g, w) for g, w in zip(G._launch(arrs, big), want))
 
 
-@pytest.mark.parametrize("arrays", [5, 8])
+@pytest.mark.parametrize("arrays", [2, 5, 8])
 @pytest.mark.parametrize("T, B", [(1, 1), (7, 1000), (256, 4096), (32, 1024), *SCAN_EDGE_SHAPES])
 def test_scan_plan_fills_the_card_and_fits_the_ring(T, B, arrays):
     """The tile is the widest that gives at least half of 132 SMs a block
@@ -181,6 +181,28 @@ def test_scan_plan_at_the_path_shapes_and_edges():
     assert -(-65536 // scan_plan(64, 65536, 5, sms=132).tile) > 132 * 4  # several waves
     with pytest.raises(ValueError):
         scan_plan(0, 4, 5, sms=132)
+
+
+def test_scan_plan_for_the_reverse_scan():
+    """The reverse scan (two arrays, 8 KB stages): at PPO's [256, 4096],
+    128 blocks of 32 columns and stages of 32 timesteps, so the 64 KB ring
+    holds all of T; at IMPALA's [32, 1024], 128 blocks of 8 columns and the
+    whole T in one stage. The card tests' shapes land on the ring's edges:
+    the ring wraps under cp.async (B % 4 != 0) and under TMA, a last stage
+    is partial, B is below one tile, T below one stage; no ring passes the
+    227 KB a block may have, and GAE's and V-trace's plans are unchanged."""
+    plan = lambda T, B: scan_plan(T, B, 2, sms=132, stage_bytes=REV_SCAN_STAGE_BYTES)  # noqa: E731
+    assert plan(256, 4096) == ScanPlan(tile=32, steps=32)
+    assert plan(256, 4096).shared_bytes(256, 2) == 64 * 1024
+    assert plan(32, 1024) == ScanPlan(tile=8, steps=32)
+    assert plan(2000, 33).steps * RING_STAGES < 2000 and 33 % 4    # wraps, cp.async
+    assert plan(512, 4096).steps * RING_STAGES < 512                # wraps, TMA
+    assert 255 % plan(255, 4096).steps                              # a partial last stage
+    assert plan(256, 5).tile > 5 and plan(3, 1000).steps > 3
+    for T, B in [(2000, 33), (512, 4096), (255, 4096), (256, 5), (3, 1000), (64, 65536), (1, 1)]:
+        assert plan(T, B).shared_bytes(T, 2) <= 232_448
+    assert scan_plan(256, 4096, 5, sms=132) == ScanPlan(tile=32, steps=8)
+    assert scan_plan(32, 1024, 8, sms=132) == ScanPlan(tile=8, steps=32)
 
 
 # V-trace tolerance: the reference's own bar for its kernel-vs-scan tests

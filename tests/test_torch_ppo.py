@@ -107,7 +107,7 @@ def test_ppo_model_forward_matches_jax(precision):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
 
 
-@pytest.mark.parametrize("algo", [{"value_bootstrap": "shared"}, {"sgd_unroll": 2}])
+@pytest.mark.parametrize("algo", [{"value_bootstrap": "shared"}])
 def test_ppo_rejects_unported_options(algo):
     """Options the port does not carry raise instead of being ignored."""
     with pytest.raises(NotImplementedError):
@@ -148,10 +148,20 @@ def _perm_domain(N, num_mb, shuffle):
     return num_mb * bpm if bpm else N
 
 
-@pytest.mark.parametrize("shuffle,ppo_mode", [("block", "clip"), ("row", "adapt")])
-def test_ppo_learn_matches_jax(shuffle, ppo_mode):
+@pytest.mark.parametrize("shuffle,ppo_mode,knobs", [
+    pytest.param("block", "clip", {}, id="block-clip"),
+    pytest.param("row", "adapt", {}, id="row-adapt"),
+    # 'assoc' GAE: the reference's associative_scan against the port's
+    # reverse scan, which reassociate the sum (tests/test_torch_returns.py)
+    pytest.param("block", "clip", {"gae_impl": "assoc"}, id="block-clip-assoc"),
+    # the scan unrolls of the reference, which change nothing in the port
+    pytest.param("block", "clip", {"gae_unroll": 2, "sgd_unroll": 2}, id="block-clip-unroll2"),
+])
+def test_ppo_learn_matches_jax(shuffle, ppo_mode, knobs):
+    """One learn from the same params, batch and epoch permutations, both
+    learners built from the same algo config, at the learn-level bar."""
     T, B = 8, 16
-    algo = {"precision": "f32", "shuffle": shuffle, "ppo_mode": ppo_mode}
+    algo = {"precision": "f32", "shuffle": shuffle, "ppo_mode": ppo_mode, **knobs}
     jl, tl = _learners(algo)
     j_state = _jax_init_state()
     batch = _fixed_batch(T, B, seed=1)

@@ -268,17 +268,35 @@ def test_replay_kernels_match_plain_on_card():
                 assert torch.equal(got, want)
 
 
+# Shapes at the edges of the reverse scan's ring (ops/scan_tiles.py with
+# REV_SCAN_STAGE_BYTES): the ring wrapping under cp.async (B % 4 != 0) and
+# under TMA, a partial last stage, B below one tile or not a multiple of 4,
+# several waves of blocks, T below one stage; and PPO's and IMPALA's shapes.
+REV_SCAN_EDGE_SHAPES = [(2000, 33), (512, 4096), (255, 4096), (256, 5), (32, 1023), (64, 65536), (3, 1000),
+                        (256, 4096), (32, 1024)]
+
+
 @pytest.mark.cuda
 def test_rev_scan_kernel_matches_plain_on_card():
+    """Bit-exact on the card (the _rn intrinsics, see csrc/rev_scan.cu), one
+    launch a call, at ragged shapes and the ring's edges, and at plans
+    whose ring wraps many times or needs more than 48 KB."""
     _require_card()
+    from surreal_tpu_torch.ops.scan_tiles import ScanPlan
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for T, B in [(256, 4097), (7, 1000), (1, 1)]:
+    for T, B in [(256, 4097), (7, 1000), (1, 1), *REV_SCAN_EDGE_SHAPES]:
         c = 0.97 * (torch.rand(T, B, device="cuda", generator=gen) >= 0.1)
         d = torch.randn(T, B, device="cuda", generator=gen)
         init = torch.randn(B, device="cuda", generator=gen)
+        before = RS.reverse_linear_scan.launches
         got, want = RS.reverse_linear_scan(c, d, init), RS.reverse_linear_scan_plain(c, d, init)
         torch.cuda.synchronize()
-        assert torch.equal(got, want)
+        assert RS.reverse_linear_scan.launches == before + 1
+        assert torch.equal(got, want), (T, B)
+        if (T, B) == (256, 4096):
+            for plan in (ScanPlan(tile=32, steps=4), ScanPlan(tile=16, steps=64)):
+                assert torch.equal(RS._launch(c, d, init, plan), want), plan
 
 
 # -- ring, uniform and prioritized replay ------------------------------------
