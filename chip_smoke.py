@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 (any
-sm_90 card) and the CUDA toolkit. Three paths are driven: PPO on jax:lift
+sm_90 card) and the CUDA toolkit. Three paths are driven, through the
+training session runtime and its ``train`` entry point: PPO on jax:lift
 (the GAE kernel; at gae_impl='assoc' the reverse linear scan), IMPALA on
 pixel jax:pong (the V-trace kernel; at vtrace_impl='assoc' the reverse
 linear scan) and DDPG with prioritized replay on jax:lift (the replay
@@ -29,10 +30,12 @@ each printing one JSON line:
              jax:pong at vtrace_impl 'xla' and 'assoc', DDPG on jax:lift
              under uniform and under prioritized replay;
 5. train   - ``Trainer(config).run`` / ``OffPolicyTrainer(config).run``
-             with four warm-up iterations and eight timed ones (two and
-             four at 'assoc'); checks finite metrics and that every
-             iteration launched its path's kernels as often as the path
-             says:
+             (the session runtime: ``SessionHooks`` around a
+             ``LoopEngine``, in a fresh folder, metrics read every
+             iteration, checkpoint and eval off) with four warm-up
+             iterations and eight timed ones (two and four at 'assoc');
+             checks finite metrics and that every iteration launched its
+             path's kernels as often as the path says:
              PPO at the north-star geometry (MLP 64x64, jax:lift, 4096
              envs x 256 steps, 4 epochs x 4 minibatches, 'mixed'), at
              gae_impl 'xla' and 'assoc', then IMPALA at the pong geometry
@@ -43,7 +46,22 @@ each printing one JSON line:
              LayerNorm, jax:lift, 2048 envs x 16 steps, 64 updates of 256
              per iteration, prioritized replay of 200,000, 'mixed'), with
              one more DDPG iteration under ``torch.cuda.set_sync_debug_mode
-             ("error")`` to show that it makes no host sync.
+             ("error")`` to show that it makes no host sync;
+6. session - the runtime users start, one JSON line a step:
+             ``train ppo jax:lift`` through the CLI at the north-star
+             geometry for 8 iterations (metrics every 2, checkpoint and
+             eval every 4; GAE launched once an iteration; iteration 3,
+             off every cadence, under set_sync_debug_mode("error")); a
+             SIGTERM stop with its emergency checkpoint and a bit-equal
+             auto-resume; a ``nan_state`` fault rolled back to the last
+             finite checkpoint with the LR backed off; ``train ddpg
+             jax:lift`` at the headline geometry with
+             ``checkpoint.include_replay``, 3 iterations and a resume
+             that starts from the saved replay bit for bit (gather and
+             scatter 64 launches each an iteration); and PPO on jax:lift
+             at tests/test_envs.py::test_ppo_learns_on_lift's config until
+             the episode return reaches 400 (fails if it does not within
+             5,000,000 env steps).
 
 Then the kernels summary line (each kernel's launches from its path's
 train phase: the reverse scan's from PPO at 'assoc'), the nvidia-smi line,
@@ -54,14 +72,19 @@ non-zero before printing.
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import redirect_stdout
 
 import numpy as np
 import torch
@@ -100,6 +123,15 @@ KERNEL_REPLACES = {  # the TPU kernel body each CUDA kernel replaces
     "replay_scatter": "surreal_tpu/ops/pallas_replay.py:45",
     "rev_scan": "surreal_tpu/ops/pallas_returns.py:33",
 }
+
+_SCRATCH: list[str] = []  # the run's one temporary root, removed at exit
+
+
+def scratch_dir(tag: str) -> str:
+    """A fresh session folder under the run's temporary root."""
+    if not _SCRATCH:
+        _SCRATCH.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+    return tempfile.mkdtemp(prefix=f"{tag}_", dir=_SCRATCH[0])
 
 
 def emit(obj) -> None:
@@ -380,6 +412,17 @@ def phase_parity(Config, base_config, Trainer, gae_impl: str = "xla", counters: 
           "final_obs_max_abs_err": obs_err, "metric_abs_err": errs})
 
 
+def timed_session(Config, **over):
+    """The session of a timed train phase: a fresh folder, metrics read
+    every iteration, no checkpoint, no eval, no console or TensorBoard
+    output, so its iterations compare with those of the plain loops
+    before the session runtime."""
+    return Config(**over).extend(Config(
+        folder=scratch_dir("run"), metrics=Config(every_n_iters=1, console=False, tensorboard=False),
+        checkpoint=Config(every_n_iters=0), eval=Config(every_n_iters=0),
+    ))
+
+
 def pong_config(Config, base_config, num_envs: int, horizon: int, precision: str, cnn: dict,
                 vtrace_impl: str = "xla", **env):
     return Config(
@@ -388,7 +431,7 @@ def pong_config(Config, base_config, num_envs: int, horizon: int, precision: str
             model=Config(cnn=Config(enabled=True, **cnn)),
         ),
         env_config=Config(name="jax:pong", num_envs=num_envs, **env),
-        session_config=Config(folder="unused", metrics=Config(every_n_iters=1)),
+        session_config=timed_session(Config),
     ).extend(base_config())
 
 
@@ -503,7 +546,7 @@ def phase_train(Config, base_config, Trainer, counters: dict, gae_impl: str = "x
         learner_config=Config(algo=Config(
             name="ppo", horizon=MAIN_T, epochs=4, num_minibatches=4, precision="mixed", gae_impl=gae_impl)),
         env_config=Config(name="jax:lift", num_envs=MAIN_B),
-        session_config=Config(folder="unused", metrics=Config(every_n_iters=1)),
+        session_config=timed_session(Config),
     ).extend(base_config())
     trainer = Trainer(cfg)  # the default device: the card
     state, timing = timed_run(trainer, counters, warmup, timed)
@@ -781,7 +824,7 @@ def ddpg_config(Config, base_config, B, H, K, bs, capacity, kind, precision, n_s
             replay=Config(kind=kind, capacity=capacity, start_sample_size=B * H, batch_size=bs),
         ),
         env_config=Config(name="jax:lift", num_envs=B, **env),
-        session_config=Config(folder="unused", metrics=Config(every_n_iters=1)),
+        session_config=timed_session(Config),
     ).extend(base_config())
 
 
@@ -986,6 +1029,332 @@ def phase_train_ddpg(Config, base_config, OffPolicyTrainer, RR) -> dict:
     emit(result)
     return result
 
+# -- the session runtime (train CLI, hooks, checkpoints, recovery) -----------
+
+def tensors_equal(a, b, tree_flatten) -> bool:
+    """Every leaf of two states equal, tensors bit for bit in their dtypes."""
+    fa, fb = tree_flatten(a), tree_flatten(b)
+    if fa.keys() != fb.keys():
+        return False
+    return all(
+        (x.dtype == fb[k].dtype and torch.equal(x, fb[k])) if isinstance(x, torch.Tensor) else x == fb[k]
+        for k, x in fa.items()
+    )
+
+
+def state_bytes(state, tree_flatten) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_flatten(state).values() if isinstance(x, torch.Tensor))
+
+
+def session_events(folder: str, iter_jsonl) -> list[dict]:
+    return list(iter_jsonl(os.path.join(folder, "telemetry", "events.jsonl")))
+
+
+class Patched:
+    """Replace ``owner.name`` with ``wrap(original)`` inside a with block."""
+
+    def __init__(self, owner, name, wrap):
+        self.owner, self.name, self.wrap = owner, name, wrap
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, self.wrap(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def run_cli(M, argv: list[str]) -> dict:
+    """``python -m surreal_tpu_torch train ...`` in process; the final
+    metrics line it prints."""
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = M.launch.main(argv)
+    if rc != 0:
+        raise AssertionError(f"train CLI exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def session_cli_ppo(M, gae_counters: dict) -> dict:
+    """``train ppo jax:lift`` at the north-star geometry for 8 iterations:
+    metrics every 2, checkpoint every 4, eval every 4 (5 deterministic
+    episodes). The GAE kernel must launch once per iteration. Iteration 3
+    (off every cadence) runs under set_sync_debug_mode("error"), from its
+    step through its boundary: no host sync. Iteration times are the
+    metrics windows (each ends in the metrics read, a fence) over their two
+    iterations: the windows ending at 4 and 8 hold the eval and the
+    checkpoint, the one ending at 6 holds neither."""
+    folder, iters = scratch_dir("cli_ppo"), 8
+    argv = ["train", "ppo", "jax:lift", "--folder", folder, "--num-envs", str(MAIN_B),
+            "--total-steps", str(iters * MAIN_B * MAIN_T), "--set",
+            f"learner_config.algo.horizon={MAIN_T}", "learner_config.algo.epochs=4",
+            "learner_config.algo.num_minibatches=4", "learner_config.algo.precision=mixed",
+            "session_config.metrics.every_n_iters=2", "session_config.checkpoint.every_n_iters=4",
+            "session_config.eval.every_n_iters=4", "session_config.eval.episodes=5",
+            "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+    window_end = {}
+
+    def stamp_end(orig):
+        def end_iteration(self, iteration, *a, **kw):
+            out = orig(self, iteration, *a, **kw)
+            if out[0] is not None:
+                window_end[iteration] = time.perf_counter()
+            return out
+        return end_iteration
+
+    calls = []
+
+    def guard_iteration_3(orig):
+        def train_iter(self, *a, **kw):
+            calls.append(iteration := len(calls) + 1)
+            torch.cuda.set_sync_debug_mode("error" if iteration == 3 else 0)
+            return orig(self, *a, **kw)
+        return train_iter
+
+    try:
+        with Patched(M.SessionHooks, "end_iteration", stamp_end), \
+                Patched(M.Trainer, "_device_train_iter", guard_iteration_3):
+            final, launches = count_launches(
+                {name: (w, n * iters) for name, (w, n) in gae_counters.items()}, lambda: run_cli(M, argv))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    events = session_events(folder, M.iter_jsonl)
+    types = {e["type"] for e in events}
+    ckpt_dir = os.path.join(folder, "checkpoints")
+    checks = {
+        "config_json": os.path.exists(os.path.join(folder, "config.json")),
+        "events": {"phases", "precision", "unported"} <= types,
+        "checkpoints_4_8_best": all(os.path.isdir(os.path.join(ckpt_dir, d)) for d in ("4", "8", "best")),
+        "eval_return_finite": math.isfinite(final.get("eval/return", float("nan"))),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"train ppo session checks failed: {checks}")
+    # restore of the newest step onto the card, fenced
+    with open(os.path.join(folder, "config.json")) as f:
+        trainer = M.Trainer(M.Config(json.load(f)))
+    template = trainer.learner.init()
+    (restored, meta), restore_ms = fenced_ms(lambda: M.CheckpointManager(folder).restore(template))
+    if meta["iteration"] != iters:
+        raise AssertionError(f"restored iteration {meta['iteration']}, expected {iters}")
+    spans = lambda name: [e["dur_s"] * 1e3 for e in events if e["type"] == "span" and e["name"] == name]  # noqa: E731
+    window_ms = {f"{a}-{b}": (window_end[b] - window_end[a]) * 1e3 / 2 for a, b in ((2, 4), (4, 6), (6, 8))}
+    result = {
+        "phase": "session", "step": "cli_ppo", "iterations": iters, "num_envs": MAIN_B, "horizon": MAIN_T,
+        "launches": launches, "checks": checks, "no_off_cadence_sync": {"iteration": 3, "ok": True},
+        "unported": next(e["subsystems"] for e in events if e["type"] == "unported"),
+        "state_bytes": state_bytes(restored, M.tree_flatten),
+        "checkpoint_save_ms": spans("checkpoint"), "checkpoint_restore_ms": restore_ms,
+        "eval_ms": spans("eval"), "eval_return": final["eval/return"],
+        "iteration_ms_by_window": window_ms,
+        "iteration_ms_without_cadence_work": window_ms["4-6"],
+        "iteration_ms_with_eval_and_checkpoint": [window_ms["2-4"], window_ms["6-8"]],
+    }
+    emit(result)
+    return result
+
+
+def north_star_config(M, folder: str, **session):
+    return M.Config(
+        learner_config=M.Config(algo=M.Config(
+            name="ppo", horizon=MAIN_T, epochs=4, num_minibatches=4, precision="mixed")),
+        env_config=M.Config(name="jax:lift", num_envs=MAIN_B),
+        session_config=timed_session(M.Config, folder=folder, **session),
+    ).extend(M.base_config())
+
+
+def session_interrupt_resume(M) -> dict:
+    """A north-star run that sends itself SIGTERM from on_metrics at
+    iteration 2 stops at that boundary with the emergency checkpoint; a
+    relaunch into the folder auto-resumes at iteration 2 and its env
+    steps, from a state bit-equal to the stopped run's."""
+    folder = scratch_dir("interrupt")
+    cfg = north_star_config(M, folder, checkpoint=M.Config(every_n_iters=100))
+    steps = MAIN_B * MAIN_T
+    previous = signal.getsignal(signal.SIGTERM)
+
+    def on_metrics(iteration, metrics):
+        if iteration == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    stopped, last = M.Trainer(cfg).run(max_env_steps=10 * steps, on_metrics=on_metrics)
+    if signal.getsignal(signal.SIGTERM) is not previous:
+        raise AssertionError("the interrupt sentinel did not restore the SIGTERM handler")
+    saved_steps = M.CheckpointManager(folder).steps()
+    if last["time/env_steps"] != 2 * steps or saved_steps != [2]:
+        raise AssertionError(f"SIGTERM at 2: stopped at {last['time/env_steps']} env steps, checkpoints {saved_steps}")
+    restored = {}
+
+    def capture(orig):
+        def restore(self, init_state):
+            restored["out"] = orig(self, init_state)
+            return restored["out"]
+        return restore
+
+    seen = []
+    with Patched(M.SessionHooks, "restore", capture):
+        M.Trainer(cfg).run(max_env_steps=3 * steps, on_metrics=lambda i, m: seen.append((i, m["time/env_steps"])))
+    state, iteration, env_steps = restored["out"]
+    checks = {
+        "resumed_at": (iteration, env_steps) == (2, 2 * steps),
+        "bit_equal": tensors_equal(state, stopped, M.tree_flatten),
+        "continued": seen == [(3, 3 * steps)],
+        "interrupt_event": any(e.get("kind") == "interrupt" for e in session_events(folder, M.iter_jsonl)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"interrupt/resume checks failed: {checks}")
+    result = {"phase": "session", "step": "interrupt_resume", "checks": checks,
+              "stopped_at_iteration": 2, "resumed_iterations": [i for i, _ in seen]}
+    emit(result)
+    return result
+
+
+def session_rollback(M) -> dict:
+    """``nan_state`` at trainer.iteration (call 3) poisons iteration 4's
+    learn on 1024 envs x 64 steps; the guard trips, the run rolls back to
+    checkpoint 2, backs the LR off by lr_backoff (0.5) and ends six
+    iterations later with finite metrics."""
+    folder = scratch_dir("rollback")
+    cfg = M.Config(
+        learner_config=M.Config(algo=M.Config(name="ppo", horizon=64, epochs=4, num_minibatches=4)),
+        env_config=M.Config(name="jax:lift", num_envs=1024),
+        session_config=timed_session(
+            M.Config, folder=folder, checkpoint=M.Config(every_n_iters=2),
+            faults=M.Config(plan=[{"site": "trainer.iteration", "kind": "nan_state", "at": 3}])),
+    ).extend(M.base_config())
+    seen = []
+    state, last = M.Trainer(cfg).run(max_env_steps=6 * 1024 * 64, on_metrics=lambda i, m: seen.append(
+        (i, m["health/nonfinite"])))
+    rec = [e for e in session_events(folder, M.iter_jsonl) if e["type"] == "recovery"]
+    checks = {
+        "tripped_then_rolled_back": [e["kind"] for e in rec] == ["tripped", "rollback"],
+        "to_checkpoint_2": bool(rec) and rec[-1].get("to_iteration") == 2,
+        "lr_scale": float(state.opt_state.recovery_scale) == 0.5,
+        "finite_at_end": all(math.isfinite(v) for k, v in last.items() if k != "episode/return"),
+        "iterations": [i for i, _ in seen] == [1, 2, 3, 4, 3, 4, 5, 6],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"rollback checks failed: {checks}, windows {seen}")
+    result = {"phase": "session", "step": "rollback", "checks": checks, "windows": seen}
+    emit(result)
+    return result
+
+
+def session_cli_ddpg(M, replay_counters: dict) -> dict:
+    """``train ddpg jax:lift`` at the headline geometry with
+    checkpoint.include_replay, 3 iterations, then a relaunch to 4: the
+    relaunch's first iteration starts from the saved replay (ring,
+    cursor, size, priorities, max priority) bit for bit, and the gather
+    and scatter launch 64 times each per iteration in both runs. Reports
+    the checkpoint spans (state and replay saved) and the fenced time of
+    the replay's restore."""
+    folder = scratch_dir("cli_ddpg")
+    per_iter = DDPG_B * DDPG_H
+
+    def argv(iters):
+        return ["train", "ddpg", "jax:lift", "--folder", folder, "--num-envs", str(DDPG_B),
+                "--total-steps", str(iters * per_iter), "--set",
+                f"learner_config.algo.horizon={DDPG_H}", f"learner_config.algo.updates_per_iter={DDPG_K}",
+                "learner_config.algo.precision=mixed", "learner_config.algo.exploration.warmup_steps=0",
+                "learner_config.replay.kind=prioritized", f"learner_config.replay.capacity={DDPG_CAPACITY}",
+                f"learner_config.replay.start_sample_size={per_iter}", f"learner_config.replay.batch_size={DDPG_BS}",
+                "session_config.checkpoint.every_n_iters=3", "session_config.checkpoint.include_replay=true",
+                "session_config.eval.every_n_iters=0", "session_config.metrics.every_n_iters=1",
+                "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+
+    seen = []
+
+    def snapshot(replay_state):
+        """(host leaves, clones of the tensors): the ring is updated in place."""
+        flat = M.tree_flatten(replay_state)
+        return ({k: v for k, v in flat.items() if not isinstance(v, torch.Tensor)},
+                {k: v.clone() for k, v in flat.items() if isinstance(v, torch.Tensor)})
+
+    def capture(orig):
+        def train_iter(self, state, replay_state, carry, **kw):
+            seen.append(snapshot(replay_state))
+            out = orig(self, state, replay_state, carry, **kw)
+            seen.append(snapshot(out[1]))
+            return out
+        return train_iter
+
+    restore_ms = []
+
+    def timed_restore(orig):
+        def restore_extra(self, template, step):
+            out, ms = fenced_ms(lambda: orig(self, template, step))
+            restore_ms.append(ms)
+            return out
+        return restore_extra
+
+    counts = lambda n: {name: (w, k * n) for name, (w, k) in replay_counters.items()}  # noqa: E731
+    with Patched(M.OffPolicyTrainer, "_device_train_iter", capture), \
+            Patched(M.CheckpointManager, "restore_extra", timed_restore):
+        _, launches_1 = count_launches(counts(3), lambda: run_cli(M, argv(3)))
+        saved = seen[-1]
+        seen.clear()
+        final, launches_2 = count_launches(counts(1), lambda: run_cli(M, argv(4)))
+    resumed = seen[0]
+    checks = {
+        "host_leaves": saved[0] == resumed[0] and saved[0]["ring/cursor"] == 3 * per_iter,
+        "tensors_bit_equal": saved[1].keys() == resumed[1].keys() and all(
+            torch.equal(v, resumed[1][k]) and v.dtype == resumed[1][k].dtype for k, v in saved[1].items()),
+        "extra_steps": sorted(os.listdir(os.path.join(folder, "checkpoints", "extra"))) == ["3", "4"],
+        "finite": all(math.isfinite(v) for k, v in final.items() if k != "episode/return"),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"train ddpg include_replay checks failed: {checks}")
+    save_ms = [e["dur_s"] * 1e3 for e in session_events(folder, M.iter_jsonl)
+               if e["type"] == "span" and e["name"] == "checkpoint"]
+    result = {"phase": "session", "step": "cli_ddpg_include_replay", "checks": checks,
+              "checkpoint_save_ms": save_ms, "replay_restore_ms": restore_ms,
+              "replay_host_leaves": saved[0], "launches_first_run": launches_1, "launches_resumed_run": launches_2,
+              "replay_bytes": sum(v.numel() * v.element_size() for v in saved[1].values())}
+    emit(result)
+    return result
+
+
+def session_learning(M) -> dict:
+    """tests/test_envs.py::test_ppo_learns_on_lift's own config on the
+    card: 256 envs x 64 steps, 4 epochs x 4 minibatches, 'mixed', metrics
+    every 10, at most 5,000,000 env steps, stopped at episode/return >=
+    400. Fails if 400 is not reached."""
+    cfg = M.Config(
+        learner_config=M.Config(algo=M.Config(name="ppo", horizon=64, epochs=4, num_minibatches=4)),
+        env_config=M.Config(name="jax:lift", num_envs=256),
+        session_config=M.Config(
+            folder=scratch_dir("learn"), total_env_steps=5_000_000,
+            metrics=M.Config(every_n_iters=10, tensorboard=False, console=False),
+            checkpoint=M.Config(every_n_iters=0), eval=M.Config(every_n_iters=0),
+        ),
+    ).extend(M.base_config())
+    best = {"ret": float("-inf"), "iteration": None}
+    t0 = time.perf_counter()
+    curve = []
+
+    def cb(iteration, m):
+        r = m.get("episode/return", float("nan"))
+        curve.append([iteration, r])
+        if r == r and r > best["ret"]:
+            best.update(ret=r, iteration=iteration, seconds=time.perf_counter() - t0)
+        return best["ret"] >= 400.0
+
+    M.Trainer(cfg).run(on_metrics=cb)
+    if best["ret"] < 400.0:
+        raise AssertionError(f"PPO on jax:lift reached {best['ret']} < 400 within 5,000,000 env steps: {curve}")
+    result = {"phase": "session", "step": "learning", "target": 400.0, "best_return": best["ret"],
+              "iterations_to_target": best["iteration"], "env_steps_to_target": best["iteration"] * 256 * 64,
+              "seconds_to_target": best["seconds"], "curve": curve}
+    emit(result)
+    return result
+
+
+def phase_session(M, gae_counters: dict, replay_counters: dict) -> None:
+    session_cli_ppo(M, gae_counters)
+    session_interrupt_resume(M)
+    session_rollback(M)
+    session_cli_ddpg(M, replay_counters)
+    session_learning(M)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1002,6 +1371,27 @@ def main() -> int:
     from surreal_tpu_torch.session.default_configs import base_config
     from surreal_tpu_torch.utils.kernel_build import build_kernel
 
+    try:
+        return run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, ops_vtrace, build_kernel)
+    finally:
+        for root in _SCRATCH:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, ops_vtrace, build_kernel) -> int:
+    from types import SimpleNamespace
+
+    import surreal_tpu_torch.main.launch as launch
+    from surreal_tpu_torch.launch.hooks import SessionHooks
+    from surreal_tpu_torch.session.checkpoint import CheckpointManager
+    from surreal_tpu_torch.session.telemetry import _iter_jsonl
+    from surreal_tpu_torch.utils.tree import tree_flatten
+
+    M = SimpleNamespace(
+        Config=Config, base_config=base_config, Trainer=Trainer, OffPolicyTrainer=OffPolicyTrainer, launch=launch,
+        SessionHooks=SessionHooks, CheckpointManager=CheckpointManager, iter_jsonl=_iter_jsonl,
+        tree_flatten=tree_flatten,
+    )
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": kind, "count": torch.cuda.device_count(),
@@ -1037,6 +1427,7 @@ def main() -> int:
     train_ddpg = phase_train_ddpg(Config, base_config, OffPolicyTrainer, RR)
     gather["launches"] = train_ddpg["replay_gather_launches"]
     scatter["launches"] = train_ddpg["replay_scatter_launches"]
+    phase_session(M, gae_xla, {"replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K)})
 
     emit({"kernels": [gae, vtrace, gather, scatter, rev_scan]})
     print(smi, flush=True)

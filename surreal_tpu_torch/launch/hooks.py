@@ -1,0 +1,389 @@
+"""Session services shared by the training drivers, the port of
+``surreal_tpu/launch/hooks.py`` (``SessionHooks``, ``host_metrics``,
+``training_env_config``): metrics writing, periodic checkpoints with
+keep-best, periodic eval, restore and auto-resume, the interrupt
+sentinel and the divergence guard.
+
+Restore: ``checkpoint.auto_resume`` (on by default) resumes from the
+session's own newest finite checkpoint; ``checkpoint.restore_from`` names
+another session folder to warm-start the first run from. As in the
+reference, the driver's random source is rebuilt from ``seed`` on every
+launch and is not checkpointed, and env carries are not saved: a resumed
+run continues from the restored state, iteration and env-step count with
+fresh envs, and is not bit-equal to an uninterrupted run.
+
+One device->host read per metrics window: ``end_iteration`` stacks the
+window's device scalars and copies them back once, at the metrics
+cadence only. Between cadences neither the hooks nor the engine read
+anything from the card.
+
+The session options the port does not carry raise ``NotImplementedError``
+naming the key (see :func:`check_session_options`). The subsystems the
+reference builds by default and the port does not have yet (the ops
+plane with its SLOs, the watchdog with incidents and remediation, the
+``perf`` cost gauges, the profile trigger file) are not built:
+``begin_run`` lists those the config turns on in one ``unported``
+telemetry event, and the log says so once.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from surreal_tpu_torch.launch.recovery import RecoveryManager
+from surreal_tpu_torch.session.checkpoint import CheckpointManager, make_checkpoint_manager
+from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.interrupt import InterruptSentinel
+from surreal_tpu_torch.session.metrics import get_logger, make_metrics_writer
+from surreal_tpu_torch.session.telemetry import Tracer
+from surreal_tpu_torch.session.tracker import PeriodicTracker
+from surreal_tpu_torch.utils import faults
+
+# on-by-default subsystems of the reference's SessionHooks that the port
+# does not build yet: the config switch that turns each on, and the metric
+# prefixes and telemetry event types it would add
+UNPORTED_SUBSYSTEMS = {
+    "ops": {"switch": "ops.enabled", "metric_prefixes": ["ops/"],
+            "event_types": ["ops_snapshot", "ops_flightrec"]},
+    "slo": {"switch": "slo.enabled", "metric_prefixes": ["slo/"], "event_types": ["slo_breach"]},
+    "watchdog": {"switch": "watchdog.enabled", "metric_prefixes": ["ops/watchdog_", "ops/incidents_"],
+                 "event_types": ["incident_open", "incident_update", "incident_close"]},
+    "remediate": {"switch": "remediate.enabled", "metric_prefixes": ["remediation/"],
+                  "event_types": ["remediation", "remediation_verdict"]},
+    "perf": {"switch": "perf.enabled", "metric_prefixes": ["perf/"], "event_types": ["program_cost"]},
+    "profile.trigger_file": {"switch": "profile.trigger_file", "metric_prefixes": [], "event_types": ["profile"]},
+}
+
+
+def _switch_on(cfg, dotted: str) -> bool:
+    node = cfg
+    for part in dotted.split("."):
+        node = node.get(part, None) if node is not None else None
+    return bool(node)
+
+
+def unported_subsystems(session_config) -> list[str]:
+    """The unported subsystems ``session_config`` turns on."""
+    return [name for name, sub in UNPORTED_SUBSYSTEMS.items() if _switch_on(session_config, sub["switch"])]
+
+
+def check_session_options(config, learner=None) -> None:
+    """Raise ``NotImplementedError`` naming the key for each session option
+    that turns on a subsystem the port does not have (all off by
+    default)."""
+    cfg = config.session_config
+
+    def refuse(key: str, what: str):
+        raise NotImplementedError(f"{key}: {what} is not ported to PyTorch yet")
+
+    if _switch_on(cfg, "publish.enabled"):
+        refuse("session_config.publish.enabled", "live parameter publishing")
+    if _switch_on(cfg, "profiler.enabled"):
+        refuse("session_config.profiler.enabled", "the profiler window")
+    if cfg.get("profile", None) is not None and cfg.profile.get("slow_iter_factor", None) is not None:
+        refuse("session_config.profile.slow_iter_factor", "the slow-iteration profile trigger")
+    if cfg.get("compile_cache_dir", None):
+        refuse("session_config.compile_cache_dir", "the persistent compile cache")
+    topo = cfg.get("topology", None)
+    if topo is not None:
+        mesh = topo.get("mesh", None)
+        if mesh is not None and (mesh.get("dp", -1) not in (-1, 1) or mesh.get("tp", 1) != 1):
+            refuse("session_config.topology.mesh", "a multi-device mesh")
+        multihost = topo.get("multihost", None)
+        if multihost is not None and multihost.get("coordinator", None):
+            refuse("session_config.topology.multihost", "a multi-host topology")
+    algo = learner.config.algo if learner is not None else config.learner_config.get("algo", None)
+    if algo is not None and algo.get("autotune", "off") != "off":
+        refuse("learner_config.algo.autotune", "the program autotuner")
+
+
+class SessionHooks:
+    """One per training run. Driver contract:
+
+        hooks = SessionHooks(config, learner)
+        try:
+            state, it, steps = hooks.restore(state)    # once, before the loop
+            hooks.begin_run(it, steps)
+            while ...:
+                ...train...
+                m, stop = hooks.end_iteration(it, steps, state, key, metrics, on_metrics)
+                if stop: break
+            hooks.final_checkpoint(it, steps, state)
+        finally:
+            hooks.close()
+    """
+
+    def __init__(self, config, learner, name: str = "train"):
+        check_session_options(config, learner)
+        self.config = config
+        cfg = config.session_config
+        os.makedirs(cfg.folder, exist_ok=True)
+        self.log = get_logger(name, cfg.folder)
+        self.writer = make_metrics_writer(cfg, name=name)
+        tel = cfg.get("telemetry", None)
+        self.tracer = Tracer(
+            cfg.folder,
+            enabled=bool(tel.enabled) if tel is not None else True,
+            name=name,
+            max_log_mb=tel.get("max_log_mb", None) if tel is not None else None,
+        )
+        self.ckpt: CheckpointManager | None = make_checkpoint_manager(cfg, on_event=self.tracer.event)
+        pol = getattr(learner, "policy", None)
+        self.precision = pol
+        self._precision_meta = pol.meta() if pol is not None else None
+        self._ckpt_every = PeriodicTracker(max(1, cfg.checkpoint.every_n_iters))
+        rec = cfg.get("recovery", None)
+        self.interrupt = InterruptSentinel(enabled=bool(rec.get("interrupt", True)) if rec is not None else True)
+        self.recovery = RecoveryManager(config, self.ckpt, self.tracer, self.log)
+        self._interrupt_logged = False
+        # step-aligned extra state (the off-policy trainer's replay, with
+        # checkpoint.include_replay): a zero-arg callable -> tree
+        self.extra_state_fn = None
+
+        self.evaluator = None
+        ev = cfg.eval
+        if ev.every_n_iters and ev.every_n_iters > 0 and ev.episodes > 0:
+            from surreal_tpu_torch.launch.evaluator import Evaluator
+
+            self.evaluator = Evaluator(config.env_config, ev, learner)
+            self._eval_every = PeriodicTracker(ev.every_n_iters)
+        if self.ckpt is not None:
+            self.ckpt.best_key = "eval/return" if self.evaluator else "episode/return"
+        self._unported = unported_subsystems(cfg)
+        self._last_eval: dict[str, float] = {}
+        self._last_train: dict[str, float] = {}
+        self._metrics_every = PeriodicTracker(max(1, cfg.metrics.every_n_iters))
+        self._t0 = None
+        self._steps0 = 0
+
+    @property
+    def last_metrics(self) -> dict[str, float]:
+        """Latest synced train metrics merged with latest eval metrics."""
+        return {**self._last_train, **self._last_eval}
+
+    def final_metrics(self, env_steps: int, extras=None) -> None:
+        """Refresh the trailing metrics row at run end, for loops that can
+        spend env steps without a metrics-cadence fire."""
+        m = dict(self._last_train)
+        m.update({k: float(v) for k, v in (extras or {}).items()})
+        m["time/env_steps"] = env_steps
+        m["time/env_steps_per_s"] = (env_steps - self._steps0) / max(time.time() - (self._t0 or time.time()), 1e-9)
+        self._last_train = m
+        self.writer.write(env_steps, m)
+        self.tracer.log_metrics(env_steps, m)
+
+    # -- restore -------------------------------------------------------------
+    def restore(self, init_state):
+        """-> (state, start_iteration, start_env_steps). Own-folder
+        auto-resume takes precedence over ``restore_from``: a warm-started
+        job that relaunches continues its own curve."""
+        cfg = self.config.session_config.checkpoint
+        if cfg.auto_resume and self.ckpt is not None:
+            # the precision guard first: a policy mismatch surfaces as the
+            # named error, not as a structure error from the walk
+            self.ckpt.check_precision(self._precision_meta)
+            restored = self.recovery.restore_newest_finite(init_state)
+            if restored is not None:
+                state, meta, _step = restored
+                self.log.info("auto-resumed at iteration %d (%d env steps)", meta["iteration"], meta["env_steps"])
+                self._reseed_cadences(int(meta["iteration"]))
+                return state, int(meta["iteration"]), int(meta["env_steps"])
+        if cfg.restore_from:
+            mgr = CheckpointManager(cfg.restore_from, on_event=self.tracer.event)
+            mgr.check_precision(self._precision_meta)
+            restored = mgr.restore(init_state)
+            if restored is None:
+                raise FileNotFoundError(f"checkpoint.restore_from={cfg.restore_from!r} has no checkpoint")
+            state, meta = restored
+            self.log.info(
+                "restored from %s at iteration %d (%d env steps)",
+                cfg.restore_from, meta["iteration"], meta["env_steps"],
+            )
+            # keep the foreign counters so schedules continue
+            self._reseed_cadences(int(meta["iteration"]))
+            return state, int(meta["iteration"]), int(meta["env_steps"])
+        return init_state, 0, 0
+
+    def _reseed_cadences(self, iteration: int) -> None:
+        self._ckpt_every = PeriodicTracker(self._ckpt_every.period, init_count=iteration)
+        if self.evaluator is not None:
+            self._eval_every = PeriodicTracker(self._eval_every.period, init_count=iteration)
+
+    # -- per-iteration -------------------------------------------------------
+    def begin_run(self, iteration: int, env_steps: int) -> None:
+        """Start the wall clock and the metrics cadence from the (possibly
+        resumed) position; record the precision policy and what is not
+        built."""
+        self._metrics_every = PeriodicTracker(self._metrics_every.period, init_count=iteration)
+        self._t0 = time.time()
+        self._steps0 = env_steps
+        if self._precision_meta is not None:
+            self.tracer.event("precision", **self.precision.telemetry())
+            self.log.info(
+                "precision policy: %s",
+                " ".join(f"{k}={v}" for k, v in sorted(self.precision.telemetry().items())),
+            )
+            if self.ckpt is not None:
+                self.ckpt.save_run_metadata(self._precision_meta)
+        if self._unported:
+            subs = {name: UNPORTED_SUBSYSTEMS[name] for name in self._unported}
+            self.tracer.event(
+                "unported", subsystems=self._unported,
+                switches=[s["switch"] for s in subs.values()],
+                metric_prefixes=sorted({p for s in subs.values() for p in s["metric_prefixes"]}),
+                event_types=sorted({e for s in subs.values() for e in s["event_types"]}),
+            )
+            self.log.warning(
+                "not ported to PyTorch yet, so not built although the config turns them on: %s",
+                ", ".join(f"{n} ({UNPORTED_SUBSYSTEMS[n]['switch']})" for n in self._unported),
+            )
+
+    def end_iteration(self, iteration: int, env_steps: int, state, key, metrics=None, on_metrics=None):
+        """Per-iteration side-bands. ``metrics`` is a dict of device
+        scalars (or a zero-arg callable giving one), read to the host in
+        one copy only when the metrics cadence fires; ``state`` may be a
+        zero-arg callable, resolved only when eval or a checkpoint fires;
+        ``key`` (an int) seeds eval. Returns (synced metrics or None,
+        stop), stop echoing a truthy ``on_metrics(iteration, m)`` or an
+        interrupt."""
+        state_box = [state]
+
+        def resolve_state():
+            if callable(state_box[0]):
+                state_box[0] = state_box[0]()
+            return state_box[0]
+
+        m = None
+        trip_reason = None
+        if self._metrics_every.track_increment():
+            # the one device->host read of the window: it waits for the
+            # issued iterations, so this span is the window's fenced tail
+            with self.tracer.span("metrics-sync"):
+                raw = metrics() if callable(metrics) else (metrics or {})
+                m = host_floats(raw)
+            m["time/env_steps"] = env_steps
+            m["time/env_steps_per_s"] = (env_steps - self._steps0) / max(
+                time.time() - (self._t0 or time.time()), 1e-9
+            )
+            self._last_train = m
+            trip_reason = self.recovery.check(m, iteration, env_steps)
+        # no state-consuming side-band while the guard is tripped: a
+        # poisoned save would be restored by the rollback about to happen
+        tripped = (
+            trip_reason is not None
+            or self.recovery.pending is not None
+            or self.recovery.last_window_tripped is not None
+        )
+        evaled: dict[str, float] = {}
+        if self.evaluator is not None and self._eval_every.track_increment() and not tripped:
+            with self.tracer.span("eval", emit=True):
+                evaled = self.evaluator.evaluate(resolve_state(), key)
+            self._last_eval = evaled
+        if m is not None:
+            # the window's spans as time/* scalars, after eval so its span
+            # lands in this row
+            m.update(self.tracer.flush_phases(env_steps))
+            self._last_train = m
+        if m or evaled:
+            self.writer.write(env_steps, {**(m or {}), **evaled})
+            self.tracer.log_metrics(env_steps, {**(m or {}), **evaled})
+        if self.ckpt is not None and self._ckpt_every.track_increment():
+            if tripped:
+                self.log.warning(
+                    "skipping checkpoint at iteration %d: divergence guard tripped this window", iteration
+                )
+            else:
+                with self.tracer.span("checkpoint", emit=True):
+                    self.ckpt.save(iteration, resolve_state(), env_steps=env_steps, metrics=self.last_metrics)
+                    if self.extra_state_fn is not None:
+                        self.ckpt.save_extra(iteration, self.extra_state_fn())
+        for ev in faults.drain_fired():
+            self.tracer.event("fault", **ev)
+        stop = m is not None and on_metrics is not None and bool(on_metrics(iteration, m))
+        if self.interrupt.fired:
+            # stop at this boundary; the driver's final_checkpoint is the
+            # emergency save
+            if not self._interrupt_logged:
+                self._interrupt_logged = True
+                self.log.warning(
+                    "interrupt (signal %s) latched: stopping after iteration %d, emergency checkpoint follows",
+                    self.interrupt.signum, iteration,
+                )
+                self.tracer.event(
+                    "recovery", kind="interrupt", signum=self.interrupt.signum,
+                    iteration=int(iteration), env_steps=int(env_steps),
+                )
+            stop = True
+        return m, stop
+
+    @property
+    def interrupted(self) -> bool:
+        """True once the sentinel latched a signal."""
+        return self.interrupt.fired
+
+    def final_checkpoint(self, iteration: int, env_steps: int, state) -> None:
+        """Leave a resumable checkpoint at run end (on the interrupt path,
+        the emergency checkpoint), unless the divergence guard is pending
+        or the last synced window tripped."""
+        if self.recovery.pending is not None or self.recovery.last_window_tripped:
+            self.log.warning(
+                "skipping final checkpoint: divergence guard %s (relaunch will resume from the last finite "
+                "checkpoint)",
+                "pending" if self.recovery.pending else "tripped on the last synced window",
+            )
+            return
+        if self.ckpt is not None and self.ckpt.latest_step() != iteration:
+            self.ckpt.save(
+                iteration, state() if callable(state) else state,
+                env_steps=env_steps, metrics={**self._last_train, **self._last_eval},
+            )
+            if self.extra_state_fn is not None:
+                self.ckpt.save_extra(iteration, self.extra_state_fn())
+
+    def close(self) -> None:
+        self.interrupt.close()  # restore the process's previous handlers
+        for ev in faults.drain_fired():  # faults since the last boundary
+            self.tracer.event("fault", **ev)
+        self.writer.close()
+        self.tracer.close()
+        # detach this session's file log handler, so its fd into
+        # <folder>/logs/ does not outlive the session
+        for h in list(self.log.handlers):
+            if str(getattr(h, "_surreal_id", "")).startswith("file:"):
+                self.log.removeHandler(h)
+                h.close()
+
+
+def host_floats(raw: dict) -> dict[str, float]:
+    """``raw``'s values as Python floats, its tensors (scalars, on one
+    device) stacked and copied back in one read."""
+    keys = [k for k, v in raw.items() if isinstance(v, torch.Tensor)]
+    values = torch.stack([raw[k].to(torch.float32) for k in keys]).tolist() if keys else []
+    read = dict(zip(keys, values))
+    return {k: read[k] if k in read else float(v) for k, v in raw.items()}
+
+
+HOST_METRICS_WINDOW = 20  # rolling episode-return window of the host loops
+
+
+def host_metrics(metrics, recent_returns, window: int = HOST_METRICS_WINDOW):
+    """Deferred metrics of a host-env loop: the learner's scalars plus a
+    rolling-mean ``episode/return``; a zero-arg callable for
+    ``end_iteration``."""
+    import numpy as np
+
+    def build():
+        m = dict(metrics)
+        if recent_returns:
+            m["episode/return"] = float(np.mean(list(recent_returns)[-window:]))
+        return m
+
+    return build
+
+
+def training_env_config(env_config) -> Config:
+    """The training env never records video (that is eval's job)."""
+    return Config(video=Config(enabled=False)).extend(env_config)

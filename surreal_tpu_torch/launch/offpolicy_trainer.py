@@ -24,9 +24,15 @@ exploration normals, the warm-up actions, and the per-update sample draws
 (uniform indices, or prioritized uniforms); the parity tests replay JAX's
 key tree into them.
 
+``run`` is the reference's: ``SessionHooks`` around a ``LoopEngine`` whose
+step is ``_device_train_iter``. With ``checkpoint.include_replay`` every
+checkpoint also saves the replay (ring, cursor, size, priorities) as the
+step's extra tree, and a resume or a rollback restores it from the same
+step; the boundary is then pinned inline, since the snapshot must read
+the iteration's own ring.
+
 Not ported yet: the host-env paths (in-process and the remote experience
-plane), the dp mesh, ``SessionHooks`` (checkpointing, telemetry, recovery),
-the ``LoopEngine`` and the autotuner.
+plane), the dp mesh and the autotuner.
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from surreal_tpu_torch.engine import EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, sideband_stages
 from surreal_tpu_torch.envs import make_env
+from surreal_tpu_torch.launch.hooks import SessionHooks, training_env_config
 from surreal_tpu_torch.launch.rollout import successor_and_termination
-from surreal_tpu_torch.launch.trainer import training_env_config
+from surreal_tpu_torch.launch.trainer import derive_seed
 from surreal_tpu_torch.learners import EVAL_DETERMINISTIC, TRAINING, build_learner
 from surreal_tpu_torch.learners.aggregator import nstep_transitions
 from surreal_tpu_torch.learners.base import check_scan_unroll
@@ -45,6 +53,7 @@ from surreal_tpu_torch.learners.ddpg import LEARN_METRIC_KEYS, ou_noise_step
 from surreal_tpu_torch.ops.precision import torch_dtype
 from surreal_tpu_torch.replay import build_replay
 from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.device import resolve_device
 
 
@@ -341,30 +350,88 @@ class OffPolicyTrainer:
         """Train until ``max_env_steps`` (default: session total_env_steps).
 
         Returns (final_state, last_metrics). ``on_metrics(iteration, dict)``
-        fires every ``metrics.every_n_iters`` iterations, and after the
-        last, with host floats; returning truthy from it stops training.
+        fires every ``metrics.every_n_iters`` iterations with host floats;
+        returning truthy from it stops training.
         """
         cfg = self.config.session_config
         total = max_env_steps or cfg.total_env_steps
-        every = max(1, int(cfg.metrics.every_n_iters))
         state = self.learner.init(torch.Generator().manual_seed(self.seed))
-        generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        carry, replay_state = self.init_loop_state(generator)
-        iteration, env_steps, last = 0, 0, {}
-        while env_steps < total:
-            state, replay_state, carry, metrics = self._device_train_iter(
-                state, replay_state, carry,
-                beta=self._beta(env_steps, total),
-                warmup=env_steps < self.algo.exploration.warmup_steps,
-                first=iteration == 0,
-                generator=generator,
+        faults.configure_from(cfg)  # install (or reset) the run's fault plan
+        hooks = SessionHooks(self.config, self.learner)
+        try:
+            state, iteration, env_steps = hooks.restore(state)
+            hooks.begin_run(iteration, env_steps)
+            generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            carry, replay_state = self.init_loop_state(generator)
+            include_replay = bool(cfg.checkpoint.get("include_replay", False)) and hooks.ckpt is not None
+            if include_replay and iteration > 0:
+                # resume the buffer saved with the restored step, so that
+                # learning continues without a warm-up refill
+                restored = hooks.ckpt.restore_extra({"replay": replay_state}, step=iteration)
+                if restored is not None:
+                    replay_state = restored["replay"]
+            # the replay and the env carry are updated in place: a deferred
+            # boundary reads a clone of the state, and a replay-inclusive
+            # checkpoint pins the boundary inline (the snapshot reads the
+            # live ring)
+            stages = (
+                StageSpec("collect", donate=True),
+                StageSpec("stage", donate=True),
+                StageSpec("learn", donate=True),
+            ) + sideband_stages()
+            engine_cfg = EngineConfig.from_session(cfg)
+            if include_replay and engine_cfg.pipeline_sidebands:
+                hooks.log.warning("engine.pipeline_sidebands is pinned off: checkpoint.include_replay snapshots the live ring")
+                engine_cfg = engine_cfg.inline()
+            ls = LoopState(
+                state=state, key=generator, iteration=iteration, env_steps=env_steps,
+                extras={"replay": replay_state, "carry": carry, "first_call": True, "nonce": 0},
             )
-            iteration += 1
-            env_steps += self.steps_per_iter
-            if iteration % every == 0 or env_steps >= total:
-                # the one device -> host read of the cadence
-                values = torch.stack([v.to(torch.float32) for v in metrics.values()]).tolist()
-                last = dict(zip(metrics, values))
-                if on_metrics is not None and on_metrics(iteration, last):
-                    break
-        return state, last
+            if include_replay:
+                hooks.extra_state_fn = lambda: {"replay": ls.extras["replay"]}
+
+            def step(ls):
+                with hooks.tracer.span("train_iter"):
+                    ls.state, ls.extras["replay"], ls.extras["carry"], metrics = self._device_train_iter(
+                        ls.state, ls.extras["replay"], ls.extras["carry"],
+                        beta=self._beta(ls.env_steps, total),
+                        warmup=ls.env_steps < self.algo.exploration.warmup_steps,
+                        first=ls.extras["first_call"],
+                        generator=ls.key,
+                    )
+                ls.extras["first_call"] = False
+                return Outcome(
+                    metrics=metrics, steps=self.steps_per_iter,
+                    hook_key=derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1),
+                )
+
+            def apply_fault(ls, f):
+                ls.state = faults.apply_trainer_fault(f, ls.state)
+
+            def on_rollback(ls):
+                rb = hooks.recovery.rollback(
+                    ls.state, fresh=self._fresh_init,
+                    # the replay rides the rollback when it was saved;
+                    # otherwise the buffer is kept (it is data, not params)
+                    extra_template={"replay": ls.extras["replay"]} if include_replay else None,
+                )
+                ls.state, ls.iteration, ls.env_steps = rb.state, rb.iteration, rb.env_steps
+                if rb.extra is not None:
+                    ls.extras["replay"] = rb.extra["replay"]
+                ls.extras["nonce"] = rb.nonce
+                ls.key = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, rb.nonce))
+                ls.extras["carry"] = self._init_carry(ls.key)
+
+            engine = LoopEngine(
+                hooks, total, step, stages, engine_cfg,
+                on_metrics=on_metrics, apply_fault=apply_fault, on_rollback=on_rollback,
+            )
+            ls = engine.run(ls)
+            hooks.final_checkpoint(ls.iteration, ls.env_steps, ls.state)
+            return ls.state, hooks.last_metrics
+        finally:
+            hooks.close()
+
+    def _fresh_init(self, nonce: int):
+        """The divergence guard's fallback when no finite checkpoint exists."""
+        return self.learner.init(torch.Generator().manual_seed(derive_seed(self.seed, nonce)))

@@ -1,26 +1,34 @@
 """Training driver, the port of ``surreal_tpu/launch/trainer.py::Trainer``
-in device mode on one device: collect a horizon on the batched device
-env, then one ``learn`` of the on-policy learner (PPO or IMPALA), per
-iteration.
+in device mode on one device: per iteration, collect a horizon on the
+batched device env, then one ``learn`` of the on-policy learner (PPO or
+IMPALA).
 
-Not ported yet: host-env mode, the dp/sp meshes, ``SessionHooks``
-(checkpointing, telemetry, recovery), the ``LoopEngine`` and the
-autotuner. ``run`` is a plain loop that reads metrics back to the host
-only every ``session_config.metrics.every_n_iters`` iterations; between
-those reads the iteration makes no host sync.
+``run`` is the reference's: ``SessionHooks`` (metrics, eval,
+checkpoints, auto-resume, the interrupt sentinel, the divergence guard)
+around a ``LoopEngine`` whose step is ``_device_train_iter``. Metrics
+reach the host only every ``session_config.metrics.every_n_iters``
+iterations; between those reads an iteration makes no host sync. On a
+rollback the generator is re-seeded from (seed, rollback count) and the
+env carry is re-initialised, where the reference folds the count into its
+keys.
+
+Not ported yet: host-env mode, the dp/sp meshes and the autotuner.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
+from surreal_tpu_torch.engine import EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, sideband_stages
 from surreal_tpu_torch.envs import make_env
+from surreal_tpu_torch.launch.hooks import SessionHooks, training_env_config
 from surreal_tpu_torch.launch.rollout import RolloutCarry, device_rollout, init_device_carry
 from surreal_tpu_torch.learners import build_learner
 from surreal_tpu_torch.learners.base import check_scan_unroll
-from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.device import resolve_device
 
 _LEARN_KEYS = (
@@ -28,9 +36,11 @@ _LEARN_KEYS = (
 )
 
 
-def training_env_config(env_config) -> Config:
-    """The training env never records video (that is eval's job)."""
-    return Config(video=Config(enabled=False)).extend(env_config)
+def derive_seed(seed: int, *parts: int) -> int:
+    """A 63-bit seed for ``torch.Generator.manual_seed`` mixed from
+    ``seed`` and ``parts`` (the rollback count, an iteration); the port's
+    counterpart of ``jax.random.fold_in``."""
+    return int(np.random.SeedSequence([int(seed), *map(int, parts)]).generate_state(1, np.uint64)[0] >> 1)
 
 
 class Trainer:
@@ -91,24 +101,60 @@ class Trainer:
         """Train until ``max_env_steps`` (default: session total_env_steps).
 
         Returns (final_state, last_metrics). ``on_metrics(iteration, dict)``
-        fires every ``metrics.every_n_iters`` iterations, and after the
-        last, with host floats; returning truthy from it stops training.
+        fires every ``metrics.every_n_iters`` iterations with host floats;
+        returning truthy from it stops training.
         """
         cfg = self.config.session_config
         total = max_env_steps or cfg.total_env_steps
-        every = max(1, int(cfg.metrics.every_n_iters))
         state = self.learner.init(torch.Generator().manual_seed(self.seed))
-        generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        carry = self.init_loop_state(generator)
-        iteration, env_steps, last = 0, 0, {}
-        while env_steps < total:
-            state, carry, metrics = self._device_train_iter(state, carry, generator)
-            iteration += 1
-            env_steps += self.steps_per_iter
-            if iteration % every == 0 or env_steps >= total:
-                # the one device -> host read of the cadence
-                values = torch.stack([v.to(torch.float32) for v in metrics.values()]).tolist()
-                last = dict(zip(metrics, values))
-                if on_metrics is not None and on_metrics(iteration, last):
-                    break
-        return state, last
+        faults.configure_from(cfg)  # install (or reset) the run's fault plan
+        hooks = SessionHooks(self.config, self.learner)
+        try:
+            state, iteration, env_steps = hooks.restore(state)
+            hooks.begin_run(iteration, env_steps)
+            generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            carry = self.init_loop_state(generator)
+            # the env carry is updated in place, so a deferred boundary
+            # reads a clone of the state (engine/core.py)
+            stages = (StageSpec("collect", donate=True), StageSpec("learn", donate=True)) + sideband_stages()
+
+            def step(ls):
+                # unfenced span: the time to issue the iteration
+                with hooks.tracer.span("train_iter"):
+                    ls.state, ls.extras["carry"], metrics = self._device_train_iter(
+                        ls.state, ls.extras["carry"], ls.key
+                    )
+                return Outcome(
+                    metrics=metrics, steps=self.steps_per_iter,
+                    hook_key=derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1),
+                )
+
+            def apply_fault(ls, f):
+                ls.state = faults.apply_trainer_fault(f, ls.state)
+
+            def on_rollback(ls):
+                rb = hooks.recovery.rollback(ls.state, fresh=self._fresh_init)
+                ls.state, ls.iteration, ls.env_steps = rb.state, rb.iteration, rb.env_steps
+                # re-seed the offending batch: a deterministic workload
+                # must not replay into the same divergence
+                ls.extras["nonce"] = rb.nonce
+                ls.key = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, rb.nonce))
+                ls.extras["carry"] = self.init_loop_state(ls.key)
+
+            engine = LoopEngine(
+                hooks, total, step, stages, EngineConfig.from_session(cfg),
+                on_metrics=on_metrics, apply_fault=apply_fault, on_rollback=on_rollback,
+            )
+            ls = engine.run(LoopState(
+                state=state, key=generator, iteration=iteration, env_steps=env_steps,
+                extras={"carry": carry, "nonce": 0},
+            ))
+            hooks.final_checkpoint(ls.iteration, ls.env_steps, ls.state)
+            return ls.state, hooks.last_metrics
+        finally:
+            hooks.close()
+
+    def _fresh_init(self, nonce: int):
+        """The divergence guard's fallback when no finite checkpoint exists:
+        an init keyed by the rollback count."""
+        return self.learner.init(torch.Generator().manual_seed(derive_seed(self.seed, nonce)))

@@ -1,6 +1,7 @@
 """Learner base, the port of ``surreal_tpu/learners/base.py``
 (``training_health``, ``recovery_scale``, ``make_optimizer_chain``,
-``Learner``), plus optax's ``incremental_update``.
+``set_recovery_lr_scale``, ``Learner``), plus optax's
+``incremental_update``.
 
 A learner is a set of functions over an explicit state (a NamedTuple of
 tensors and dicts of tensors), as in the reference:
@@ -132,6 +133,22 @@ class OptimizerChain:
             for k in grads
         }
         return updates, OptState(count=count, mu=mu, nu=nu, recovery_scale=state.recovery_scale)
+
+
+def set_recovery_lr_scale(tree: Any, scale: float) -> Any:
+    """``tree`` (a learner state) with ``scale`` written into the
+    ``recovery_scale`` leaf of every :class:`OptState` in it (DDPG has
+    two). Each leaf gets its own scalar tensor, on its old leaf's device.
+    Between iterations only: the divergence guard's LR backoff
+    (``launch/recovery.py``)."""
+    if isinstance(tree, OptState):
+        old = tree.recovery_scale
+        return tree._replace(recovery_scale=torch.full((), scale, dtype=torch.float32, device=old.device))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(set_recovery_lr_scale(x, scale) for x in tree))
+    if isinstance(tree, dict):
+        return {k: set_recovery_lr_scale(v, scale) for k, v in tree.items()}
+    return tree
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

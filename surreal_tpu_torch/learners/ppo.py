@@ -245,7 +245,9 @@ class PPOLearner(PolicyHeadMixin, Learner):
         launches its CUDA kernel for CUDA tensors and runs its plain version
         for CPU tensors."""
         algo = self.config.algo
-        gamma = torch.tensor(algo.gamma, dtype=torch.float32, device=values.device)
+        # a fill on the device: torch.tensor(x, device='cuda') copies from
+        # the host and synchronizes
+        gamma = torch.full((), algo.gamma, dtype=torch.float32, device=values.device)
         boot_disc = gamma * (1.0 - batch["terminated"].to(torch.float32))
         decay = gamma * algo.lam * (1.0 - batch["done"].to(torch.float32))
         if algo.get("gae_impl", "xla") == "assoc":

@@ -1,0 +1,145 @@
+"""Experiment launcher, the port of ``surreal_tpu/main/launch.py``'s
+``train`` subcommand (``build_config``, ``select_trainer``, ``run_train``,
+``main``):
+
+    python -m surreal_tpu_torch train ppo jax:lift --folder /tmp/exp1
+    python -m surreal_tpu_torch train ddpg jax:lift --folder /tmp/exp2 \\
+        --num-envs 256 --set learner_config.algo.n_step=3
+
+It builds the reference's three config trees from the same flags, writes
+``<folder>/config.json`` (atomically), picks the driver (``OffPolicyTrainer``
+for ddpg, else ``Trainer``), runs it with the session services of
+``launch/hooks.py`` and prints the final metrics as one sorted JSON line.
+
+``session_config.backend`` keeps the reference's values: 'tpu' (the
+default, "the accelerator") runs on the CUDA card and raises without
+one; 'cpu' runs on the CPU (``--set session_config.backend=cpu``).
+
+Not ported yet, and refused with exit code 2: ``--workers`` (the SEED
+topology), ``--local-procs`` (process groups) and the other subcommands
+(eval, actor, tune, profile, diag, top, trace, why, chaos).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.default_configs import base_config
+
+ALGOS = ("ppo", "ddpg", "impala")
+UNPORTED_COMMANDS = ("eval", "actor", "tune", "profile", "diag", "top", "trace", "why", "chaos")
+BACKENDS = {"tpu": "cuda", "cpu": "cpu"}
+
+
+def build_config(args) -> Config:
+    """CLI args -> the fully extended three-tree config bundle."""
+    overrides = Config(
+        learner_config=Config(algo=Config(name=args.algo)),
+        env_config=Config(name=args.env, num_envs=args.num_envs),
+        session_config=Config(folder=args.folder),
+    )
+    if args.total_steps is not None:
+        overrides.session_config.total_env_steps = args.total_steps
+    if args.restore_from is not None:
+        overrides.session_config.checkpoint = Config(restore_from=args.restore_from)
+    if getattr(args, "workers", None) is not None:
+        overrides.session_config.topology = Config(num_env_workers=args.workers)
+    if args.set:
+        overrides.override_from_dotlist(args.set)
+    return overrides.extend(base_config())
+
+
+def backend_device(backend: str) -> str:
+    """``session_config.backend`` -> the torch device: 'tpu' (the
+    accelerator) is the CUDA card, 'cpu' the CPU."""
+    if backend not in BACKENDS:
+        raise ValueError(f"session_config.backend {backend!r} not in tpu|cpu")
+    if BACKENDS[backend] == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "session_config.backend='tpu' (the default) selects the CUDA card, and "
+            "torch.cuda.is_available() is False; pass --set session_config.backend=cpu to run on the CPU"
+        )
+    return BACKENDS[backend]
+
+
+def select_trainer(config, device: str = "cuda"):
+    """Map config -> driver: ddpg -> ``OffPolicyTrainer``, else ``Trainer``."""
+    workers = config.session_config.topology.num_env_workers
+    if workers > 0:
+        raise NotImplementedError(
+            f"topology.num_env_workers={workers} selects the SEED inference-server topology, "
+            "which is not ported to PyTorch yet"
+        )
+    if config.learner_config.algo.name == "ddpg":
+        from surreal_tpu_torch.launch.offpolicy_trainer import OffPolicyTrainer
+
+        return OffPolicyTrainer(config, device=device)
+    from surreal_tpu_torch.launch.trainer import Trainer
+
+    return Trainer(config, device=device)
+
+
+def run_train(args) -> int:
+    if getattr(args, "local_procs", None):
+        print("surreal_tpu_torch: --local-procs (process groups) is not ported to PyTorch yet", file=sys.stderr)
+        return 2
+    if getattr(args, "workers", None):
+        print("surreal_tpu_torch: --workers (the SEED topology) is not ported to PyTorch yet", file=sys.stderr)
+        return 2
+    config = build_config(args)
+    device = backend_device(config.session_config.backend)
+    folder = config.session_config.folder
+    os.makedirs(folder, exist_ok=True)
+    # the resolved config, so later runs and readers can rebuild the
+    # session; tmp + rename, as readers may poll for it
+    cfg_path = os.path.join(folder, "config.json")
+    with open(cfg_path + ".tmp", "w") as f:
+        f.write(config.dumps())
+    os.replace(cfg_path + ".tmp", cfg_path)
+    trainer = select_trainer(config, device)
+    _, metrics = trainer.run()
+    print(json.dumps({k: v for k, v in sorted(metrics.items())}, default=float))
+    return 0
+
+
+def _not_ported(args) -> int:
+    print(f"surreal_tpu_torch: the {args.cmd!r} subcommand is not ported to PyTorch yet; "
+          "use python -m surreal_tpu for it", file=sys.stderr)
+    return 2
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="surreal_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="launch a training experiment")
+    t.add_argument("algo", choices=ALGOS)
+    t.add_argument("env", help="env name with backend prefix: jax:lift, jax:pong, jax:pong16")
+    t.add_argument("--folder", required=True, help="session/experiment directory")
+    t.add_argument("--num-envs", type=int, default=64)
+    t.add_argument("--total-steps", type=int, default=None)
+    t.add_argument("--restore-from", default=None, help="foreign session folder to warm-start from")
+    t.add_argument("--workers", type=int, default=None, help="not ported: the SEED topology's env workers")
+    t.add_argument("--local-procs", type=int, default=None, help="not ported: local multi-process groups")
+    t.add_argument("--set", nargs="*", metavar="KEY=VAL", default=[],
+                   help="dotlist overrides, e.g. learner_config.algo.horizon=64")
+    t.set_defaults(fn=run_train)
+    for name in UNPORTED_COMMANDS:
+        u = sub.add_parser(name, help="not ported to PyTorch yet")
+        u.add_argument("rest", nargs=argparse.REMAINDER)
+        u.set_defaults(fn=_not_ported)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = make_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

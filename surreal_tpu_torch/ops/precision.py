@@ -49,6 +49,22 @@ class PrecisionPolicy(NamedTuple):
             cfg["compute_dtype"] = self.compute_dtype
         return cfg
 
+    def meta(self) -> dict:
+        """What a checkpoint restore must agree on, key for key as the
+        reference records it (``session/checkpoint.py`` checks it): the
+        fp8 path is the reference's 'bf16_fp8' only, never on here."""
+        return {
+            "policy": self.name,
+            "param_dtype": self.param_dtype,
+            "compute_dtype": self.compute_dtype,
+            "data_dtype": self.data_dtype,
+            "loss_scaling": self.loss_scaling,
+            "fp8": False,
+        }
+
+    def telemetry(self) -> dict:
+        return self.meta()
+
 
 def resolve_policy(learner_config) -> PrecisionPolicy:
     """Resolve the active policy from a learner config tree, with the

@@ -1,0 +1,174 @@
+"""The port's ``train`` entry point (``surreal_tpu_torch/main/launch.py``)
+and session runtime against the JAX package's.
+
+- The same argv through each package's own parser and ``build_config``
+  gives equal ``config.dumps()``; the port's ``run_train`` on
+  ``session_config.backend=cpu`` writes a ``config.json`` equal to the
+  reference's for that argv. Exact.
+- One short device-mode run of each package's ``Trainer`` on jax:lift
+  with the same cadences gives the same iterations at which metrics fire,
+  the same checkpoint steps, the same metric keys and the same telemetry
+  event types, once the reference's keys and events of the subsystems
+  the port lists as unported (``launch/hooks.py::UNPORTED_SUBSYSTEMS``:
+  the ops plane, SLOs, watchdog, remediation, ``perf`` cost gauges, the
+  profile trigger file) are taken out. Exact.
+- What the port does not carry raises or exits 2, by name."""
+
+import json
+import os
+
+import pytest
+import torch
+
+import surreal_tpu.main.launch as jax_launch
+import surreal_tpu_torch.main.launch as torch_launch
+from surreal_tpu.launch.trainer import Trainer as JaxTrainer
+from surreal_tpu.session.config import Config as JaxConfig
+from surreal_tpu.session.default_configs import base_config as jax_base_config
+from surreal_tpu.session.telemetry import _iter_jsonl as jax_iter_jsonl
+from surreal_tpu_torch.launch.hooks import UNPORTED_SUBSYSTEMS
+from surreal_tpu_torch.launch.trainer import Trainer
+from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.default_configs import base_config
+from surreal_tpu_torch.session.telemetry import _iter_jsonl
+from surreal_tpu_torch.utils import faults
+
+ARGVS = [
+    ["train", "ppo", "jax:lift", "--folder", "F"],
+    ["train", "ddpg", "jax:lift", "--folder", "F", "--num-envs", "256", "--total-steps", "1000",
+     "--set", "learner_config.algo.n_step=3", "session_config.checkpoint.include_replay=true"],
+    ["train", "impala", "jax:pong", "--folder", "F", "--restore-from", "G",
+     "--set", "learner_config.algo.horizon=32", "session_config.backend=cpu"],
+    ["train", "ppo", "jax:lift", "--folder", "F", "--workers", "0", "--set",
+     "session_config.faults.plan=[{\"site\": \"trainer.iteration\", \"kind\": \"delay\"}]"],
+]
+
+
+def _parsed(module, argv, monkeypatch):
+    """``argv`` through ``module``'s own ``main`` and parser, stopping at
+    ``run_train``: the args it would get."""
+    got = []
+    monkeypatch.setattr(module, "run_train", lambda args: got.append(args) or 0)
+    assert module.main(list(argv)) == 0
+    return got[0]
+
+
+@pytest.mark.parametrize("i", range(len(ARGVS)))
+def test_build_config_matches_jax(i, monkeypatch):
+    argv = ARGVS[i]
+    want = jax_launch.build_config(_parsed(jax_launch, argv, monkeypatch)).dumps()
+    got = torch_launch.build_config(_parsed(torch_launch, argv, monkeypatch)).dumps()
+    assert got == want
+
+
+def test_run_train_on_cpu_writes_the_reference_config_and_prints_metrics(tmp_path, capsys, monkeypatch):
+    folder = str(tmp_path / "run")
+    argv = ["train", "ppo", "jax:lift", "--folder", folder, "--num-envs", "8", "--total-steps", "64", "--set",
+            "session_config.backend=cpu", "learner_config.algo.horizon=8", "learner_config.algo.epochs=1",
+            "learner_config.algo.num_minibatches=1", "session_config.metrics.every_n_iters=1",
+            "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+    assert torch_launch.main(argv) == 0
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(metrics) == sorted(metrics) and metrics["time/env_steps"] == 64
+    with open(os.path.join(folder, "config.json")) as f:
+        written = f.read()
+    want = jax_launch.build_config(_parsed(jax_launch, argv, monkeypatch)).dumps()
+    assert written == want
+    assert os.listdir(os.path.join(folder, "checkpoints")).count("1") == 1  # the run-end checkpoint
+
+
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
+    base = ["train", "ppo", "jax:lift", "--folder", str(tmp_path)]
+    assert torch_launch.main(base + ["--workers", "2"]) == 2
+    assert torch_launch.main(base + ["--local-procs", "2"]) == 2
+    for cmd in torch_launch.UNPORTED_COMMANDS:
+        assert torch_launch.main([cmd, str(tmp_path)]) == 2
+    assert "not ported" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="session_config.backend=cpu"):
+        torch_launch.main(base)  # 'tpu', the default, is the card
+    with pytest.raises(ValueError, match="backend"):
+        torch_launch.main(base + ["--set", "session_config.backend=gpu"])
+
+
+UNPORTED_OPTIONS = {
+    "session_config.publish.enabled": {"session_config": {"publish": {"enabled": True}}},
+    "session_config.profiler.enabled": {"session_config": {"profiler": {"enabled": True}}},
+    "session_config.profile.slow_iter_factor": {"session_config": {"profile": {"slow_iter_factor": 3.0}}},
+    "session_config.compile_cache_dir": {"session_config": {"compile_cache_dir": "xla_cache"}},
+    "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
+    "session_config.topology.mesh": {"session_config": {"topology": {"mesh": {"dp": 2}}}},
+    "session_config.topology.multihost": {"session_config": {"topology": {"multihost": {"coordinator": "h:1"}}}},
+    "env_config.video": {"env_config": {"video": {"enabled": True, "dir": "v"}},
+                         "session_config": {"eval": {"every_n_iters": 1}}},
+    "transport.send": {"session_config": {"faults": {"plan": [{"site": "transport.send", "kind": "drop_frame"}]}}},
+}
+
+
+@pytest.mark.parametrize("key", sorted(UNPORTED_OPTIONS))
+def test_every_unported_session_option_raises(key, tmp_path):
+    over = UNPORTED_OPTIONS[key]
+    tree = {
+        "learner_config": {"algo": {"name": "ppo", "horizon": 4, "epochs": 1, "num_minibatches": 1,
+                                    **over.get("learner_config", {}).get("algo", {})}},
+        "env_config": {"name": "jax:lift", "num_envs": 2, **over.get("env_config", {})},
+        "session_config": {"folder": str(tmp_path), "metrics": {"tensorboard": False},
+                           **over.get("session_config", {})},
+    }
+    try:
+        with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
+            Trainer(Config(tree).extend(base_config()), device="cpu").run(max_env_steps=8)
+    finally:
+        faults.configure(None)
+
+
+def _session(folder):
+    """A short run on jax:lift: metrics every 2, checkpoint every 3, eval
+    every 4 (2 episodes of at most 10 steps), 6 iterations."""
+    return dict(
+        learner_config=dict(algo=dict(name="ppo", horizon=8, epochs=1, num_minibatches=1, precision="f32")),
+        env_config=dict(name="jax:lift", num_envs=8, time_limit=5),
+        session_config=dict(folder=str(folder), metrics=dict(every_n_iters=2, tensorboard=False, console=False),
+                            checkpoint=dict(every_n_iters=3), eval=dict(every_n_iters=4, episodes=2, max_steps=10)),
+    )
+
+
+def _record(folder, run, iter_jsonl):
+    rows = []
+    run(lambda i, m: rows.append((i, set(m))))
+    ckpt = os.path.join(folder, "checkpoints")
+    events = list(iter_jsonl(os.path.join(folder, "telemetry", "events.jsonl")))
+    return {
+        "fired": [i for i, _ in rows],
+        "row_keys": [keys for _, keys in rows],
+        "steps": sorted(int(n) for n in os.listdir(ckpt) if n.isdigit()),
+        "best": os.path.isdir(os.path.join(ckpt, "best")),
+        "files": sorted(n for n in os.listdir(ckpt) if not n.isdigit()),
+        "event_types": [e["type"] for e in events],
+        "unported": [e for e in events if e["type"] == "unported"],
+    }
+
+
+def test_short_run_matches_the_reference_session(tmp_path):
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    steps = 6 * 8 * 8
+    want = _record(
+        str(jdir), lambda cb: JaxTrainer(JaxConfig(_session(jdir)).extend(jax_base_config())).run(steps, cb),
+        jax_iter_jsonl,
+    )
+    got = _record(
+        str(tdir), lambda cb: Trainer(Config(_session(tdir)).extend(base_config()), device="cpu").run(steps, cb),
+        _iter_jsonl,
+    )
+    # what the port lists as not built, and what the reference builds of it
+    (unported,) = got.pop("unported")
+    assert unported["subsystems"] == list(UNPORTED_SUBSYSTEMS) == [
+        "ops", "slo", "watchdog", "remediate", "perf", "profile.trigger_file"]
+    prefixes, types = tuple(unported["metric_prefixes"]), set(unported["event_types"]) | {"unported"}
+    want.pop("unported")
+    want["row_keys"] = [{k for k in keys if not k.startswith(prefixes)} for keys in want["row_keys"]]
+    want["event_types"] = [t for t in want["event_types"] if t not in types]
+    got["event_types"] = [t for t in got["event_types"] if t not in types]
+    assert got == want
+    assert want["fired"] == [2, 4, 6] and want["steps"] == [3, 6] and want["best"]
+    assert want["event_types"].count("span") == 3  # two checkpoints and one eval

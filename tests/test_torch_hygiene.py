@@ -30,6 +30,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     scripts = ("chip_smoke.py", "ab_replay_rows.py", "ab_scan_kernels.py")
     files = sorted(_PKG.rglob("*.py")) + [_REPO / name for name in scripts]
     assert len(files) > 20, "the scan did not find the port"
+    scanned = {str(path.relative_to(_PKG)) for path in files if _PKG in path.parents}
+    session_runtime = {
+        "__main__.py", "main/launch.py", "engine/core.py", "engine/stages.py", "launch/hooks.py",
+        "launch/recovery.py", "launch/evaluator.py", "session/checkpoint.py", "session/telemetry.py",
+        "session/metrics.py", "session/tracker.py", "session/interrupt.py", "utils/faults.py", "utils/tree.py",
+    }
+    assert session_runtime <= scanned, f"not scanned: {sorted(session_runtime - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
         for path in files

@@ -1,0 +1,94 @@
+"""Card-only checks of the port's session runtime (marker ``cuda``; they
+skip without a card). This file imports nothing of the JAX package, so it
+collects on a machine that has the port and a card only:
+
+    python -m pytest tests/test_torch_session_cuda.py -m cuda
+
+- a state saved from the card restores onto the card bit-equal;
+- an iteration off every cadence, through the engine and the hooks,
+  makes no host sync (``torch.cuda.set_sync_debug_mode("error")``)."""
+
+import pytest
+import torch
+
+from surreal_tpu_torch.launch.trainer import Trainer
+from surreal_tpu_torch.session import checkpoint as torch_checkpoint
+from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.default_configs import base_config
+from surreal_tpu_torch.utils.tree import tree_flatten
+
+
+def _state(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {
+        "params": {"w": torch.randn(3, 4, generator=g), "b": torch.randn(4, generator=g).to(torch.bfloat16)},
+        "count": torch.tensor(seed, dtype=torch.int32),
+        "ring": (torch.randint(0, 255, (5, 2), generator=g).to(torch.uint8), 7, None),
+    }
+
+
+def _equal(a, b):
+    fa, fb = tree_flatten(a), tree_flatten(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        if isinstance(fa[k], torch.Tensor):
+            assert fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]), k
+        else:
+            assert fa[k] == fb[k], k
+    return True
+
+
+def _tiny(tmp_path, **session):
+    sess = {"folder": str(tmp_path), "metrics": {"every_n_iters": 1, "tensorboard": False, "console": False},
+            "checkpoint": {"every_n_iters": 2}, "eval": {"every_n_iters": 0}}
+    for k, v in session.items():
+        sess[k] = {**sess.get(k, {}), **v}
+    return Config(
+        learner_config={"algo": {"name": "ppo", "horizon": 8, "epochs": 1, "num_minibatches": 1, "precision": "f32"}},
+        env_config={"name": "jax:lift", "num_envs": 8, "time_limit": 5}, session_config=sess,
+    ).extend(base_config())
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_cuda_bit_equal(tmp_path):
+    """A state saved from the card restores onto the card bit-equal, in
+    its dtypes, on the template's device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    def on_card(state):
+        return {**state, "params": {k: v.cuda() for k, v in state["params"].items()}, "count": state["count"].cuda()}
+
+    saved = on_card(_state(3))
+    mgr = torch_checkpoint.CheckpointManager(str(tmp_path))
+    mgr.save(1, saved)
+    state, _ = mgr.restore(on_card(_state()))
+    assert state["params"]["w"].is_cuda and state["count"].is_cuda
+    assert _equal(state, saved)
+
+
+@pytest.mark.cuda
+def test_off_cadence_iteration_makes_no_host_sync(tmp_path):
+    """On the card, one iteration through the engine and the hooks whose
+    boundary fires no cadence (metrics every 2, checkpoint and eval off)
+    runs under ``set_sync_debug_mode("error")``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = _tiny(tmp_path, metrics={"every_n_iters": 2}, checkpoint={"every_n_iters": 0})
+    tr = Trainer(cfg)
+    inner = tr._device_train_iter
+    calls = []
+
+    def wrapped(*a, **kw):
+        calls.append(1)
+        # from iteration 3's step through its boundary (off the metrics
+        # cadence) to the start of iteration 4's step
+        torch.cuda.set_sync_debug_mode("error" if len(calls) == 3 else 0)
+        return inner(*a, **kw)
+
+    tr._device_train_iter = wrapped
+    seen = []
+    try:
+        tr.run(max_env_steps=4 * 64, on_metrics=lambda i, m: seen.append(i))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert seen == [2, 4]
