@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 (any
-sm_90 card) and the CUDA toolkit. Three paths are driven, through the
+sm_90 card) and the CUDA toolkit. Four paths are driven, through the
 training session runtime and its ``train`` entry point: PPO on jax:lift
 (the GAE kernel; at gae_impl='assoc' the reverse linear scan), IMPALA on
 pixel jax:pong (the V-trace kernel; at vtrace_impl='assoc' the reverse
-linear scan) and DDPG with prioritized replay on jax:lift (the replay
-gather and scatter kernels). Five kernels are built and checked. Phases,
-each printing one JSON line:
+linear scan), DDPG with prioritized replay on jax:lift (the replay
+gather and scatter kernels), and the trajectory transformer
+(``model.encoder.kind='trajectory'``: KV-cached acting, then the sequence
+learn) under PPO on jax:pendulum and pixel jax:pong16 (GAE; the scan at
+'assoc') and IMPALA on jax:cartpole (V-trace). Five kernels are built and
+checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
 2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
@@ -28,7 +31,11 @@ each printing one JSON line:
              with the launches of each scan kernel counted on the card:
              PPO on jax:lift at gae_impl 'xla' and 'assoc', IMPALA on
              jax:pong at vtrace_impl 'xla' and 'assoc', DDPG on jax:lift
-             under uniform and under prioritized replay;
+             under uniform and under prioritized replay; the trajectory
+             transformer (kv acting, sequence learn) under PPO on
+             jax:pendulum at 'xla' and 'assoc', IMPALA on jax:cartpole,
+             PPO with the CNN stem on jax:pong16; and kv acting against
+             padded acting on the card, in f32 and under 'mixed';
 5. train   - ``Trainer(config).run`` / ``OffPolicyTrainer(config).run``
              (the session runtime: ``SessionHooks`` around a
              ``LoopEngine``, in a fresh folder, metrics read every
@@ -46,7 +53,14 @@ each printing one JSON line:
              LayerNorm, jax:lift, 2048 envs x 16 steps, 64 updates of 256
              per iteration, prioritized replay of 200,000, 'mixed'), with
              one more DDPG iteration under ``torch.cuda.set_sync_debug_mode
-             ("error")`` to show that it makes no host sync;
+             ("error")`` to show that it makes no host sync; then PPO with
+             the trajectory transformer at the JAX package's
+             perf_report.py::ppo_trajectory_pendulum geometry (jax:pendulum,
+             1024 envs x 128 steps, 2 epochs x 2 minibatches, encoder 64
+             wide, 2 layers of 4 heads x 16, kv acting, 'mixed'), with one
+             more iteration under set_sync_debug_mode("error"), and IMPALA
+             with it on jax:cartpole (default encoder widths, 1024 envs x
+             32 steps);
 6. session - the runtime users start, one JSON line a step:
              ``train ppo jax:lift`` through the CLI at the north-star
              geometry for 8 iterations (metrics every 2, checkpoint and
@@ -61,10 +75,16 @@ each printing one JSON line:
              scatter 64 launches each an iteration); and PPO on jax:lift
              at tests/test_envs.py::test_ppo_learns_on_lift's config until
              the episode return reaches 400 (fails if it does not within
-             5,000,000 env steps).
+             5,000,000 env steps); then the three trajectory commands
+             (``train ppo jax:pendulum``, ``train impala jax:cartpole``,
+             ``train ppo jax:pong16`` with the CNN stem, each with ``--set
+             learner_config.model.encoder.kind=trajectory``) through the
+             CLI with eval on, whose episodes outrun the horizon, so the
+             evaluator's acting context wraps.
 
-Then the kernels summary line (each kernel's launches from its path's
-train phase: the reverse scan's from PPO at 'assoc'), the nvidia-smi line,
+Then the kernels summary line (each kernel's launches summed over the
+timed train phases of every path that launches it, itemised under
+``launches_by_path``), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without CUDA, or outside a checkout, it exits
 non-zero before printing.
@@ -93,11 +113,17 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 MAIN_T, MAIN_B = 256, 4096      # GAE's shape on the main path
 PONG_T, PONG_B = 32, 1024       # V-trace's shape on the IMPALA path
+# the trajectory transformer's PPO geometry (the JAX package's
+# perf_report.py::ppo_trajectory_pendulum): GAE's shape on that path
+TRAJ_T, TRAJ_B = 128, 1024
+TRAJ_ENC = dict(kind="trajectory", features=64, num_layers=2, num_heads=4, head_dim=16, act_impl="kv")
+# the repo's 16x16 pong CNN (tests/test_envs.py, tests/test_trajectory_policy.py)
+PONG16_CNN = dict(enabled=True, channels=[8, 16], kernels=[4, 3], strides=[2, 1], dense=32)
 # the edges of the scan kernels' ring (ops/scan_tiles.py): T longer than the
 # ring, T not a multiple of a stage, B below one tile or not a multiple of
 # 4 (the cp.async copy), several waves of blocks, T below one stage
 SCAN_EDGE_SHAPES = [(1000, 33), (MAIN_T - 1, MAIN_B), (MAIN_T, 5), (PONG_T, PONG_B - 1), (64, 65536), (3, 1000)]
-KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1), *SCAN_EDGE_SHAPES]
+KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1), (TRAJ_T, TRAJ_B), *SCAN_EDGE_SHAPES]
 # the reverse scan runs at PPO's and IMPALA's shapes (the 'assoc' forms); its
 # 8 KB stages hold all of T = 1000 in the ring at 33 columns, so two shapes
 # more wrap the ring, under cp.async and under TMA
@@ -298,7 +324,7 @@ def phase_kernels(ops_gae) -> dict:
     add."""
     return kernel_phase(
         "gae", ops_gae.gae_advantages_masked, ops_gae.gae_masked_plain, gae_inputs, KERNEL_SHAPES,
-        reads=5, writes=2, ops=6, plan=scan_plan_of(5),
+        reads=5, writes=2, ops=6, plan=scan_plan_of(5), also_timed=[(TRAJ_T, TRAJ_B)],
     )
 
 
@@ -615,6 +641,188 @@ def breakdown(trainer, state, reps: int = 2) -> dict:
     return {"rollout_ms": rollout_ms, "learn_ms": learn_ms}
 
 
+# -- trajectory transformer policies (PPO and IMPALA) ------------------------
+
+def trajectory_config(Config, base_config, algo: dict, env: str, num_envs: int, encoder: dict,
+                      cnn: dict | None = None, session=None, **env_over):
+    model = Config(encoder=Config(encoder), **({"cnn": Config(cnn)} if cnn else {}))
+    return Config(
+        learner_config=Config(algo=Config(algo), model=model),
+        env_config=Config(name=env, num_envs=num_envs, **env_over),
+        session_config=session if session is not None else Config(folder="unused"),
+    ).extend(base_config())
+
+
+def trajectory_draws(env: str, B: int, T: int, gen: torch.Generator) -> dict:
+    """Injected draws for one iteration on ``env``: the initial and the
+    per-step reset draws, the env's step draws, and the action noise."""
+    u = lambda *shape: torch.rand(shape, generator=gen)  # noqa: E731
+    if env == "jax:pendulum":
+        lo, span = torch.tensor([-math.pi, -1.0]), torch.tensor([2 * math.pi, 2.0])
+        return {"init": lo + u(B, 2) * span, "reset_draws": lo + u(T, B, 2) * span,
+                "action_noise": torch.randn((T, B, 1), generator=gen)}
+    gumbel = lambda n: -torch.log(-torch.log(u(T, B, n).clamp_min(1e-20)))  # noqa: E731
+    if env == "jax:cartpole":
+        return {"init": u(B, 4) * 0.1 - 0.05, "reset_draws": u(T, B, 4) * 0.1 - 0.05, "action_noise": gumbel(2)}
+    side = lambda *shape: (u(*shape) < 0.5).float()  # noqa: E731
+    return {"init": torch.stack([u(B) * 0.04 - 0.02, side(B)], dim=1),
+            "reset_draws": torch.stack([u(T, B) * 0.04 - 0.02, side(T, B)], dim=2),
+            "step_draws": u(T, B, 1) * 0.04 - 0.02, "action_noise": gumbel(3)}
+
+
+def phase_parity_trajectory(Config, base_config, Trainer, algo: str, env: str, counters: dict,
+                            gae_impl: str = "xla", cnn: dict | None = None) -> None:
+    """One small f32 iteration of a trajectory policy (kv acting, then the
+    sequence learn) on the card and on the CPU from the same weights and
+    the same injected draws, TF32 off; on the card each kernel of
+    ``counters`` (see count_launches) launches as often as it says.
+    16 envs x 16 steps, time limit 6 (envs reset mid-segment), encoder 32
+    wide, 2 layers of 2 heads x 16; PPO 2 epochs x 2 minibatches with row
+    shuffling (its permutations given). Tolerances as for the memoryless
+    parity phases: vector obs 1e-4 (f32 physics and small matmuls round
+    differently on the two devices), pong16's pixels equal, metrics 1e-3
+    relative, the update ratio 5e-2."""
+    B, T = 16, 16
+    algo_cfg = dict(name=algo, horizon=T, precision="f32")
+    if algo == "ppo":
+        algo_cfg.update(epochs=2, num_minibatches=2, shuffle="row", gae_impl=gae_impl)
+    encoder = dict(kind="trajectory", features=32, num_layers=2, num_heads=2, head_dim=16, act_impl="kv")
+    cfg = trajectory_config(Config, base_config, algo_cfg, env, B, encoder, cnn, time_limit=6)
+    gen = torch.Generator().manual_seed(5)
+    draws = trajectory_draws(env, B, T, gen)
+    init = draws.pop("init")
+    perms = torch.stack([torch.randperm(B, generator=gen) for _ in range(2)]) if algo == "ppo" else None
+    out, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, device=dev)
+        state = tr.learner.init(torch.Generator().manual_seed(0))
+        carry = tr.init_loop_state(reset_draws=init.to(dev))
+        kw = {k: v.to(dev) for k, v in draws.items()}
+        if perms is not None:
+            kw["perms"] = perms.to(dev)
+        iteration = lambda: tr._device_train_iter(state, carry, **kw)  # noqa: E731
+        if dev == "cuda":
+            (state, carry, metrics), launches = count_launches(counters, iteration)
+        else:
+            state, carry, metrics = iteration()
+        out[dev] = (carry.obs.cpu(), {k: float(v) for k, v in metrics.items()})
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on; the f32 parity phase needs it off")
+    if out["cpu"][0].dtype == torch.uint8:
+        obs_err = float((out["cuda"][0].float() - out["cpu"][0].float()).abs().max())
+        if obs_err != 0:
+            raise AssertionError(f"final {env} pixels differ between cuda and cpu")
+    else:
+        obs_err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        if obs_err > 1e-4:
+            raise AssertionError(f"final {env} obs differ between cuda and cpu by {obs_err}")
+    errs = {}
+    for k, want in out["cpu"][1].items():
+        got = out["cuda"][1][k]
+        rtol = 5e-2 if k == "health/update_ratio" else 1e-3
+        if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
+            raise AssertionError(f"trajectory {algo} {env} metric {k}: cuda {got} vs cpu {want}")
+        errs[k] = abs(got - want)
+    emit({"phase": "parity", "path": f"trajectory-{algo}", "env": env, "gae_impl": gae_impl if algo == "ppo" else None,
+          "cnn": bool(cnn), "launches": launches, "num_envs": B, "horizon": T, "tf32": False,
+          "final_obs_max_abs_err": obs_err, "metric_abs_err": errs})
+
+
+def phase_kv_vs_padded(Config, base_config, Trainer) -> None:
+    """On the card: acting with K/V caches ('kv') against re-encoding the
+    padded segment ('padded'), same weights, obs and draws, over 1.5
+    segments (the wrap), at the train phase's encoder widths, in f32
+    (bar 1e-4: the decode's and the whole segment's sums run in other
+    orders) and under 'mixed' (3e-2, bf16's mantissa, as the tests')."""
+    B, T = 64, 16
+    errs = {}
+    for precision, tol in (("f32", 1e-4), ("mixed", 3e-2)):
+        learners = {}
+        for act_impl in ("kv", "padded"):
+            cfg = trajectory_config(Config, base_config, dict(name="ppo", horizon=T, precision=precision),
+                                    "jax:pendulum", B, dict(TRAJ_ENC, act_impl=act_impl))
+            learners[act_impl] = Trainer(cfg).learner
+        state = learners["kv"].init(torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(6)
+        obs = torch.randn((T + T // 2, B, 3), generator=gen).cuda()
+        noise = torch.randn((T + T // 2, B, 1), generator=gen).cuda()
+        carries = {k: lr.act_init(B) for k, lr in learners.items()}
+        worst = 0.0
+        for t in range(T + T // 2):
+            info = {}
+            for k, lr in learners.items():
+                _, info[k], carries[k] = lr.act_step(state, carries[k], obs[t], noise=noise[t])
+            for key in ("logp", "value", "mean"):
+                err = float((info["kv"][key] - info["padded"][key]).abs().max())
+                bound = tol + tol * float(info["padded"][key].abs().max())
+                if not err <= bound:
+                    raise AssertionError(f"kv vs padded {precision}: {key} at step {t} differs by {err}")
+                worst = max(worst, err)
+        errs[precision] = worst
+    emit({"phase": "parity", "path": "trajectory kv vs padded acting", "num_envs": B, "horizon": T,
+          "steps": T + T // 2, "max_abs_err": errs, "tolerance": {"f32": 1e-4, "mixed": 3e-2}})
+
+
+def no_sync_iteration(trainer, state, counters: dict) -> dict:
+    """One more iteration of ``trainer`` under set_sync_debug_mode("error")
+    (which raises on any host sync), with its launches counted."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    carry = trainer.init_loop_state(gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, launches = count_launches(counters, lambda: trainer._device_train_iter(state, carry, gen))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return {"ms": (time.perf_counter() - t0) * 1e3, "host_sync": False, "launches": launches}
+
+
+def phase_train_trajectory(Config, base_config, Trainer, counters: dict) -> dict:
+    """PPO with the trajectory transformer at the JAX package's
+    perf_report.py::ppo_trajectory_pendulum geometry: jax:pendulum, 1024
+    envs x 128 steps, 2 epochs x 2 minibatches, encoder 64 wide, 2 layers
+    of 4 heads x 16, KV-cached acting, 'mixed'; GAE once an iteration, and
+    one more iteration under set_sync_debug_mode("error")."""
+    algo = dict(name="ppo", horizon=TRAJ_T, epochs=2, num_minibatches=2, precision="mixed")
+    cfg = trajectory_config(Config, base_config, algo, "jax:pendulum", TRAJ_B, TRAJ_ENC,
+                            session=timed_session(Config))
+    trainer = Trainer(cfg)  # the default device: the card
+    state, timing = timed_run(trainer, counters)
+    result = {
+        "phase": "train", "path": "trajectory-ppo", "env": "jax:pendulum",
+        "num_envs": TRAJ_B, "horizon": TRAJ_T, "epochs": 2, "num_minibatches": 2, "precision": "mixed",
+        "encoder": TRAJ_ENC,
+        **timing,
+        "gae_launches_per_iter": timing["gae_launches"] / timing["learn_calls"],
+        **breakdown(trainer, state),
+        "no_sync_iteration": no_sync_iteration(trainer, state, counters),
+    }
+    emit(result)
+    return result
+
+
+def phase_train_trajectory_impala(Config, base_config, Trainer, counters: dict) -> dict:
+    """IMPALA with the trajectory transformer at its default widths
+    (encoder 64 wide, 2 layers of 4 heads x 16, kv acting) on jax:cartpole,
+    1024 envs x 32 steps, 'mixed': V-trace once an iteration."""
+    cfg = trajectory_config(Config, base_config, dict(name="impala", horizon=PONG_T, precision="mixed"),
+                            "jax:cartpole", PONG_B, dict(kind="trajectory"), session=timed_session(Config))
+    trainer = Trainer(cfg)  # the default device: the card
+    state, timing = timed_run(trainer, counters)
+    result = {
+        "phase": "train", "path": "trajectory-impala", "env": "jax:cartpole",
+        "num_envs": PONG_B, "horizon": PONG_T, "precision": "mixed",
+        "encoder": trainer.learner.config.model.encoder.to_dict(),
+        **timing,
+        "vtrace_launches_per_iter": timing["vtrace_launches"] / timing["learn_calls"],
+        **breakdown(trainer, state),
+    }
+    emit(result)
+    return result
+
+
 # -- DDPG + prioritized replay ------------------------------------------------
 
 def phase_replay_gather(RR) -> dict:
@@ -809,7 +1017,7 @@ def phase_rev_scan(RS) -> dict:
         "rev_scan", lambda *x: (RS.reverse_linear_scan(*x),), lambda *x: (RS.reverse_linear_scan_plain(*x),),
         rev_scan_inputs, REV_SCAN_SHAPES, reads=2, writes=1, ops=2,
         tpu_kernel="ops/pallas_returns.py::_rev_scan_kernel", extra_bytes_per_b=4, counter=RS.reverse_linear_scan,
-        plan=scan_plan_of(2, stage_bytes=REV_SCAN_STAGE_BYTES), also_timed=[(PONG_T, PONG_B)],
+        plan=scan_plan_of(2, stage_bytes=REV_SCAN_STAGE_BYTES), also_timed=[(PONG_T, PONG_B), (TRAJ_T, TRAJ_B)],
     )
 
 
@@ -1348,6 +1556,59 @@ def session_learning(M) -> dict:
     return result
 
 
+def session_cli_trajectory(M, step: str, cmd: list[str], num_envs: int, horizon: int, iters: int,
+                           counters: dict, sets: list[str]) -> dict:
+    """``train <algo> <env> --set learner_config.model.encoder.kind=trajectory``
+    through the CLI for ``iters`` iterations with eval on (every 2, 5
+    deterministic episodes, each longer than the horizon, so the
+    evaluator's act_step wraps the context), metrics every 2, a checkpoint
+    at the end; ``counters`` as count_launches takes them, per iteration."""
+    folder = scratch_dir(step)
+    argv = ["train", *cmd, "--folder", folder, "--num-envs", str(num_envs),
+            "--total-steps", str(iters * num_envs * horizon), "--set",
+            "learner_config.model.encoder.kind=trajectory", f"learner_config.algo.horizon={horizon}",
+            "learner_config.algo.precision=mixed", "session_config.metrics.every_n_iters=2",
+            f"session_config.checkpoint.every_n_iters={iters}", "session_config.eval.every_n_iters=2",
+            "session_config.eval.episodes=5", "session_config.metrics.console=false",
+            "session_config.metrics.tensorboard=false", *sets]
+    t0 = time.perf_counter()
+    final, launches = count_launches({name: (w, n * iters) for name, (w, n) in counters.items()},
+                                     lambda: run_cli(M, argv))
+    seconds = time.perf_counter() - t0
+    events = session_events(folder, M.iter_jsonl)
+    checks = {
+        "eval_outran_the_horizon": final.get("eval/length", 0.0) > horizon,
+        "eval_return_finite": math.isfinite(final.get("eval/return", float("nan"))),
+        "finite": all(math.isfinite(v) for k, v in final.items() if k != "episode/return"),
+        "checkpoint": os.path.isdir(os.path.join(folder, "checkpoints", str(iters))),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{step} checks failed: {checks}, final metrics {final}")
+    eval_ms = [e["dur_s"] * 1e3 for e in events if e["type"] == "span" and e["name"] == "eval"]
+    result = {"phase": "session", "step": step, "argv": argv, "iterations": iters, "launches": launches,
+              "checks": checks, "seconds": seconds, "eval_ms": eval_ms, "eval_return": final["eval/return"],
+              "eval_length": final["eval/length"], "final": final}
+    emit(result)
+    return result
+
+
+def phase_session_trajectory(M, gae_counters: dict, vtrace_counters: dict) -> None:
+    """The three trajectory commands the README gives for the JAX package,
+    on the card: PPO on jax:pendulum at the train phase's geometry (4
+    iterations), IMPALA on jax:cartpole (1024 envs x 32 steps, 2
+    iterations), PPO with the CNN stem on pixel jax:pong16 (the repo's
+    16x16 CNN, 1024 envs x 32 steps, eval capped at 300 steps, 2
+    iterations)."""
+    session_cli_trajectory(M, "cli_trajectory_ppo_pendulum", ["ppo", "jax:pendulum"], TRAJ_B, TRAJ_T, 4,
+                           gae_counters, ["learner_config.algo.epochs=2", "learner_config.algo.num_minibatches=2"])
+    session_cli_trajectory(M, "cli_trajectory_impala_cartpole", ["impala", "jax:cartpole"], PONG_B, PONG_T, 2,
+                           vtrace_counters, [])
+    cnn = [f"learner_config.model.cnn.{k}={json.dumps(v)}" for k, v in PONG16_CNN.items()]
+    session_cli_trajectory(M, "cli_trajectory_ppo_pong16", ["ppo", "jax:pong16"], PONG_B, PONG_T, 2, gae_counters,
+                           ["learner_config.algo.epochs=2", "learner_config.algo.num_minibatches=2",
+                            "session_config.eval.max_steps=300", *cnn])
+
+
 def phase_session(M, gae_counters: dict, replay_counters: dict) -> None:
     session_cli_ppo(M, gae_counters)
     session_interrupt_resume(M)
@@ -1418,16 +1679,34 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     phase_parity_impala(Config, base_config, Trainer, "assoc", vtrace_assoc)
     phase_parity_ddpg(Config, base_config, OffPolicyTrainer)
     train = phase_train(Config, base_config, Trainer, gae_xla)
-    gae["launches"] = train["gae_launches"]
     train_assoc = phase_train(Config, base_config, Trainer, gae_assoc, "assoc", ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS)
-    rev_scan["launches"] = train_assoc["rev_scan_launches"]
     train_impala = phase_train_impala(Config, base_config, Trainer, vtrace_xla)
-    vtrace["launches"] = train_impala["vtrace_launches"]
-    phase_train_impala(Config, base_config, Trainer, vtrace_assoc, "assoc", ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS)
+    train_impala_assoc = phase_train_impala(Config, base_config, Trainer, vtrace_assoc, "assoc",
+                                            ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS)
     train_ddpg = phase_train_ddpg(Config, base_config, OffPolicyTrainer, RR)
     gather["launches"] = train_ddpg["replay_gather_launches"]
     scatter["launches"] = train_ddpg["replay_scatter_launches"]
+    # the trajectory transformer: PPO's sequence learn launches GAE (the
+    # reverse scan at 'assoc'), IMPALA's V-trace
+    phase_parity_trajectory(Config, base_config, Trainer, "ppo", "jax:pendulum", gae_xla, "xla")
+    phase_parity_trajectory(Config, base_config, Trainer, "ppo", "jax:pendulum", gae_assoc, "assoc")
+    phase_parity_trajectory(Config, base_config, Trainer, "impala", "jax:cartpole", vtrace_xla)
+    phase_parity_trajectory(Config, base_config, Trainer, "ppo", "jax:pong16", gae_xla, cnn=PONG16_CNN)
+    phase_kv_vs_padded(Config, base_config, Trainer)
+    train_traj = phase_train_trajectory(Config, base_config, Trainer, gae_xla)
+    train_traj_impala = phase_train_trajectory_impala(Config, base_config, Trainer, vtrace_xla)
     phase_session(M, gae_xla, {"replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K)})
+    phase_session_trajectory(M, gae_xla, vtrace_xla)
+
+    # each kernel's launches in the timed train phases of every path that
+    # launches it (each phase counted from 0 just before it, read just after)
+    gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"]}
+    vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
+                                  "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"]}
+    rev_scan["launches_by_path"] = {"ppo_lift_assoc": train_assoc["rev_scan_launches"],
+                                    "impala_pong_assoc": train_impala_assoc["rev_scan_launches"]}
+    for k in (gae, vtrace, rev_scan):
+        k["launches"] = sum(k["launches_by_path"].values())
 
     emit({"kernels": [gae, vtrace, gather, scatter, rev_scan]})
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 Env names keep the reference's ``jax:`` prefix so one config tree drives
 both packages: ``jax:lift`` builds the batched torch :class:`BlockLift`,
 ``jax:pong`` and ``jax:pong16`` the pixel :class:`Pong` and
-:class:`PongSmall`, each wrapped in :class:`AutoReset`. The other
+:class:`PongSmall`, ``jax:pendulum`` :class:`Pendulum` and
+``jax:cartpole`` :class:`CartPole`, each wrapped in :class:`AutoReset`. The other
 on-device envs and the host backends (gym, dm_control, robosuite) are not
 ported yet and raise.
 """
@@ -15,8 +16,8 @@ import torch
 from surreal_tpu_torch.envs.device.base import AutoReset
 from surreal_tpu_torch.utils.device import resolve_device
 
-_NOT_PORTED = ("jax:cartpole", "jax:pendulum", "jax:nut", "jax:lift_pixels", "jax:nut_pixels")
-_PORTED = ("jax:lift", "jax:pong", "jax:pong16")
+_NOT_PORTED = ("jax:nut", "jax:lift_pixels", "jax:nut_pixels")
+_PORTED = ("jax:lift", "jax:pong", "jax:pong16", "jax:pendulum", "jax:cartpole")
 
 
 def make_env(env_config, device: str | torch.device = "cuda") -> AutoReset:
@@ -32,6 +33,10 @@ def make_env(env_config, device: str | torch.device = "cuda") -> AutoReset:
         from surreal_tpu_torch.envs.device.pong import Pong as env_cls
     elif name == "jax:pong16":
         from surreal_tpu_torch.envs.device.pong import PongSmall as env_cls
+    elif name == "jax:pendulum":
+        from surreal_tpu_torch.envs.device.pendulum import Pendulum as env_cls
+    elif name == "jax:cartpole":
+        from surreal_tpu_torch.envs.device.cartpole import CartPole as env_cls
     else:
         backend = name.partition(":")[0]
         if name in _NOT_PORTED or backend in ("gym", "dm_control", "robosuite"):

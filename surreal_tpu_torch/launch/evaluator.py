@@ -1,9 +1,11 @@
 """Periodic policy evaluation, the port of
-``surreal_tpu/launch/evaluator.py`` (``Evaluator``) for device envs
-(``jax:lift``, ``jax:pong``, ``jax:pong16``).
+``surreal_tpu/launch/evaluator.py`` (``Evaluator``) for the port's device
+envs (``jax:lift``, ``jax:pong``, ``jax:pong16``, ``jax:pendulum``,
+``jax:cartpole``).
 
 An evaluation runs ``eval.episodes`` fresh episodes side by side on the
-evaluator's own batched env, acting through the learner's ``act`` in
+evaluator's own batched env, acting through the learner's ``act_step``
+(with a fresh ``act_init`` carry) in
 'eval_deterministic' or 'eval_stochastic' mode, for the env's time limit
 (or ``eval.max_steps``) with each episode latched at its first done, as
 the reference's scan does. It returns ``eval/return``, ``eval/length``
@@ -52,8 +54,11 @@ class Evaluator:
         length = torch.zeros(B, dtype=torch.int32, device=dev)
         alive = torch.ones(B, dtype=torch.float32, device=dev)
         success = torch.zeros(B, dtype=torch.bool, device=dev)
+        # act_step is act for memoryless policies; a trajectory policy
+        # threads its context carry, re-segmenting past its horizon
+        act_carry = self.learner.act_init(B)
         for _ in range(self._time_limit):
-            action, _ = self.learner.act(state, obs, self.mode, generator)
+            action, _, act_carry = self.learner.act_step(state, act_carry, obs, self.mode, generator)
             env_state, obs, reward, done, info = self.env.step(env_state, action, generator)
             ret = ret + reward * alive
             length = length + (alive > 0).to(torch.int32)

@@ -4,7 +4,10 @@
 ported yet.
 
 The reference's ``lax.scan`` over the horizon is a Python loop here; each
-step acts on the whole [B, ...] env batch. Episode returns are tracked in
+step acts on the whole [B, ...] env batch through the learner's
+``act_step``, with a fresh ``act_init`` carry for each call: a trajectory
+policy's context is segment-aligned (the learn recomputes exactly this
+conditioning), and a memoryless learner's carry is None. Episode returns are tracked in
 band: ``ep_return`` is nonzero only at done steps (the finished episode's
 sum), so metrics need no side channel.
 
@@ -66,10 +69,11 @@ def device_rollout(
     ``ep_return``/``ep_done`` for metrics, every leaf [T, B, ...].
     """
     c = carry
+    act_carry = learner.act_init(c.obs.shape[0])
     steps = []
     for t in range(horizon):
-        action, info = learner.act(
-            state, c.obs, TRAINING, generator,
+        action, info, act_carry = learner.act_step(
+            state, act_carry, c.obs, TRAINING, generator,
             noise=None if action_noise is None else action_noise[t],
         )
         env_state, obs2, reward, done, step_info = env.step(

@@ -12,7 +12,11 @@ rollback the generator is re-seeded from (seed, rollback count) and the
 env carry is re-initialised, where the reference folds the count into its
 keys.
 
-Not ported yet: host-env mode, the dp/sp meshes and the autotuner.
+The reference's guards hold: a trajectory policy (it threads an acting
+carry through the rollout) needs a device env, and a sequence-parallel
+mesh (``topology.mesh.sp > 1``) needs a trajectory policy. Not ported
+yet: host-env mode, the dp/sp meshes (an sp mesh over a trajectory
+policy raises at ``rebind_mesh``) and the autotuner.
 """
 
 from __future__ import annotations
@@ -50,8 +54,30 @@ class Trainer:
     def __init__(self, config, device: str | torch.device = "cuda"):
         self.config = config
         self.device = resolve_device(device)
+        model = config.learner_config.get("model", None)
+        encoder = model.get("encoder", None) if model is not None else None
+        if (
+            encoder is not None and encoder.get("kind") == "trajectory"
+            and not str(config.env_config.name).startswith("jax:")
+        ):
+            raise ValueError(
+                "model.encoder.kind='trajectory' needs a device env "
+                "(jax:*): host loops act per-step without the "
+                "sequence context carry"
+            )
         self.env = make_env(training_env_config(config.env_config), self.device)
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
+        topo = config.session_config.get("topology", None)
+        mesh = topo.get("mesh", None) if topo is not None else None
+        if mesh is not None and int(mesh.get("sp", 1)) > 1:
+            if not self.learner.requires_act_carry:
+                raise ValueError(
+                    "topology.mesh sp>1 shards trajectory attention; "
+                    "it requires model.encoder.kind='trajectory' "
+                    "(memoryless policies have no sequence axis to "
+                    "shard — use the dp axis instead)"
+                )
+            self.learner.rebind_mesh(mesh, "sp")  # raises: not ported yet
         self.horizon = self.learner.config.algo.horizon
         # the rollout scan's unroll in the JAX package: accepted, nothing to
         # unroll in the port's rollout loop (learners/base.py)

@@ -9,6 +9,7 @@ tensors and dicts of tensors), as in the reference:
     state           = learner.init(generator)
     state, metrics  = learner.learn(state, batch, generator)
     action, info    = learner.act(state, obs, mode, generator)
+    action, info, carry = learner.act_step(state, carry, obs, mode, generator)
 
 The optimizer is functional too: optax's ``clip_by_global_norm -> adam ->
 recovery_scale`` written out over dicts of tensors, so that its state
@@ -189,11 +190,20 @@ class Learner(abc.ABC):
         self.specs = env_specs
         self.device = resolve_device(device)
         self.policy = resolve_policy(learner_config)
+        # the trajectory encoder is an on-policy seam (PPO and IMPALA set
+        # supports_trajectory_encoder); any other algorithm ignoring the
+        # knob would train another model than the one configured
         enc = learner_config.get("model", None)
         enc = enc.get("encoder", None) if enc is not None else None
-        if enc is not None and enc.get("kind", "auto") == "trajectory":
-            raise NotImplementedError(
-                "model.encoder.kind='trajectory' is not ported to PyTorch yet"
+        if (
+            enc is not None
+            and enc.get("kind", "auto") == "trajectory"
+            and not self.supports_trajectory_encoder
+        ):
+            raise ValueError(
+                "model.encoder.kind='trajectory' is an on-policy seam "
+                f"(ppo, impala; got algo {learner_config.algo.name!r}); "
+                "ddpg uses its own actor/critic model build"
             )
 
     @abc.abstractmethod
@@ -207,3 +217,27 @@ class Learner(abc.ABC):
     @abc.abstractmethod
     def act(self, state: Any, obs: torch.Tensor, mode: str = TRAINING, generator: torch.Generator | None = None):
         """Batched action selection -> (action, act_info)."""
+
+    # -- the acting seam of history-conditioned policies ---------------------
+    # Trajectory policies thread a per-env acting carry through a rollout;
+    # for memoryless ones act_init is None and act_step is act.
+    requires_act_carry: bool = False
+    supports_trajectory_encoder: bool = False  # PPO and IMPALA implement it
+
+    def act_init(self, num_envs: int) -> Any:
+        """A fresh acting carry for a rollout segment (None: memoryless)."""
+        return None
+
+    def act_step(
+        self,
+        state: Any,
+        act_carry: Any,
+        obs: torch.Tensor,
+        mode: str = TRAINING,
+        generator: torch.Generator | None = None,
+        noise: torch.Tensor | None = None,
+    ):
+        """History-conditioned acting -> (action, act_info, new_carry).
+        ``noise`` replaces the action draw, as ``act`` takes it."""
+        action, info = self.act(state, obs, mode, generator, noise=noise)
+        return action, info, act_carry

@@ -10,8 +10,12 @@ V-trace goes to ``ops/vtrace.py``: ``vtrace_impl`` 'xla' (the default)
 and 'pallas' both reach the fused V-trace kernel, 'assoc' the reference's
 'assoc' form, whose recurrence is the reverse scan's kernel; each wrapper
 launches its CUDA kernel for CUDA tensors and runs its plain version for
-CPU tensors. Not ported yet: the trajectory encoder and the 'bf16'
-precision policies (dynamic loss scaling); each raises at construction.
+CPU tensors. With ``model.encoder.kind='trajectory'`` the model is the
+trajectory transformer: acting goes through ``act_init``/``act_step``
+(``learners/seq_policy.py``) and the learn takes one extended [B, T+1]
+pass, whose shifted values are V-trace's bootstrap. Not ported yet: the
+'bf16' precision policies (dynamic loss scaling), which raise at
+construction.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from surreal_tpu_torch.learners.base import (
     optimizer_from_config,
     training_health,
 )
-from surreal_tpu_torch.learners.seq_policy import PolicyHeadMixin
+from surreal_tpu_torch.learners.seq_policy import SequenceActingMixin, build_seq_model
 from surreal_tpu_torch.models.ppo_net import CategoricalPPOModel, PPOModel
 from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops.running_stats import RunningStats, init_stats, normalize, update_stats
@@ -70,10 +74,15 @@ class IMPALAState(NamedTuple):
     iteration: torch.Tensor   # int32 scalar
 
 
-class IMPALALearner(PolicyHeadMixin, Learner):
+class IMPALALearner(SequenceActingMixin, Learner):
+    supports_trajectory_encoder = True  # one update over whole sequences
+
     def __init__(self, learner_config, env_specs: EnvSpecs, device: str | torch.device = "cuda"):
         super().__init__(learner_config, env_specs, device)
         self.discrete = env_specs.discrete
+        enc = learner_config.model.get("encoder", None)
+        self.seq_policy = bool(enc is not None and enc.get("kind") == "trajectory")
+        self.requires_act_carry = self.seq_policy
         impl = learner_config.algo.get("vtrace_impl", "xla")
         if impl not in ("xla", "assoc", "pallas"):
             raise ValueError(f"vtrace_impl {impl!r} not in xla|assoc|pallas")
@@ -84,8 +93,13 @@ class IMPALALearner(PolicyHeadMixin, Learner):
         self.model = self._build_model(torch.Generator().manual_seed(0))
         self.tx = optimizer_from_config(learner_config.optimizer, self.policy)
 
-    def _build_model(self, generator: torch.Generator | None) -> CategoricalPPOModel | PPOModel:
+    def _build_model(self, generator: torch.Generator | None):
         obs_shape = self.specs.obs.shape
+        if self.seq_policy:
+            return build_seq_model(
+                self.config.model, self.specs, self.config.algo.init_log_std,
+                horizon=self.config.algo.horizon, policy=self.policy, generator=generator,
+            )
         if self.discrete:
             return CategoricalPPOModel(self.model_cfg, obs_shape, self.specs.action.n, generator=generator)
         return PPOModel(
@@ -126,8 +140,10 @@ class IMPALALearner(PolicyHeadMixin, Learner):
             return obs
         return normalize(stats, obs.to(torch.float32))
 
-    def apply(self, params: Params, obs: torch.Tensor):
-        return functional_call(self.model, params, (obs,))
+    def apply(self, params: Params, obs: torch.Tensor, **kw):
+        """The model applied with ``params``; ``kw`` (cache, pos) reach a
+        trajectory model's decode form."""
+        return functional_call(self.model, params, (obs,), kw)
 
     # -- acting (same behaviour-info contract as PPO) --------------------------
     @torch.no_grad()
@@ -139,6 +155,12 @@ class IMPALALearner(PolicyHeadMixin, Learner):
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
     ):
+        if self.seq_policy:
+            raise RuntimeError(
+                "trajectory policies condition on history: act through "
+                "act_init/act_step (the device collector and the evaluator "
+                "do); the stateless act() has no context to condition on"
+            )
         out = self.apply(state.params, self._norm_obs(state.obs_stats, obs))
         return self._head_act(out, mode, generator, noise)
 
@@ -156,11 +178,27 @@ class IMPALALearner(PolicyHeadMixin, Learner):
                 obs_stats = state.obs_stats
             obs = self._norm_obs(obs_stats, batch["obs"])
             next_obs = self._norm_obs(obs_stats, batch["next_obs"])
-            # V(s'_t) only feeds V-trace, which is gradient-stopped
-            values_next = self.apply(state.params, next_obs).value
+            if not self.seq_policy:
+                # V(s'_t) only feeds V-trace, which is gradient-stopped
+                values_next = self.apply(state.params, next_obs).value
 
         leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        out = self.apply(leaves, obs)
+        if self.seq_policy:
+            # one extended [B, T+1] pass: each position conditioned on its
+            # segment prefix (as act_step was), V-trace's bootstrap read
+            # from the shifted positions (the truncation caveat of PPO's
+            # _learn_seq holds here too)
+            T = batch["reward"].shape[0]
+            ext = torch.cat([obs.transpose(0, 1), next_obs[-1][:, None]], dim=1)
+            out_ext = self.apply(leaves, ext)
+            out = type(out_ext)(*(x[:, :T].transpose(0, 1) for x in out_ext))  # [T, B, ...]
+            # the one copy: the detached [B, T+1] values to [T+1, B], so
+            # V-trace gets contiguous [T, B] values and values_next
+            v_tb = out_ext.value.detach().t().contiguous()
+            values_d, values_next = v_tb[:T], v_tb[1:]
+        else:
+            out = self.apply(leaves, obs)
+            values_d = out.value.detach()
         values = out.value
         if self.discrete:
             logp = D.categorical_logp(out.logits, batch["action"])
@@ -168,7 +206,7 @@ class IMPALALearner(PolicyHeadMixin, Learner):
         else:
             logp = D.diag_gauss_logp(out.mean, out.log_std, batch["action"])
             entropy = D.diag_gauss_entropy(out.log_std).mean()
-        vt = self._vtrace(batch, logp.detach(), values.detach(), values_next)
+        vt = self._vtrace(batch, logp.detach(), values_d, values_next)
         pg_loss = -(vt.pg_advantages * logp).mean()
         v_loss = 0.5 * ((values - vt.vs) ** 2).mean()
         total = pg_loss + algo.value_coeff * v_loss - algo.entropy_coeff * entropy

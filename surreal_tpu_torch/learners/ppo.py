@@ -1,7 +1,10 @@
-"""PPO learner, the port of ``surreal_tpu/learners/ppo.py::PPOLearner``,
-memoryless path: GAE, clipped-surrogate and adaptive-KL-penalty modes, KL
-early stop and beta adaptation, value clipping, grad-norm clip, and the
-ZFilter obs-normalizer update.
+"""PPO learner, the port of ``surreal_tpu/learners/ppo.py::PPOLearner``:
+GAE, clipped-surrogate and adaptive-KL-penalty modes, KL early stop and
+beta adaptation, value clipping, grad-norm clip, and the ZFilter
+obs-normalizer update; a diagonal-Gaussian head for continuous actions
+and a categorical one for discrete actions; the memoryless MLP/CNN models
+and the trajectory transformer (``model.encoder.kind='trajectory'``,
+learned by :meth:`PPOLearner._learn_seq`).
 
 The reference's nested ``lax.scan`` over epochs x minibatches becomes two
 Python loops; the KL early stop is a carried bool tensor that zeroes the
@@ -14,13 +17,13 @@ Batch layout (from launch/rollout.py):
   obs [T,B,...], next_obs [T,B,...] (pre-reset terminal obs at dones),
   action [T,B,...], reward [T,B], done [T,B] (episode boundary),
   terminated [T,B] (true env termination, excludes truncation),
-  behavior_logp [T,B], behavior: {mean, log_std}.
+  behavior_logp [T,B], behavior: {mean, log_std} | {logits}.
 
 Truncation is handled exactly: bootstrap discount gamma*(1-terminated)
 pairs with V(next_obs), while the GAE decay uses gamma*lam*(1-done).
-
-The sequence-policy path (``_learn_seq``) and discrete-action PPO (the
-categorical model itself is ported, for IMPALA) are not ported yet.
+``value_bootstrap='shared'`` instead takes one value forward over
+[obs; next_obs[-1:]] and bootstraps off the shifted values (truncations
+then bootstrap off the post-reset obs).
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from surreal_tpu_torch.learners.base import (
     optimizer_from_config,
     training_health,
 )
-from surreal_tpu_torch.learners.seq_policy import PolicyHeadMixin
-from surreal_tpu_torch.models.ppo_net import PolicyOutput, PPOModel
+from surreal_tpu_torch.learners.seq_policy import SequenceActingMixin, build_seq_model
+from surreal_tpu_torch.models.ppo_net import CategoricalPPOModel, PPOModel
 from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops.gae import gae_advantages_masked
 from surreal_tpu_torch.ops.returns import reverse_linear_scan_assoc
@@ -81,7 +84,10 @@ PPO_LEARNER_CONFIG = Config(
         # accepts is accepted, and changes nothing in the port's Python loop
         sgd_unroll=1,
         shuffle="block",      # 'block' permutes contiguous blocks | 'row'
-        value_bootstrap="exact",  # 'shared' is not ported yet
+        # value forward for GAE: 'exact' runs a second forward over next_obs
+        # (truncations bootstrap off the true terminal obs); 'shared' one
+        # forward over [obs; next_obs[-1:]] (shifted values)
+        value_bootstrap="exact",
     ),
     replay=Config(kind="fifo"),
 )
@@ -111,34 +117,40 @@ class PPOState(NamedTuple):
     iteration: torch.Tensor   # int32 scalar
 
 
-class PPOLearner(PolicyHeadMixin, Learner):
+class PPOLearner(SequenceActingMixin, Learner):
+    supports_trajectory_encoder = True
+
     def __init__(self, learner_config, env_specs: EnvSpecs, device: str | torch.device = "cuda"):
         super().__init__(learner_config, env_specs, device)
         algo = learner_config.algo
         self.discrete = env_specs.discrete
-        if self.discrete:
-            raise NotImplementedError("discrete-action PPO is not ported to PyTorch yet")
+        enc = learner_config.model.get("encoder", None)
+        self.seq_policy = bool(enc is not None and enc.get("kind") == "trajectory")
+        self.requires_act_carry = self.seq_policy
         if algo.get("gae_impl", "xla") not in ("xla", "assoc", "pallas"):
             raise ValueError(f"gae_impl {algo.gae_impl!r} not in xla|assoc|pallas")
         if algo.get("shuffle", "block") not in ("block", "row"):
             raise ValueError(f"algo.shuffle {algo.shuffle!r} not in block|row")
-        if algo.get("value_bootstrap", "exact") != "exact":
-            raise NotImplementedError(
-                f"value_bootstrap={algo.value_bootstrap!r} is not ported to PyTorch yet"
-            )
         check_scan_unroll(algo, "gae_unroll")
         check_scan_unroll(algo, "sgd_unroll")
         self.model_cfg = self.policy.model_config(learner_config.model)
-        self.act_dim = int(env_specs.action.shape[0])
         # the module defines the computation (applied with functional_call);
         # the parameters it is applied with live in the learner state
         self.model = self._build_model(torch.Generator().manual_seed(0))
         self.tx = optimizer_from_config(learner_config.optimizer, self.policy)
 
-    def _build_model(self, generator: torch.Generator | None) -> PPOModel:
+    def _build_model(self, generator: torch.Generator | None):
+        algo = self.config.algo
+        if self.seq_policy:
+            return build_seq_model(
+                self.config.model, self.specs, algo.init_log_std,
+                horizon=algo.horizon, policy=self.policy, generator=generator,
+            )
+        if self.discrete:
+            return CategoricalPPOModel(self.model_cfg, self.specs.obs.shape, self.specs.action.n, generator=generator)
         return PPOModel(
-            self.model_cfg, self.specs.obs.shape, self.act_dim,
-            init_log_std=self.config.algo.init_log_std, generator=generator,
+            self.model_cfg, self.specs.obs.shape, int(self.specs.action.shape[0]),
+            init_log_std=algo.init_log_std, generator=generator,
         )
 
     # -- state ---------------------------------------------------------------
@@ -176,8 +188,10 @@ class PPOLearner(PolicyHeadMixin, Learner):
             return obs
         return normalize(stats, obs.to(torch.float32))
 
-    def apply(self, params: Params, obs: torch.Tensor) -> PolicyOutput:
-        return functional_call(self.model, params, (obs,))
+    def apply(self, params: Params, obs: torch.Tensor, **kw):
+        """The model applied with ``params``; ``kw`` (cache, pos) reach a
+        trajectory model's decode form."""
+        return functional_call(self.model, params, (obs,), kw)
 
     # -- acting --------------------------------------------------------------
     @torch.no_grad()
@@ -189,6 +203,12 @@ class PPOLearner(PolicyHeadMixin, Learner):
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
     ):
+        if self.seq_policy:
+            raise RuntimeError(
+                "trajectory policies condition on history: act through "
+                "act_init/act_step (the device collector and the evaluator "
+                "do); the stateless act() has no context to condition on"
+            )
         out = self.apply(state.params, self._norm_obs(state.obs_stats, obs))
         return self._head_act(out, mode, generator, noise)
 
@@ -204,6 +224,8 @@ class PPOLearner(PolicyHeadMixin, Learner):
         per-epoch permutations (of blocks in block mode, of rows in row
         mode) that are otherwise drawn from ``generator``."""
         check_learn_batch(batch, self.specs, name="ppo.learn")
+        if self.seq_policy:
+            return self._learn_seq(state, batch, generator, perms)
         algo = self.config.algo
         T, B = batch["reward"].shape
 
@@ -216,10 +238,15 @@ class PPOLearner(PolicyHeadMixin, Learner):
             obs = self._norm_obs(obs_stats, batch["obs"])
             next_obs = self._norm_obs(obs_stats, batch["next_obs"])
             # 2) value forward for GAE, then GAE and advantage normalization
-            # a second forward over next_obs, so truncated episodes bootstrap
-            # off the true pre-reset terminal obs
-            values = self.apply(state.params, obs).value
-            v_next = self.apply(state.params, next_obs).value
+            if algo.get("value_bootstrap", "exact") == "shared":
+                # one forward over [obs; last next_obs], shifted
+                v_all = self.apply(state.params, torch.cat([obs, next_obs[-1:]], dim=0)).value
+                values, v_next = v_all[:-1], v_all[1:]
+            else:
+                # a second forward over next_obs, so truncated episodes
+                # bootstrap off the true pre-reset terminal obs
+                values = self.apply(state.params, obs).value
+                v_next = self.apply(state.params, next_obs).value
             advantages, value_targets = self._gae(batch, values, v_next)
             advantages = self._norm_advantages(advantages)
 
@@ -232,11 +259,20 @@ class PPOLearner(PolicyHeadMixin, Learner):
             "adv": advantages.reshape(N),
             "target": value_targets.reshape(N),
             "value_old": values.reshape(N),
-            "b_mean": batch["behavior"]["mean"].reshape(N, -1),
-            "b_log_std": batch["behavior"]["log_std"].reshape(N, -1),
+            **self._behavior(batch, lambda x: x.reshape(N, -1)),
         }
         sgd_out = self._sgd_epochs(state, flat, N, algo.num_minibatches, generator, perms)
         return self._finalize(state, obs_stats, sgd_out, values, value_targets, advantages)
+
+    def _behavior(self, batch, layout) -> dict:
+        """The behaviour policy's head parameters for the loss's KL, each
+        passed through ``layout``."""
+        if self.discrete:
+            return {"b_logits": layout(batch["behavior"]["logits"])}
+        return {
+            "b_mean": layout(batch["behavior"]["mean"]),
+            "b_log_std": layout(batch["behavior"]["log_std"]),
+        }
 
     def _gae(self, batch, values, v_next):
         """Truncation-exact GAE over [T, B]. 'xla' and 'pallas' both go to
@@ -264,12 +300,19 @@ class PPOLearner(PolicyHeadMixin, Learner):
         return (advantages - adv_mean) / (torch.sqrt(adv_var) + 1e-8)
 
     def _loss_fn(self, params, mb, kl_beta, policy_coeff):
-        """Clipped / adaptive-KL PPO loss; every reduction a full mean."""
+        """Clipped / adaptive-KL PPO loss. Every reduction is a full mean,
+        so flat [N] minibatches (memoryless) and [envs, T] segment
+        minibatches (sequence) share it."""
         algo = self.config.algo
         out = self.apply(params, mb["obs"])
-        logp = D.diag_gauss_logp(out.mean, out.log_std, mb["action"])
-        kl = D.diag_gauss_kl(mb["b_mean"], mb["b_log_std"], out.mean, out.log_std).mean()
-        entropy = D.diag_gauss_entropy(out.log_std).mean()
+        if self.discrete:
+            logp = D.categorical_logp(out.logits, mb["action"])
+            kl = D.categorical_kl(mb["b_logits"], out.logits).mean()
+            entropy = D.categorical_entropy(out.logits).mean()
+        else:
+            logp = D.diag_gauss_logp(out.mean, out.log_std, mb["action"])
+            kl = D.diag_gauss_kl(mb["b_mean"], mb["b_log_std"], out.mean, out.log_std).mean()
+            entropy = D.diag_gauss_entropy(out.log_std).mean()
 
         ratio = torch.exp(logp - mb["behavior_logp"])
         if algo.ppo_mode == "clip":
@@ -293,7 +336,10 @@ class PPOLearner(PolicyHeadMixin, Learner):
         return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy, "kl": kl}
 
     def _sgd_epochs(self, state, data, domain, num_mb, generator, perms):
-        """epochs x minibatches of Adam steps with the KL early stop.
+        """epochs x minibatches of Adam steps with the KL early stop over
+        ``data``, indexed on its leading axis of size ``domain``: flat
+        (t, b) samples in the memoryless path, whole envs in the sequence
+        path.
 
         ``algo.shuffle`` selects how minibatches are drawn, with the
         reference's layout: 'block' permutes contiguous blocks (up to 64
@@ -390,3 +436,56 @@ class PPOLearner(PolicyHeadMixin, Learner):
         }
         metrics.update(training_health(state.params, params, auxs["grad_norm"].mean()))
         return new_state, metrics
+
+    # -- sequence learning ---------------------------------------------------
+    def _learn_seq(self, state: PPOState, batch: dict, generator=None, perms=None):
+        """One SGD iteration for the trajectory policy. What history
+        conditioning changes, as in the reference:
+
+        - the model runs over whole segments [B, T, ...]: each position
+          conditions on its causal prefix, as ``act_step`` did;
+        - minibatches are whole envs, never flat (t, b) samples (a shuffled
+          sample has no prefix to condition on), through the same block
+          layout with the segment's row bytes;
+        - values and the bootstrap come from one extended [B, T+1] pass
+          (the last next_obs appended). A mid-segment truncation then
+          bootstraps off the post-reset obs, the reference's documented
+          bias; terminations are exact (their discount is 0).
+        """
+        algo = self.config.algo
+        T, B = batch["reward"].shape
+        if B // algo.num_minibatches == 0:
+            raise ValueError(
+                f"num_minibatches={algo.num_minibatches} exceeds the env "
+                f"batch width {B}: sequence minibatches are whole envs"
+            )
+        with torch.no_grad():
+            if self._use_obs_filter:
+                obs_stats = update_stats(state.obs_stats, batch["obs"])
+            else:
+                obs_stats = state.obs_stats
+            obs_bt = self._norm_obs(obs_stats, batch["obs"]).transpose(0, 1)  # [B, T, ...]
+            last_next = self._norm_obs(obs_stats, batch["next_obs"][-1])
+            ext = torch.cat([obs_bt, last_next[:, None]], dim=1)  # [B, T+1, ...]
+            out_ext = self.apply(state.params, ext)
+            # the one copy: [B, T+1] values to [T+1, B], so values and v_next
+            # are contiguous [T, B] rows, as the GAE kernel takes them
+            v_tb = out_ext.value.t().contiguous()
+            values, v_next = v_tb[:T], v_tb[1:]
+            advantages, value_targets = self._gae(batch, values, v_next)
+            advantages = self._norm_advantages(advantages)
+
+        # env-major training arrays [B, T, ...]; a minibatch gathers whole
+        # envs, so _loss_fn recomputes whole-segment conditioning
+        bt = lambda x: x.transpose(0, 1)  # noqa: E731
+        data = {
+            "obs": ext[:, :T],
+            "action": bt(batch["action"]),
+            "behavior_logp": bt(batch["behavior_logp"]),
+            "adv": bt(advantages),
+            "target": bt(value_targets),
+            "value_old": bt(values),
+            **self._behavior(batch, bt),
+        }
+        sgd_out = self._sgd_epochs(state, data, B, algo.num_minibatches, generator, perms)
+        return self._finalize(state, obs_stats, sgd_out, values, value_targets, advantages)

@@ -7,6 +7,11 @@ Parameters are kept in float32; activations run in ``compute_dtype``.
 Every layer casts its input AND its weight and bias to the compute dtype
 explicitly, as flax ``Dense(dtype=...)`` and ``Conv(dtype=...)`` do, rather
 than leaving it to ``torch.autocast``, whose op lists round at other places.
+By default the bias is added inside the matmul or convolution (one
+rounding to the compute dtype); with ``fused_bias=False`` it is added
+after the product is rounded, as flax does (two roundings, one more
+elementwise op). The trajectory transformer takes the latter: its
+LayerNorms amplify a bf16 rounding flip past the models' 2e-2 bar.
 
 Layout: pixel observations are NHWC ([..., H, W, C], what the envs emit and
 what the reference's convolutions take) at every public function. The CNN
@@ -45,9 +50,13 @@ def orthogonal_init(
     return layer
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` computed in ``dtype``: input, weight and bias cast."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, fused_bias: bool = True) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype``: input, weight and bias cast;
+    ``fused_bias=False`` adds the bias after the product is rounded to
+    ``dtype``, as flax's Dense does."""
+    if fused_bias:
+        return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
 def uniform_init(layer: nn.Linear, scale: float, generator: torch.Generator | None = None) -> nn.Linear:
@@ -123,7 +132,9 @@ class MLP(nn.Module):
 class NatureCNN(nn.Module):
     """Nature-DQN conv stem for NHWC pixel observations: VALID convolutions
     with ReLU, then one dense layer with ReLU. uint8 input is scaled to
-    [0, 1] and cast to the compute dtype, rounding as the reference does."""
+    [0, 1] and cast to the compute dtype, rounding as the reference does.
+    ``fused_bias=False`` adds each bias after the rounded product (see the
+    module doc)."""
 
     def __init__(
         self,
@@ -134,10 +145,12 @@ class NatureCNN(nn.Module):
         dense: int = 512,
         compute_dtype: torch.dtype = torch.bfloat16,
         generator: torch.Generator | None = None,
+        fused_bias: bool = True,
     ):
         super().__init__()
         h, w, c = obs_shape
         self.compute_dtype = compute_dtype
+        self.fused_bias = fused_bias
         self.strides = tuple(strides)
         convs = []
         for ch, k, s in zip(channels, kernels, strides):
@@ -160,13 +173,21 @@ class NatureCNN(nn.Module):
             x = x.to(cd)
         x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)  # NHWC -> NCHW
         for conv, s in zip(self.convs, self.strides):
-            x = F.relu(F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=s))
+            if self.fused_bias:
+                x = F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=s)
+            else:
+                x = F.conv2d(x, conv.weight.to(cd), stride=s) + conv.bias.to(cd)[:, None, None]
+            x = F.relu(x)
         x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # flatten in (H, W, C) order
-        return F.relu(dense(x, self.dense, cd))
+        return F.relu(dense(x, self.dense, cd, self.fused_bias))
 
 
 def cnn_from_config(
-    cnn_cfg, obs_shape: Sequence[int], compute_dtype: torch.dtype, generator: torch.Generator | None = None
+    cnn_cfg,
+    obs_shape: Sequence[int],
+    compute_dtype: torch.dtype,
+    generator: torch.Generator | None = None,
+    fused_bias: bool = True,
 ) -> NatureCNN:
     """NatureCNN from a ``model.cnn`` subtree."""
     return NatureCNN(
@@ -177,6 +198,7 @@ def cnn_from_config(
         dense=cnn_cfg["dense"],
         compute_dtype=compute_dtype,
         generator=generator,
+        fused_bias=fused_bias,
     )
 
 

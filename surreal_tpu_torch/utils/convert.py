@@ -16,6 +16,22 @@ The PPO-family trees flax builds are::
     Dense_1/{kernel,bias}           value head
     log_std                         (PPOModel only)
 
+The trajectory models' trees (``surreal_tpu/models/attention.py``;
+``TrajectoryPPOModel`` and ``TrajectoryCategoricalPPOModel``), read by
+:func:`trajectory_params_from_jax` and
+:func:`trajectory_categorical_params_from_jax`::
+
+    trunk/embed/{kernel,bias}       obs (or CNN feature) embed
+    trunk/pos_embed                 [max_len, features], copied as it is
+    trunk/cnn_stem/...              NatureCNN tree           (pixel obs)
+    trunk/ln_a{i}, ln_m{i}, ln_f    LayerNorm {scale,bias}
+    trunk/attn{i}/{q,k,v}/kernel    DenseGeneral [E, H, D] -> weight [H*D, E]
+    trunk/attn{i}/{q,k,v}/bias      [H, D] -> [H*D]
+    trunk/attn{i}/o/kernel          [H*D, E] -> weight [E, H*D]
+    trunk/mlp_in{i}, mlp_out{i}     Dense
+    mean | logits, value            heads (Dense)
+    log_std                         (TrajectoryPPOModel only)
+
 The DDPG trees (state obs; a pixel-obs net has ``NatureCNN_0`` in place
 of ``MLP_0`` in the actor, and in front of the critic's dense layers)::
 
@@ -98,6 +114,56 @@ def categorical_params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]
     """flax CategoricalPPOModel params, with the MLP or the CNN trunk ->
     the port's params dict (CPU float32 tensors)."""
     return _convert(flax_params, "logits_head", ())
+
+
+def _trajectory(flax_params: Mapping, head0: str, extra: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    tree = flax_params.get("params", flax_params)
+    expected = {"trunk", head0, "value", *extra}
+    if set(tree) != expected:
+        raise ValueError(f"unexpected flax trajectory model tree {sorted(tree)}; expected {sorted(expected)}")
+    trunk = tree["trunk"]
+    n_layers = sum(k.startswith("attn") for k in trunk)
+    per_layer = ("ln_a", "attn", "ln_m", "mlp_in", "mlp_out")
+    want = {"embed", "pos_embed", "ln_f", *(f"{n}{i}" for n in per_layer for i in range(n_layers))}
+    if "cnn_stem" in trunk:
+        want.add("cnn_stem")
+    if set(trunk) != want:
+        raise ValueError(f"unexpected flax TrajectoryEncoder tree {sorted(trunk)}")
+    out: dict[str, torch.Tensor] = {}
+    if "cnn_stem" in trunk:
+        _cnn(trunk["cnn_stem"], "trunk.cnn_stem", out)
+    _dense(trunk["embed"], "trunk.embed", out)
+    out["trunk.pos_embed"] = _tensor(trunk["pos_embed"])
+    norms = ["ln_f", *(f"{n}{i}" for n in ("ln_a", "ln_m") for i in range(n_layers))]
+    for name in norms:
+        out[f"trunk.{name}.scale"] = _tensor(trunk[name]["scale"])
+        out[f"trunk.{name}.bias"] = _tensor(trunk[name]["bias"])
+    for i in range(n_layers):
+        attn = trunk[f"attn{i}"]
+        for p in ("q", "k", "v"):
+            kernel = np.asarray(attn[p]["kernel"], np.float32)  # [E, H, D]
+            out[f"trunk.attn{i}.{p}.weight"] = _tensor(kernel.reshape(kernel.shape[0], -1), (1, 0))
+            out[f"trunk.attn{i}.{p}.bias"] = _tensor(np.asarray(attn[p]["bias"], np.float32).reshape(-1))
+        _dense(attn["o"], f"trunk.attn{i}.o", out)  # kernel [H*D, E]
+        _dense(trunk[f"mlp_in{i}"], f"trunk.mlp_in{i}", out)
+        _dense(trunk[f"mlp_out{i}"], f"trunk.mlp_out{i}", out)
+    _dense(tree[head0], head0, out)
+    _dense(tree["value"], "value", out)
+    for name in extra:
+        out[name] = _tensor(tree[name])
+    return out
+
+
+def trajectory_params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
+    """flax TrajectoryPPOModel params, with or without the CNN stem -> the
+    port's params dict (CPU float32 tensors)."""
+    return _trajectory(flax_params, "mean", ("log_std",))
+
+
+def trajectory_categorical_params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
+    """flax TrajectoryCategoricalPPOModel params -> the port's params dict
+    (CPU float32 tensors)."""
+    return _trajectory(flax_params, "logits", ())
 
 
 def ddpg_params_from_jax(

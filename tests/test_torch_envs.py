@@ -139,7 +139,7 @@ def test_make_env_builds_lift_and_refuses_unported_envs():
     assert obs.shape == (3, 17) and state.step_count.dtype == torch.int32
     with pytest.raises(ValueError, match="no step draws"):
         env.step(state, torch.zeros(3, 4), step_draws=torch.zeros(3, 1))
-    for name in ("jax:cartpole", "gym:CartPole-v1"):
+    for name in ("jax:nut", "gym:CartPole-v1"):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_env(Config(name=name).extend(BASE_ENV_CONFIG), device="cpu")
 

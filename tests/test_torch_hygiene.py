@@ -36,7 +36,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "launch/recovery.py", "launch/evaluator.py", "session/checkpoint.py", "session/telemetry.py",
         "session/metrics.py", "session/tracker.py", "session/interrupt.py", "utils/faults.py", "utils/tree.py",
     }
-    assert session_runtime <= scanned, f"not scanned: {sorted(session_runtime - scanned)}"
+    trajectory = {
+        "envs/device/pendulum.py", "envs/device/cartpole.py", "ops/ring_attention.py", "models/attention.py",
+        "learners/seq_policy.py",
+    }
+    assert session_runtime | trajectory <= scanned, f"not scanned: {sorted((session_runtime | trajectory) - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
         for path in files

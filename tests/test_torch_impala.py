@@ -163,7 +163,7 @@ def test_impala_learn_matches_jax(kind, knobs):
 
 
 @pytest.mark.parametrize("algo,model", [
-    ({}, {"encoder": {"kind": "trajectory"}}),
+    ({"precision": "bf16_fp8"}, {}),
     ({"precision": "bf16"}, {}),
 ])
 def test_impala_rejects_unported_options(algo, model):

@@ -107,7 +107,7 @@ def test_ppo_model_forward_matches_jax(precision):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
 
 
-@pytest.mark.parametrize("algo", [{"value_bootstrap": "shared"}])
+@pytest.mark.parametrize("algo", [{"precision": "bf16"}])
 def test_ppo_rejects_unported_options(algo):
     """Options the port does not carry raise instead of being ignored."""
     with pytest.raises(NotImplementedError):
