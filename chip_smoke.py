@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 (any
-sm_90 card) and the CUDA toolkit. Four paths are driven, through the
+sm_90 card) and the CUDA toolkit. The paths are driven through the
 training session runtime and its ``train`` entry point: PPO on jax:lift
 (the GAE kernel; at gae_impl='assoc' the reverse linear scan), IMPALA on
 pixel jax:pong (the V-trace kernel; at vtrace_impl='assoc' the reverse
@@ -11,8 +11,12 @@ linear scan), DDPG with prioritized replay on jax:lift (the replay
 gather and scatter kernels), and the trajectory transformer
 (``model.encoder.kind='trajectory'``: KV-cached acting, then the sequence
 learn) under PPO on jax:pendulum and pixel jax:pong16 (GAE; the scan at
-'assoc') and IMPALA on jax:cartpole (V-trace). Five kernels are built and
-checked. Phases, each printing one JSON line:
+'assoc') and IMPALA on jax:cartpole (V-trace), then the host-env paths
+(PPO on dm_control:cheetah-run and gym:CartPole-v1 through the Trainer's
+alternate and overlap loops, IMPALA on gym:CartPole-v1, DDPG with
+prioritized replay on gym:Pendulum-v1 through its host loop) and PPO with
+the NatureCNN on the NutAssembly pixel env jax:nut_pixels. Five kernels
+are built and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
 2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
@@ -80,7 +84,32 @@ checked. Phases, each printing one JSON line:
              ``train ppo jax:pong16`` with the CNN stem, each with ``--set
              learner_config.model.encoder.kind=trajectory``) through the
              CLI with eval on, whose episodes outrun the horizon, so the
-             evaluator's acting context wraps.
+             evaluator's acting context wraps;
+7. host    - the env probe (which of gymnasium, dm_control and mujoco
+             import; where one is missing, a seeded numpy fixture env
+             with the missing env's specs stands in for it, and every
+             line names the env's source); host PPO on cheetah-run on the
+             card against the CPU, one alternate iteration at 'xla' and at
+             'assoc' (the reverse scan); PPO on cheetah-run at the JAX
+             package's perf_report.py:672-735 geometry (32 envs x 64
+             steps, 4 x 4, 'mixed'; 2 warm-up and 4 timed iterations)
+             under the alternate loop, with one more iteration whose host
+             syncs are counted against its 64 action reads, and under the
+             overlap loop; IMPALA and PPO on CartPole (32 x 32); the
+             replay gather against its plain version at host DDPG's rows
+             (the trainer's replay example in a 200,000-row ring, 256
+             indices, with and without repeats) and two f32 host DDPG
+             iterations on Pendulum on the card against the CPU (32 x 16,
+             prioritized, 200,000 rows, 4 updates of 256 an iteration);
+             DDPG with prioritized replay on Pendulum (32 x 16, 64 updates
+             of 256 from a 200,000-row ring; gather and scatter 64 each an
+             iteration) and ``train ddpg`` with include_replay and a
+             bit-equal resume; the nut pixels on the card against the CPU,
+             bit for bit; PPO on jax:nut_pixels at perf_report.py:441-470's
+             geometry (512 envs x 32 steps, 2 x 4, the default NatureCNN,
+             'mixed'; 4 + 8 iterations); and ``train ppo
+             dm_control:cheetah-run --num-envs 32`` with the host
+             evaluator and checkpoints, then an auto-resume.
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -117,18 +146,29 @@ PONG_T, PONG_B = 32, 1024       # V-trace's shape on the IMPALA path
 # perf_report.py::ppo_trajectory_pendulum): GAE's shape on that path
 TRAJ_T, TRAJ_B = 128, 1024
 TRAJ_ENC = dict(kind="trajectory", features=64, num_layers=2, num_heads=4, head_dim=16, act_impl="kv")
+# BASELINE config (2) on the host loops: the JAX package's perf_report.py:672-735 cheetah-run geometry
+CHEETAH_B, CHEETAH_T = 32, 64
+CARTPOLE_B, CARTPOLE_T = 32, 32
+# host DDPG: the ddpg cell's learner settings on gym:Pendulum-v1
+HOST_DDPG_B, HOST_DDPG_H = 32, 16
+# BASELINE config (4): the JAX package's perf_report.py:441-470 nut_pixels geometry
+NUT_B, NUT_T = 512, 32
 # the repo's 16x16 pong CNN (tests/test_envs.py, tests/test_trajectory_policy.py)
 PONG16_CNN = dict(enabled=True, channels=[8, 16], kernels=[4, 3], strides=[2, 1], dense=32)
 # the edges of the scan kernels' ring (ops/scan_tiles.py): T longer than the
 # ring, T not a multiple of a stage, B below one tile or not a multiple of
 # 4 (the cp.async copy), several waves of blocks, T below one stage
 SCAN_EDGE_SHAPES = [(1000, 33), (MAIN_T - 1, MAIN_B), (MAIN_T, 5), (PONG_T, PONG_B - 1), (64, 65536), (3, 1000)]
-KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1), (TRAJ_T, TRAJ_B), *SCAN_EDGE_SHAPES]
+# GAE's shapes on the host PPO and nut_pixels paths
+HOST_GAE_SHAPES = [(CHEETAH_T, CHEETAH_B), (NUT_T, NUT_B), (CARTPOLE_T, CARTPOLE_B)]
+KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1), (TRAJ_T, TRAJ_B), *HOST_GAE_SHAPES,
+                 *SCAN_EDGE_SHAPES]
 # the reverse scan runs at PPO's and IMPALA's shapes (the 'assoc' forms); its
 # 8 KB stages hold all of T = 1000 in the ring at 33 columns, so two shapes
 # more wrap the ring, under cp.async and under TMA
 REV_SCAN_SHAPES = [*KERNEL_SHAPES, (PONG_T, PONG_B), (2000, 33), (2 * MAIN_T, MAIN_B)]
-VTRACE_SHAPES = [(PONG_T, PONG_B), (1, 1), (7, 1000), (PONG_T, PONG_B + 1), (PONG_T, 5), *SCAN_EDGE_SHAPES]
+VTRACE_SHAPES = [(PONG_T, PONG_B), (1, 1), (7, 1000), (PONG_T, PONG_B + 1), (PONG_T, 5), (CARTPOLE_T, CARTPOLE_B),
+                 *SCAN_EDGE_SHAPES]
 # V-trace's float operations per element (csrc/vtrace.cu): rho 2 (sub,
 # exp), delta 5, recursion 4, vs 1, successor 4, pg advantage 5
 VTRACE_OPS = 21
@@ -324,7 +364,7 @@ def phase_kernels(ops_gae) -> dict:
     add."""
     return kernel_phase(
         "gae", ops_gae.gae_advantages_masked, ops_gae.gae_masked_plain, gae_inputs, KERNEL_SHAPES,
-        reads=5, writes=2, ops=6, plan=scan_plan_of(5), also_timed=[(TRAJ_T, TRAJ_B)],
+        reads=5, writes=2, ops=6, plan=scan_plan_of(5), also_timed=[(TRAJ_T, TRAJ_B), *HOST_GAE_SHAPES],
     )
 
 
@@ -363,7 +403,7 @@ def phase_vtrace_kernel(ops_vtrace) -> dict:
             raise AssertionError(f"vtrace inputs at [{T}, {B}] do not exercise the clips")
     return kernel_phase(
         "vtrace", ops_vtrace.vtrace_fused, ops_vtrace.vtrace_fused_plain, vtrace_inputs, VTRACE_SHAPES,
-        reads=8, writes=2, ops=VTRACE_OPS, plan=scan_plan_of(8),
+        reads=8, writes=2, ops=VTRACE_OPS, plan=scan_plan_of(8), also_timed=[(CARTPOLE_T, CARTPOLE_B)],
     )
 
 
@@ -559,6 +599,9 @@ def timed_run(trainer, counters: dict, warmup: int = WARMUP_ITERS, timed: int = 
         **{f"{name}_launches": n for name, n in launches.items()},
         "learn_calls": len(stamps),
         "peak_mem_gb": peak_gb,
+        # the session tracer's spans per iteration (time/<span>_ms, mean per call)
+        "span_ms": [{k[5:-3]: v for k, v in m.items() if k.startswith("time/") and k.endswith("_ms")}
+                    for _, _, m in stamps],
         "metrics": stamps[-1][2],
     }
 
@@ -1061,6 +1104,51 @@ class SampleRecorder:
 PARITY_BOUNDARY_ULPS = 64
 
 
+def compare_ddpg_parity(label: str, out: dict, prioritized: bool):
+    """Holds two DDPG runs, ``out["cuda"]`` and ``out["cpu"]`` (final obs,
+    per-iteration metrics, the ring's rows, the priorities, the recorded
+    prioritized samples), to the DDPG parity bars of phase_parity_ddpg.
+    Returns (index flips at cdf boundaries, whether the runs were compared
+    past the samples, the largest errors)."""
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on; the f32 parity phase needs it off")
+    flips, first_flip = 0, None
+    for call, ((gi, _, _), (wi, u, cdf)) in enumerate(zip(out["cuda"]["samples"], out["cpu"]["samples"])):
+        for i in torch.nonzero(gi != wi).flatten().tolist():
+            a, b = int(gi[i]), int(wi[i])
+            gap = abs(float(u[i]) - float(cdf[min(a, b)]))
+            ulps = gap / float(np.spacing(np.float32(u[i])))
+            if abs(a - b) != 1 or ulps > PARITY_BOUNDARY_ULPS:
+                raise AssertionError(f"{label}: sample {call} draw {i} picked {a} on cuda, {b} on cpu "
+                                     f"({ulps:.1f} ulps from the boundary)")
+            flips += 1
+            first_flip = call if first_flip is None else first_flip
+    errs = {}
+    if first_flip is None:
+        obs_err = float(np.abs(np.asarray(out["cuda"]["obs"]) - np.asarray(out["cpu"]["obs"])).max())
+        if obs_err > 1e-4:
+            raise AssertionError(f"{label}: final obs differ between cuda and cpu by {obs_err}")
+        errs["obs"] = obs_err
+        for k, want in out["cpu"]["storage"].items():
+            err = float((out["cuda"]["storage"][k] - want).abs().max())
+            if err > 1e-4:
+                raise AssertionError(f"{label}: replay leaf {k} differs by {err}")
+            errs[f"replay/{k}"] = err
+        if prioritized:
+            err = float((out["cuda"]["priorities"] - out["cpu"]["priorities"]).abs().max())
+            if err > 1e-4:
+                raise AssertionError(f"{label}: priorities differ by {err}")
+            errs["priorities"] = err
+        for it, (got_m, want_m) in enumerate(zip(out["cuda"]["metrics"], out["cpu"]["metrics"])):
+            for k, want in want_m.items():
+                got = got_m[k]
+                rtol = 5e-2 if k == "health/update_ratio" else 1e-3
+                if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
+                    raise AssertionError(f"{label} iteration {it} metric {k}: cuda {got} vs cpu {want}")
+                errs[k] = max(errs.get(k, 0.0), abs(got - want))
+    return flips, first_flip is None, errs
+
+
 def phase_parity_ddpg(Config, base_config, OffPolicyTrainer) -> None:
     """Two small f32 DDPG iterations (64 envs x 8 steps, time limit 5, 4
     updates of 64 per iteration, capacity 2048, the first iteration under
@@ -1113,46 +1201,11 @@ def phase_parity_ddpg(Config, base_config, OffPolicyTrainer) -> None:
                 "priorities": replay.priorities.cpu() if prioritized else None,
                 "samples": recorder.calls if prioritized else [],
             }
-        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
-            raise AssertionError("TF32 is on; the f32 parity phase needs it off")
-
-        flips, first_flip = 0, None
-        for call, ((gi, _, _), (wi, u, cdf)) in enumerate(zip(out["cuda"]["samples"], out["cpu"]["samples"])):
-            for i in torch.nonzero(gi != wi).flatten().tolist():
-                a, b = int(gi[i]), int(wi[i])
-                gap = abs(float(u[i]) - float(cdf[min(a, b)]))
-                ulps = gap / float(np.spacing(np.float32(u[i])))
-                if abs(a - b) != 1 or ulps > PARITY_BOUNDARY_ULPS:
-                    raise AssertionError(f"ddpg {kind}: sample {call} draw {i} picked {a} on cuda, {b} on cpu "
-                                         f"({ulps:.1f} ulps from the boundary)")
-                flips += 1
-                first_flip = call if first_flip is None else first_flip
-        errs = {}
-        if first_flip is None:
-            obs_err = float((out["cuda"]["obs"] - out["cpu"]["obs"]).abs().max())
-            if obs_err > 1e-4:
-                raise AssertionError(f"ddpg {kind}: final obs differ between cuda and cpu by {obs_err}")
-            for k, want in out["cpu"]["storage"].items():
-                err = float((out["cuda"]["storage"][k] - want).abs().max())
-                if err > 1e-4:
-                    raise AssertionError(f"ddpg {kind}: replay leaf {k} differs by {err}")
-                errs[f"replay/{k}"] = err
-            if prioritized:
-                err = float((out["cuda"]["priorities"] - out["cpu"]["priorities"]).abs().max())
-                if err > 1e-4:
-                    raise AssertionError(f"ddpg prioritized: priorities differ by {err}")
-                errs["priorities"] = err
-            for it, (got_m, want_m) in enumerate(zip(out["cuda"]["metrics"], out["cpu"]["metrics"])):
-                for k, want in want_m.items():
-                    got = got_m[k]
-                    rtol = 5e-2 if k == "health/update_ratio" else 1e-3
-                    if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
-                        raise AssertionError(f"ddpg {kind} iteration {it} metric {k}: cuda {got} vs cpu {want}")
-                    errs[k] = max(errs.get(k, 0.0), abs(got - want))
+        flips, compared, errs = compare_ddpg_parity(f"ddpg {kind}", out, prioritized)
         emit({"phase": "parity", "path": "ddpg", "replay": kind, "n_step": n_step, "env": "jax:lift",
               "num_envs": B, "horizon": H, "updates_per_iter": K, "batch_size": BS, "capacity": C,
               "iterations": 2, "tf32": False, "prioritized_index_flips_at_boundaries": flips,
-              "compared": first_flip is None, "abs_err": errs})
+              "compared": compared, "abs_err": errs})
 
 
 def device_profile(fn) -> dict:
@@ -1617,6 +1670,547 @@ def phase_session(M, gae_counters: dict, replay_counters: dict) -> None:
     session_learning(M)
 
 
+# -- host envs (gym, dm_control) and the NutAssembly pixel env ---------------
+
+# the host envs of BASELINE configs (1) and (2) and DDPG's host path, with the
+# specs a fixture env takes in place of one whose package the machine lacks:
+# (obs dim, discrete actions, continuous action dim, episode length)
+HOST_ENVS = {
+    "gym:CartPole-v1": (4, 2, None, 500),
+    "gym:Pendulum-v1": (3, None, 1, 200),
+    "dm_control:cheetah-run": (17, None, 6, 1000),
+}
+HOST_ENV_PACKAGES = {"gym:CartPole-v1": ("gymnasium",), "gym:Pendulum-v1": ("gymnasium",),
+                     "dm_control:cheetah-run": ("dm_control", "mujoco")}
+HOST_WARMUP_ITERS, HOST_TIMED_ITERS = 2, 4
+
+
+def phase_env_probe() -> dict:
+    """Which of the host env packages import here, with their versions."""
+    import importlib
+    import importlib.metadata
+
+    found = {}
+    for name in ("gymnasium", "dm_control", "mujoco"):
+        try:
+            mod = importlib.import_module(name)
+        except Exception as exc:  # a probe: what is missing is the answer
+            found[name] = {"imports": False, "error": f"{type(exc).__name__}: {exc}"}
+            continue
+        try:
+            version = importlib.metadata.version(name)
+        except importlib.metadata.PackageNotFoundError:
+            version = getattr(mod, "__version__", None)
+        found[name] = {"imports": True, "version": version}
+    env_source = {
+        env: "package" if all(found[m]["imports"] for m in mods) else "fixture"
+        for env, mods in HOST_ENV_PACKAGES.items()
+    }
+    emit({"phase": "env_probe", "modules": found, "env_source": env_source})
+    return env_source
+
+
+def fixture_env_class(HostEnv, StepOutput, ArraySpec, DiscreteSpec, EnvSpecs):
+    """A seeded numpy host env with a missing host env's specs (a test
+    fixture, as tests/test_envs.py defines FakePixelEnv): point masses
+    pushed by the action, reward -|x|^2, a discrete env's episodes ending
+    when a coordinate leaves [-3, 3], every episode truncated at the
+    reference env's length."""
+
+    class FixtureHostEnv(HostEnv):
+        def __init__(self, name: str, num_envs: int, seed: int):
+            obs_dim, n, act_dim, self._limit = HOST_ENVS[name]
+            f32 = np.dtype(np.float32)
+            action = (DiscreteSpec(shape=(), dtype=np.dtype(np.int32), name="action", n=n) if n
+                      else ArraySpec(shape=(act_dim,), dtype=f32, name="action"))
+            self.specs = EnvSpecs(obs=ArraySpec(shape=(obs_dim,), dtype=f32, name="obs"), action=action)
+            self.num_envs, self._seed = num_envs, seed
+            self._rng = np.random.default_rng(seed)
+            self._push = np.random.default_rng(99).normal(0.0, 0.3, (n or act_dim, obs_dim)).astype(np.float32)
+
+        def reset(self, seed=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t = np.zeros(self.num_envs, np.int64)
+            self._x = self._rng.normal(0.0, 0.5, (self.num_envs, self._push.shape[1])).astype(np.float32)
+            return self._x.copy()
+
+        def step(self, actions):
+            force = self._push[actions] if self.specs.discrete else np.clip(actions, -1, 1) @ self._push
+            self._x = (0.95 * self._x + force + 0.05 * self._rng.normal(size=self._x.shape)).astype(np.float32)
+            reward = -(self._x ** 2).sum(1).astype(np.float32)
+            self._t += 1
+            failed = (np.abs(self._x) > 3.0).any(1) if self.specs.discrete else np.zeros(self.num_envs, bool)
+            truncated = (self._t >= self._limit) & ~failed
+            done = failed | truncated
+            terminal = self._x.copy()
+            if done.any():
+                self._x[done] = self._rng.normal(0.0, 0.5, (int(done.sum()), self._x.shape[1])).astype(np.float32)
+                self._t[done] = 0
+            return StepOutput(obs=self._x.copy(), reward=reward, done=done,
+                              info={"terminal_obs": terminal, "truncated": truncated})
+
+    return FixtureHostEnv
+
+
+def make_fixture_env(name: str, num_envs: int, seed: int):
+    """The fixture env of ``name``'s specs inside EpisodeStatsWrapper, as
+    the factory wraps a host env."""
+    from surreal_tpu_torch.envs.base import ArraySpec, DiscreteSpec, EnvSpecs, HostEnv, StepOutput
+    from surreal_tpu_torch.envs.wrappers import EpisodeStatsWrapper
+
+    Fixture = fixture_env_class(HostEnv, StepOutput, ArraySpec, DiscreteSpec, EnvSpecs)
+    return EpisodeStatsWrapper(Fixture(name, num_envs, seed))
+
+
+def install_fixture_envs(env_source: dict) -> None:
+    """Where a host env's package is missing, make_env builds the fixture
+    env of its specs for every trainer and the evaluator."""
+    missing = {env for env, src in env_source.items() if src == "fixture"}
+    if not missing:
+        return
+    import surreal_tpu_torch.envs.factory as factory
+    import surreal_tpu_torch.launch.evaluator as evaluator
+    import surreal_tpu_torch.launch.offpolicy_trainer as offpolicy_trainer
+    import surreal_tpu_torch.launch.trainer as trainer
+
+    real = factory.make_env
+
+    def make_env(env_config, device="cuda"):
+        if env_config.name in missing:
+            return make_fixture_env(env_config.name, env_config.num_envs, env_config.seed)
+        return real(env_config, device)
+
+    for mod in (trainer, offpolicy_trainer, evaluator):
+        mod.make_env = make_env
+
+
+def host_config(M, algo: dict, env: str, num_envs: int, session=None, **learner):
+    return M.Config(
+        learner_config=M.Config(algo=M.Config(algo), **{k: M.Config(v) for k, v in learner.items()}),
+        env_config=M.Config(name=env, num_envs=num_envs),
+        session_config=session if session is not None else M.Config(folder=scratch_dir("host")),
+    ).extend(M.base_config())
+
+
+def count_syncs(fn):
+    """(fn(), the number of host syncs torch reports while it runs), under
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_parity_host_ppo(M, counters: dict, gae_impl: str, env_source: dict) -> dict:
+    """One alternate host iteration of PPO on dm_control:cheetah-run (16
+    envs x 32 steps, 4 epochs x 4 minibatches, f32) at ``gae_impl`` on the
+    card and on the CPU, from the same weights, the same env seed and the
+    same injected action noise and epoch permutations; on the card each
+    kernel of ``counters`` launches as often as it says. Bars of the PPO
+    parity phase: final obs 1e-4 (the actions differ by the devices'
+    rounding and the simulator integrates them), metrics 1e-4 + 1e-3
+    relative, the update ratio 5e-2."""
+    from surreal_tpu_torch.learners.ppo import _block_layout
+
+    env, B, T, epochs, num_mb = "dm_control:cheetah-run", 16, 32, 4, 4
+    cfg = host_config(M, dict(name="ppo", horizon=T, epochs=epochs, num_minibatches=num_mb, precision="f32",
+                              gae_impl=gae_impl), env, B)
+    gen = torch.Generator().manual_seed(11)
+    noise = torch.randn((T, B, 6), generator=gen)
+    bpm = _block_layout(T * B, num_mb, 17 * 4)
+    domain = num_mb * bpm if bpm else T * B
+    perms = torch.stack([torch.randperm(domain, generator=gen) for _ in range(epochs)])
+    out, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = M.Trainer(cfg, device=dev)
+        state = tr.learner.init(torch.Generator().manual_seed(0))
+        obs0 = tr.env.reset(seed=0)
+        iteration = lambda: tr._host_train_iter(  # noqa: E731
+            state, obs0, action_noise=noise.to(dev), perms=perms.to(dev))
+        if dev == "cuda":
+            (state, obs, metrics, _), launches = count_launches(counters, iteration)
+        else:
+            state, obs, metrics, _ = iteration()
+        out[dev] = (obs, {k: float(v) for k, v in metrics.items()})
+        tr.env.close()
+    obs_err = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+    if obs_err > 1e-4:
+        raise AssertionError(f"host ppo: final obs differ between cuda and cpu by {obs_err}")
+    errs = {}
+    for k, want in out["cpu"][1].items():
+        got = out["cuda"][1][k]
+        rtol = 5e-2 if k == "health/update_ratio" else 1e-3
+        if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
+            raise AssertionError(f"host ppo metric {k}: cuda {got} vs cpu {want}")
+        errs[k] = abs(got - want)
+    emit({"phase": "parity", "path": "host_ppo", "env": env, "env_source": env_source[env], "gae_impl": gae_impl,
+          "launches": launches, "num_envs": B, "horizon": T, "final_obs_max_abs_err": obs_err,
+          "metric_abs_err": errs})
+    return launches
+
+
+def phase_train_host(M, path: str, algo: dict, env: str, B: int, T: int, counters: dict, env_source: dict,
+                     overlap: bool, warmup: int = HOST_WARMUP_ITERS, timed: int = HOST_TIMED_ITERS,
+                     sync_check: bool = False, **learner) -> dict:
+    """``Trainer.run`` / ``OffPolicyTrainer.run`` on a host env on the card
+    (``topology.overlap_rollouts`` = ``overlap``), ``counters`` as timed_run
+    takes them; with ``sync_check``, one more alternate iteration counts
+    its host syncs against the horizon's action reads."""
+    cfg = host_config(M, algo, env, B, session=timed_session(
+        M.Config, topology=M.Config(overlap_rollouts=overlap)), **learner)
+    trainer_cls = M.OffPolicyTrainer if algo["name"] == "ddpg" else M.Trainer
+    trainer = trainer_cls(cfg)  # the default device: the card
+    state, timing = timed_run(trainer, counters, warmup, timed)
+    spans = timing["span_ms"][warmup:]
+    result = {
+        "phase": "train", "path": path, "env": env, "env_source": env_source[env],
+        "overlap_rollouts": overlap, "num_envs": B, "horizon": T, "algo": algo,
+        **timing,
+        "rollout_ms": [sp.get("rollout") for sp in spans],
+        "learn_ms": [sp.get("learn") for sp in spans],
+        "chunk_wait_ms": [sp.get("chunk-wait") for sp in spans],
+    }
+    if sync_check:
+        obs = trainer.env.reset(seed=1)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        _, syncs = count_syncs(lambda: trainer._host_train_iter(state, obs, gen))
+        result["syncs_per_iteration"] = {"counted": syncs, "expected": T, "what": "one action read per env step"}
+        if syncs != T:
+            raise AssertionError(f"{path}: {syncs} host syncs in an iteration, expected {T}")
+    trainer.env.close()
+    emit(result)
+    return result
+
+
+def check_host_ddpg_gather(RR, example: dict) -> dict:
+    """The replay gather kernel against its plain version, bit for bit, at
+    the host DDPG path's rows: the leaves of ``example`` (the trainer's
+    ``_replay_example()``) in a 200,000-row ring, 256 indices with and
+    without repeats; timed there, with index_select per leaf as the
+    library call."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    leaves = {k: torch.randn((DDPG_CAPACITY, *v.shape), generator=gen, device="cuda").to(v.dtype)
+              for k, v in example.items()}
+    idx = torch.randint(0, DDPG_CAPACITY, (DDPG_BS,), generator=gen, device="cuda", dtype=torch.int32)
+    repeated = idx.clone()
+    repeated[DDPG_BS // 2:] = idx[: DDPG_BS - DDPG_BS // 2].flip(0)
+    checks, max_abs = [], 0.0
+    for label, ix in (("host_ddpg_pendulum", idx), ("host_ddpg_pendulum_duplicates", repeated)):
+        got, want = RR.gather_rows(leaves, ix), RR.gather_rows_plain(leaves, ix)
+        torch.cuda.synchronize()
+        for k in leaves:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"replay_gather != plain for leaf {k} in case {label}")
+        err = max(float((got[k].double() - want[k].double()).abs().max()) for k in leaves)
+        max_abs = max(max_abs, err)
+        checks.append({"case": label, "rows": ix.numel(), "capacity": DDPG_CAPACITY,
+                       "leaves": {k: [list(v.shape[1:]), str(v.dtype)] for k, v in leaves.items()},
+                       "max_abs_err": err})
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    row_bytes = sum(x[0].numel() * x.element_size() for x in leaves.values())
+    nbytes = 2 * DDPG_BS * row_bytes + idx.numel() * idx.element_size()
+    result = {
+        "phase": "kernels", "kernel": "replay_gather", "path": "host_ddpg_pendulum", "checks": checks,
+        "tolerance": "exact (0)", "max_abs_err": max_abs, "row_bytes": row_bytes,
+        "ms": time_cuda_ms(lambda: RR.gather_rows(leaves, idx), runs=30, flush=flush, spin=True),
+        "plain_ms": time_cuda_ms(lambda: RR.gather_rows_plain(leaves, idx), runs=30, flush=flush, spin=False),
+        "library_ms": sum(time_cuda_ms(lambda x=x: x.index_select(0, idx), runs=30, flush=flush, spin=True)
+                          for x in leaves.values()),
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    emit(result)
+    return result
+
+
+def phase_parity_host_ddpg(M, RR, env_source: dict) -> dict:
+    """Two f32 host DDPG iterations on gym:Pendulum-v1 at the host-ddpg
+    path's replay geometry (32 envs x 16 steps, 256-row samples from a
+    200,000-row prioritized ring), n-step 3 and 4 updates an iteration, the
+    first under warm-up actions, the second with OU noise: on the card and
+    on the CPU from the same weights, env seed, warm-up actions, OU normals
+    and replay draws, at the device DDPG parity bars (compare_ddpg_parity);
+    the gather and the scatter launch 4 times an iteration on the card.
+    Before that, the gather kernel at this path's rows
+    (check_host_ddpg_gather). Returns the gather check."""
+    from surreal_tpu_torch.learners.aggregator import to_device
+
+    env, B, H, K = "gym:Pendulum-v1", HOST_DDPG_B, HOST_DDPG_H, 4
+    act_dim = HOST_ENVS[env][2]
+    algo = dict(name="ddpg", horizon=H, updates_per_iter=K, n_step=3, precision="f32",
+                exploration=dict(warmup_steps=B * H))
+    replay = dict(kind="prioritized", capacity=DDPG_CAPACITY, start_sample_size=B * H, batch_size=DDPG_BS)
+    cfg = host_config(M, algo, env, B, replay=replay)
+    gen = torch.Generator().manual_seed(13)
+    warm = (torch.rand((H, B, act_dim), generator=gen) * 2 - 1).numpy()
+    normals = torch.randn((H, B, act_dim), generator=gen)
+    uniforms = torch.rand((2, K, DDPG_BS), generator=gen)
+    counters = {"replay_gather": (RR.gather_rows, 2 * K), "replay_scatter": (RR.scatter_rows, 2 * K)}
+    out, gather, launches = {}, None, {}
+    for dev in ("cuda", "cpu"):
+        tr = M.OffPolicyTrainer(cfg, device=dev)
+        if dev == "cuda":
+            gather = check_host_ddpg_gather(RR, tr._replay_example())
+        recorder = SampleRecorder(tr.replay)
+        state = tr.learner.init(torch.Generator().manual_seed(0))
+        roll = tr.host_roll_state(tr.env.reset(seed=0), 0)
+        replay_state, tail = tr.replay.init(tr._replay_example()), tr._fake_tail()
+        metrics = []
+
+        def two_iterations():
+            nonlocal state, replay_state, tail
+            for it in range(2):
+                traj, _ = tr._explore_rollout(roll, state, it == 0, warmup_actions=warm,
+                                              action_noise=normals)
+                state, replay_state, tail, m = tr._host_update(
+                    state, replay_state, tail, to_device(traj, tr.device), it == 0, 0.4,
+                    sample_draws=uniforms[it].to(dev))
+                metrics.append({k: float(v) for k, v in m.items()})
+
+        if dev == "cuda":
+            _, launches = count_launches(counters, two_iterations)
+        else:
+            two_iterations()
+        tr.env.close()
+        out[dev] = {"obs": roll["obs"], "metrics": metrics,
+                    "storage": {k: v.cpu() for k, v in replay_state.ring.storage.items()},
+                    "priorities": replay_state.priorities.cpu(), "samples": recorder.calls}
+    flips, compared, errs = compare_ddpg_parity("host ddpg", out, True)
+    emit({"phase": "parity", "path": "host_ddpg", "env": env, "env_source": env_source[env],
+          "replay": "prioritized", "n_step": 3, "num_envs": B, "horizon": H, "updates_per_iter": K,
+          "batch_size": DDPG_BS, "capacity": DDPG_CAPACITY, "iterations": 2, "tf32": False,
+          "launches": launches, "prioritized_index_flips_at_boundaries": flips, "compared": compared,
+          "abs_err": errs})
+    return gather
+
+
+def phase_host_ddpg(M, RR, env_source: dict) -> dict:
+    """DDPG with prioritized replay on gym:Pendulum-v1 on the card: 32 envs
+    x 16 steps, 64 updates of 256 from a 200,000-row ring (the ddpg cell's
+    learner settings), warm-up for the first iteration only, sampling
+    from the first insert on: the gather and the scatter launch 64 times
+    each per iteration. Then one more exploring iteration counts its host
+    syncs against the horizon's action reads."""
+    env, B, H = "gym:Pendulum-v1", HOST_DDPG_B, HOST_DDPG_H
+    algo = dict(name="ddpg", horizon=H, updates_per_iter=DDPG_K, precision="mixed",
+                exploration=dict(warmup_steps=B * H))
+    replay = dict(kind="prioritized", capacity=DDPG_CAPACITY, start_sample_size=B * H, batch_size=DDPG_BS)
+    counters = {"replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K)}
+    cfg = host_config(M, algo, env, B, session=timed_session(M.Config), replay=replay)
+    trainer = M.OffPolicyTrainer(cfg)
+    state, timing = timed_run(trainer, counters, HOST_WARMUP_ITERS, HOST_TIMED_ITERS)
+    roll = trainer.host_roll_state(trainer.env.reset(seed=1), 1)
+    (traj, _), syncs = count_syncs(lambda: trainer._explore_rollout(roll, state, False))
+    if syncs != H:
+        raise AssertionError(f"host ddpg: {syncs} host syncs in an exploring rollout, expected {H}")
+    spans = timing["span_ms"][HOST_WARMUP_ITERS:]
+    trainer.env.close()
+    result = {
+        "phase": "train", "path": "host_ddpg", "env": env, "env_source": env_source[env], "replay": "prioritized",
+        "capacity": DDPG_CAPACITY, "num_envs": B, "horizon": H, "updates_per_iter": DDPG_K,
+        "batch_size": DDPG_BS, "precision": "mixed", **timing,
+        "rollout_ms": [sp.get("rollout") for sp in spans], "learn_ms_per_update": [sp.get("learn") for sp in spans],
+        "syncs_per_exploring_rollout": {"counted": syncs, "expected": H},
+    }
+    emit(result)
+    return result
+
+
+def session_cli_host_ddpg(M, replay_counters: dict) -> dict:
+    """``train ddpg gym:Pendulum-v1`` with prioritized replay and
+    checkpoint.include_replay for 2 iterations, then a relaunch to 3: the
+    relaunch starts from the saved replay (ring, cursor, size,
+    priorities) bit for bit; the gather and the scatter launch 64 times
+    each per iteration in both runs."""
+    folder, B, H = scratch_dir("cli_host_ddpg"), HOST_DDPG_B, HOST_DDPG_H
+
+    def argv(iters):
+        return ["train", "ddpg", "gym:Pendulum-v1", "--folder", folder, "--num-envs", str(B),
+                "--total-steps", str(iters * B * H), "--set", f"learner_config.algo.horizon={H}",
+                f"learner_config.algo.updates_per_iter={DDPG_K}", "learner_config.algo.precision=mixed",
+                f"learner_config.algo.exploration.warmup_steps={B * H}", "learner_config.replay.kind=prioritized",
+                f"learner_config.replay.capacity={DDPG_CAPACITY}", f"learner_config.replay.start_sample_size={B * H}",
+                f"learner_config.replay.batch_size={DDPG_BS}", "session_config.checkpoint.every_n_iters=2",
+                "session_config.checkpoint.include_replay=true", "session_config.eval.every_n_iters=0",
+                "session_config.metrics.every_n_iters=1", "session_config.metrics.console=false",
+                "session_config.metrics.tensorboard=false"]
+
+    seen = []
+
+    def snapshot(replay_state):
+        flat = M.tree_flatten(replay_state)
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in flat.items()}
+
+    def capture(orig):
+        def host_update(self, state, replay_state, *a, **kw):
+            seen.append(snapshot(replay_state))
+            out = orig(self, state, replay_state, *a, **kw)
+            seen.append(snapshot(out[1]))
+            return out
+        return host_update
+
+    counts = lambda n: {name: (w, k * n) for name, (w, k) in replay_counters.items()}  # noqa: E731
+    with Patched(M.OffPolicyTrainer, "_host_update", capture):
+        _, launches_1 = count_launches(counts(2), lambda: run_cli(M, argv(2)))
+        saved = seen[-1]
+        seen.clear()
+        final, launches_2 = count_launches(counts(1), lambda: run_cli(M, argv(3)))
+    resumed = seen[0]
+    checks = {
+        "cursor": saved["ring/cursor"] == 2 * B * H,
+        "bit_equal": saved.keys() == resumed.keys() and all(
+            torch.equal(v, resumed[k]) and v.dtype == resumed[k].dtype if isinstance(v, torch.Tensor)
+            else v == resumed[k] for k, v in saved.items()),
+        "finite": all(math.isfinite(v) for k, v in final.items() if k != "episode/return"),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"train ddpg gym:Pendulum-v1 include_replay checks failed: {checks}")
+    result = {"phase": "session", "step": "cli_host_ddpg_include_replay", "checks": checks,
+              "launches_first_run": launches_1, "launches_resumed_run": launches_2}
+    emit(result)
+    return result
+
+
+def phase_nut_pixels_parity(M) -> dict:
+    """jax:nut_pixels on the card and on the CPU from the same reset draws,
+    the same actions and the same per-step reset draws (64 envs, 40 steps,
+    time limit 16 so envs reset): the [64, 64, 4] uint8 pixels equal, bit
+    for bit, at every step."""
+    from surreal_tpu_torch.envs.device.nut_assembly import RESET_HIGH, RESET_LOW
+
+    B, T = 64, 40
+    gen = torch.Generator().manual_seed(7)
+    lo, hi = torch.tensor(RESET_LOW), torch.tensor(RESET_HIGH)
+    init = lo + torch.rand((B, 5), generator=gen) * (hi - lo)
+    resets = lo + torch.rand((T, B, 5), generator=gen) * (hi - lo)
+    actions = torch.rand((T, B, 4), generator=gen) * 2.4 - 1.2
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        env = M.make_env(M.Config(name="jax:nut_pixels", time_limit=16).extend(M.BASE_ENV_CONFIG), dev)
+        state, obs = env.reset(B, draws=init.to(dev))
+        seq = [obs.cpu()]
+        for t in range(T):
+            state, obs, _, _, _ = env.step(state, actions[t].to(dev), reset_draws=resets[t].to(dev))
+            seq.append(obs.cpu())
+        frames[dev] = torch.stack(seq)
+    differing = int((frames["cuda"] != frames["cpu"]).sum())
+    if differing:
+        raise AssertionError(f"nut_pixels: {differing} pixels differ between cuda and cpu")
+    result = {"phase": "parity", "path": "nut_pixels_render", "num_envs": B, "steps": T, "pixels_equal": True,
+              "lit_pixels": int((frames["cpu"] > 0).sum())}
+    emit(result)
+    return result
+
+
+def phase_train_nut_pixels(M, counters: dict) -> dict:
+    """PPO on jax:nut_pixels at the JAX package's perf_report.py:441-470
+    geometry: 512 envs x 32 steps, 2 epochs x 4 minibatches, the default
+    NatureCNN on [64, 64, 4] uint8, 'mixed'; GAE once an iteration."""
+    cfg = M.Config(
+        learner_config=M.Config(algo=M.Config(name="ppo", horizon=NUT_T, epochs=2, num_minibatches=4,
+                                              precision="mixed"),
+                                model=M.Config(cnn=M.Config(enabled=True))),
+        env_config=M.Config(name="jax:nut_pixels", num_envs=NUT_B),
+        session_config=timed_session(M.Config),
+    ).extend(M.base_config())
+    trainer = M.Trainer(cfg)  # the default device: the card
+    state, timing = timed_run(trainer, counters)
+    result = {"phase": "train", "path": "nut_pixels", "env": "jax:nut_pixels", "num_envs": NUT_B,
+              "horizon": NUT_T, "epochs": 2, "num_minibatches": 4, "precision": "mixed", **timing,
+              **breakdown(trainer, state)}
+    emit(result)
+    return result
+
+
+def session_cli_cheetah(M, gae_counters: dict, env_source: dict) -> dict:
+    """``train ppo dm_control:cheetah-run --num-envs 32`` through the CLI
+    (horizon 64, overlap on, 'mixed'): 4 iterations with the host evaluator
+    every 2 (2 deterministic episodes of the full 1,000 steps) and a
+    checkpoint every 2, then a relaunch to 6 that auto-resumes at
+    iteration 4; GAE once an iteration in both runs."""
+    folder, T = scratch_dir("cli_cheetah"), CHEETAH_T
+
+    def argv(iters):
+        return ["train", "ppo", "dm_control:cheetah-run", "--folder", folder, "--num-envs", str(CHEETAH_B),
+                "--total-steps", str(iters * CHEETAH_B * T), "--set", f"learner_config.algo.horizon={T}",
+                "learner_config.algo.epochs=4", "learner_config.algo.num_minibatches=4",
+                "learner_config.algo.precision=mixed", "session_config.metrics.every_n_iters=1",
+                "session_config.checkpoint.every_n_iters=2", "session_config.eval.every_n_iters=2",
+                "session_config.eval.episodes=2", "session_config.metrics.console=false",
+                "session_config.metrics.tensorboard=false"]
+
+    counts = lambda n: {name: (w, k * n) for name, (w, k) in gae_counters.items()}  # noqa: E731
+    t0 = time.perf_counter()
+    first, launches_1 = count_launches(counts(4), lambda: run_cli(M, argv(4)))
+    seconds_first = time.perf_counter() - t0
+    final, launches_2 = count_launches(counts(2), lambda: run_cli(M, argv(6)))
+    events = session_events(folder, M.iter_jsonl)
+    steps = [e["step"] for e in events if e["type"] == "metrics"]
+    ckpt = os.path.join(folder, "checkpoints")
+    checks = {
+        "eval_full_episodes": first.get("eval/length") == 1000.0 and final.get("eval/length") == 1000.0,
+        "eval_return_finite": math.isfinite(final.get("eval/return", float("nan"))),
+        "resumed_at_4": steps[4] == 5 * CHEETAH_B * T and final["time/env_steps"] == 6 * CHEETAH_B * T,
+        "checkpoints": all(os.path.isdir(os.path.join(ckpt, d)) for d in ("4", "6")),
+        "finite": all(math.isfinite(v) for k, v in final.items() if k != "episode/return"),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"train ppo dm_control:cheetah-run checks failed: {checks}, steps {steps}")
+    eval_ms = [e["dur_s"] * 1e3 for e in events if e["type"] == "span" and e["name"] == "eval"]
+    result = {"phase": "session", "step": "cli_cheetah", "env_source": env_source["dm_control:cheetah-run"],
+              "checks": checks, "launches_first_run": launches_1, "launches_resumed_run": launches_2,
+              "seconds_first_run": seconds_first, "eval_ms": eval_ms, "eval_return": final["eval/return"],
+              "final": final}
+    emit(result)
+    return result
+
+
+def phase_host(M, ops_gae, ops_vtrace, RS, RR) -> dict:
+    """The host-env paths and config (4); returns each kernel's launches by
+    path for the summary line, and the gather check at host DDPG's rows."""
+    env_source = phase_env_probe()
+    install_fixture_envs(env_source)
+    gae = {"gae": (ops_gae.gae_advantages_masked, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    gae_assoc = {"gae": (ops_gae.gae_advantages_masked, 0), "rev_scan": (RS.reverse_linear_scan, 1)}
+    vtrace = {"vtrace": (ops_vtrace.vtrace_fused, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    parity = phase_parity_host_ppo(M, gae, "xla", env_source)
+    parity_assoc = phase_parity_host_ppo(M, gae_assoc, "assoc", env_source)
+    cheetah = dict(name="ppo", horizon=CHEETAH_T, epochs=4, num_minibatches=4, precision="mixed")
+    runs = {}
+    for overlap in (False, True):
+        runs[f"host_ppo_cheetah_{'overlap' if overlap else 'alternate'}"] = phase_train_host(
+            M, f"host_ppo_cheetah_{'overlap' if overlap else 'alternate'}", cheetah, "dm_control:cheetah-run",
+            CHEETAH_B, CHEETAH_T, gae, env_source, overlap, sync_check=not overlap)
+    runs["host_impala_cartpole"] = phase_train_host(
+        M, "host_impala_cartpole", dict(name="impala", horizon=CARTPOLE_T, precision="mixed"), "gym:CartPole-v1",
+        CARTPOLE_B, CARTPOLE_T, vtrace, env_source, True)
+    runs["host_ppo_cartpole"] = phase_train_host(
+        M, "host_ppo_cartpole", dict(name="ppo", horizon=CARTPOLE_T, epochs=4, num_minibatches=4, precision="mixed"),
+        "gym:CartPole-v1", CARTPOLE_B, CARTPOLE_T, gae, env_source, True)
+    gather_check = phase_parity_host_ddpg(M, RR, env_source)
+    runs["host_ddpg_pendulum"] = phase_host_ddpg(M, RR, env_source)
+    session_cli_host_ddpg(M, {"replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K)})
+    phase_nut_pixels_parity(M)
+    runs["nut_pixels"] = phase_train_nut_pixels(M, gae)
+    session_cli_cheetah(M, gae, env_source)
+    return {
+        "gae": {"host_ppo_cheetah_parity": parity["gae"], **{k: runs[k]["gae_launches"] for k in (
+            "host_ppo_cheetah_alternate", "host_ppo_cheetah_overlap", "host_ppo_cartpole", "nut_pixels")}},
+        "rev_scan": {"host_ppo_cheetah_assoc_parity": parity_assoc["rev_scan"]},
+        "vtrace": {"host_impala_cartpole": runs["host_impala_cartpole"]["vtrace_launches"]},
+        "replay_gather": {"host_ddpg_pendulum": runs["host_ddpg_pendulum"]["replay_gather_launches"]},
+        "replay_scatter": {"host_ddpg_pendulum": runs["host_ddpg_pendulum"]["replay_scatter_launches"]},
+        "replay_gather_check": gather_check,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -1648,10 +2242,13 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     from surreal_tpu_torch.session.telemetry import _iter_jsonl
     from surreal_tpu_torch.utils.tree import tree_flatten
 
+    from surreal_tpu_torch.envs import make_env
+    from surreal_tpu_torch.session.default_configs import BASE_ENV_CONFIG
+
     M = SimpleNamespace(
         Config=Config, base_config=base_config, Trainer=Trainer, OffPolicyTrainer=OffPolicyTrainer, launch=launch,
         SessionHooks=SessionHooks, CheckpointManager=CheckpointManager, iter_jsonl=_iter_jsonl,
-        tree_flatten=tree_flatten,
+        tree_flatten=tree_flatten, make_env=make_env, BASE_ENV_CONFIG=BASE_ENV_CONFIG,
     )
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -1684,8 +2281,6 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     train_impala_assoc = phase_train_impala(Config, base_config, Trainer, vtrace_assoc, "assoc",
                                             ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS)
     train_ddpg = phase_train_ddpg(Config, base_config, OffPolicyTrainer, RR)
-    gather["launches"] = train_ddpg["replay_gather_launches"]
-    scatter["launches"] = train_ddpg["replay_scatter_launches"]
     # the trajectory transformer: PPO's sequence learn launches GAE (the
     # reverse scan at 'assoc'), IMPALA's V-trace
     phase_parity_trajectory(Config, base_config, Trainer, "ppo", "jax:pendulum", gae_xla, "xla")
@@ -1697,15 +2292,20 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     train_traj_impala = phase_train_trajectory_impala(Config, base_config, Trainer, vtrace_xla)
     phase_session(M, gae_xla, {"replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K)})
     phase_session_trajectory(M, gae_xla, vtrace_xla)
+    host = phase_host(M, ops_gae, ops_vtrace, RS, RR)
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
-    gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"]}
+    gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
+                               **host["gae"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
-                                  "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"]}
+                                  "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"]}
+    gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"]}
+    gather["max_abs_err"] = max(gather["max_abs_err"], host["replay_gather_check"]["max_abs_err"])
+    scatter["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_scatter_launches"], **host["replay_scatter"]}
     rev_scan["launches_by_path"] = {"ppo_lift_assoc": train_assoc["rev_scan_launches"],
-                                    "impala_pong_assoc": train_impala_assoc["rev_scan_launches"]}
-    for k in (gae, vtrace, rev_scan):
+                                    "impala_pong_assoc": train_impala_assoc["rev_scan_launches"], **host["rev_scan"]}
+    for k in (gae, vtrace, gather, scatter, rev_scan):
         k["launches"] = sum(k["launches_by_path"].values())
 
     emit({"kernels": [gae, vtrace, gather, scatter, rev_scan]})

@@ -71,7 +71,11 @@ class AutoResetState(NamedTuple):
     step_count: torch.Tensor  # [B] int32
 
 
-def _select(done: torch.Tensor, reset_leaf: torch.Tensor, cont_leaf: torch.Tensor) -> torch.Tensor:
+def _select(done: torch.Tensor, reset_leaf, cont_leaf):
+    """``reset_leaf`` where ``done``, else ``cont_leaf``; leaves may be
+    (nested) NamedTuples of [B, ...] tensors."""
+    if isinstance(cont_leaf, tuple):
+        return type(cont_leaf)(*(_select(done, r, c) for r, c in zip(reset_leaf, cont_leaf)))
     mask = done.reshape(done.shape + (1,) * (reset_leaf.dim() - done.dim()))
     return torch.where(mask, reset_leaf, cont_leaf)
 
@@ -137,9 +141,7 @@ class AutoReset:
 
         num_envs = done.shape[0]
         reset_state, reset_obs = self.env.reset(num_envs, generator=generator, draws=reset_draws)
-        new_env_state = type(env_state)(
-            *(_select(done, r, c) for r, c in zip(reset_state, env_state))
-        )
+        new_env_state = _select(done, reset_state, env_state)
         new_obs = _select(done, reset_obs, obs)
         new_steps = torch.where(done, torch.zeros_like(steps), steps)
         info = dict(info)

@@ -1,27 +1,31 @@
 """Periodic policy evaluation, the port of
-``surreal_tpu/launch/evaluator.py`` (``Evaluator``) for the port's device
-envs (``jax:lift``, ``jax:pong``, ``jax:pong16``, ``jax:pendulum``,
-``jax:cartpole``).
+``surreal_tpu/launch/evaluator.py`` (``Evaluator``).
 
-An evaluation runs ``eval.episodes`` fresh episodes side by side on the
-evaluator's own batched env, acting through the learner's ``act_step``
-(with a fresh ``act_init`` carry) in
-'eval_deterministic' or 'eval_stochastic' mode, for the env's time limit
-(or ``eval.max_steps``) with each episode latched at its first done, as
-the reference's scan does. It returns ``eval/return``, ``eval/length``
-and ``eval/success`` (0 for envs that report no success), read back to
-the host in one copy.
+- **device envs** (``jax:*``): an evaluation runs ``eval.episodes`` fresh
+  episodes side by side on the evaluator's own batched env, acting
+  through the learner's ``act_step`` (with a fresh ``act_init`` carry),
+  for the env's time limit (or ``eval.max_steps``) with each episode
+  latched at its first done, as the reference's scan does; the result is
+  read back to the host in one copy.
+- **host envs** (gym, dm_control, robosuite): the evaluator owns a
+  separate env instance of ``eval.episodes`` parallel envs (so eval never
+  perturbs the training env), steps it until every episode has finished
+  or for at most 10,000 steps (or ``eval.max_steps``), acting through the
+  learner's ``act`` on its device, one action read back per step.
 
-Not ported yet: host envs (gym, dm_control, robosuite) and video
-recording; both raise.
+Either way the mode is 'eval_deterministic' or 'eval_stochastic', and the
+metrics are ``eval/return``, ``eval/length`` and ``eval/success`` (0 for
+envs that report no success). Video recording is not ported and raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from surreal_tpu_torch.envs import make_env
+from surreal_tpu_torch.envs import is_jax_env, make_env
 from surreal_tpu_torch.learners.base import EVAL_DETERMINISTIC, EVAL_STOCHASTIC
+from surreal_tpu_torch.session.config import Config
 
 
 class Evaluator:
@@ -30,7 +34,9 @@ class Evaluator:
     def __init__(self, env_config, eval_config, learner):
         self.episodes = int(eval_config.episodes)
         self.mode = EVAL_DETERMINISTIC if eval_config.mode == "deterministic" else EVAL_STOCHASTIC
-        self.learner = learner
+        # its own module copies: under pipelined side-bands an evaluation
+        # runs on the engine's staging thread while the main thread learns
+        self.learner = learner.acting_copy()
         cap = eval_config.get("max_steps", None)
         if cap is not None and int(cap) < 1:
             raise ValueError(f"eval max_steps must be >= 1, got {cap}")
@@ -39,12 +45,20 @@ class Evaluator:
             raise NotImplementedError(
                 "env_config.video with eval: recording eval episodes is not ported to PyTorch yet"
             )
-        if not str(env_config.name).startswith("jax:"):
-            raise NotImplementedError(
-                f"eval on host env {env_config.name!r}: the PyTorch port evaluates on device envs (jax:*) only"
-            )
-        self.env = make_env(env_config, learner.device)
-        self._time_limit = int(cap) if cap is not None else (self.env.time_limit or 1000)
+        # a host env is built with eval.episodes parallel envs; a device env
+        # takes its batch at reset
+        self.env = make_env(Config(num_envs=self.episodes).extend(env_config), learner.device)
+        self.host = not is_jax_env(self.env)
+        if self.host:
+            if learner.requires_act_carry:
+                self.env.close()
+                raise ValueError(
+                    "trajectory policies evaluate on device envs (jax:*): "
+                    "the host eval loop acts statelessly per step"
+                )
+            self._time_limit = int(cap) if cap is not None else 10_000
+        else:
+            self._time_limit = int(cap) if cap is not None else (self.env.time_limit or 1000)
 
     @torch.no_grad()
     def _device_eval(self, state, generator: torch.Generator) -> dict[str, torch.Tensor]:
@@ -71,8 +85,42 @@ class Evaluator:
             "eval/success": success.to(torch.float32).mean(),
         }
 
+    @torch.no_grad()
+    def _host_eval(self, state, generator: torch.Generator):
+        env, dev = self.env, self.learner.device
+        obs = env.reset()
+        B = env.num_envs
+        ret = np.zeros(B, np.float32)
+        length = np.zeros(B, np.int32)
+        alive = np.ones(B, bool)
+        success = np.zeros(B, bool)
+        for _ in range(self._time_limit):
+            obs_t = torch.from_numpy(np.ascontiguousarray(obs)).to(dev, non_blocking=True)
+            action, _ = self.learner.act(state, obs_t, self.mode, generator)
+            out = env.step(action.cpu().numpy())
+            ret += out.reward * alive
+            length += alive.astype(np.int32)
+            info_success = out.info.get("success")
+            if info_success is not None:
+                success |= np.asarray(info_success, bool) & alive
+            alive &= ~out.done
+            obs = out.obs
+            if not alive.any():
+                break
+        return {
+            "eval/return": float(ret.mean()),
+            "eval/length": float(length.mean()),
+            "eval/success": float(success.astype(np.float32).mean()),
+        }
+
     def evaluate(self, state, key: int) -> dict[str, float]:
         """One evaluation with draws seeded by ``key`` (an int)."""
         generator = torch.Generator(device=self.learner.device).manual_seed(int(key))
+        if self.host:
+            return self._host_eval(state, generator)
         out = self._device_eval(state, generator)
         return dict(zip(out, torch.stack(list(out.values())).tolist()))
+
+    def close(self) -> None:
+        if self.host:
+            self.env.close()

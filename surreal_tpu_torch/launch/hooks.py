@@ -345,6 +345,8 @@ class SessionHooks:
 
     def close(self) -> None:
         self.interrupt.close()  # restore the process's previous handlers
+        if self.evaluator is not None:
+            self.evaluator.close()  # a host evaluator's own env instance
         for ev in faults.drain_fired():  # faults since the last boundary
             self.tracer.event("fault", **ev)
         self.writer.close()

@@ -31,28 +31,47 @@ step's extra tree, and a resume or a rollback restores it from the same
 step; the boundary is then pinned inline, since the snapshot must read
 the iteration's own ring.
 
-Not ported yet: the host-env paths (in-process and the remote experience
-plane), the dp mesh and the autotuner.
+Host mode (gym, dm_control, robosuite; ``_run_host``): per iteration, an
+H-step exploration rollout on the host env (``_explore_rollout``:
+warm-up, OU or Gaussian actions, acting on the card with one action read
+back per step), stacked time-major and copied to the card once per leaf,
+then the n-step fold with the carried tail, the insert, the obs-filter
+update and ``updates_per_iter`` sample -> learn -> priority-refresh steps
+(``_host_update``). With ``topology.overlap_rollouts`` (the default) the
+rollout and its copy run on a ``Prefetcher`` staging thread, with their
+own generators, acting from the newest published state (up to two
+updates behind). The warm-up actions, the OU normals (kept on the host,
+as the reference keeps the noise) and the per-update sample draws each
+have an explicit input for the parity tests.
+
+Not ported yet: the remote experience plane (``replay.kind='remote'``),
+the dp mesh and the autotuner.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
-from surreal_tpu_torch.engine import EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, sideband_stages
-from surreal_tpu_torch.envs import make_env
-from surreal_tpu_torch.launch.hooks import SessionHooks, training_env_config
+from surreal_tpu_torch.engine import (
+    EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, overlap_collect, sideband_stages,
+)
+from surreal_tpu_torch.envs import is_jax_env, make_env
+from surreal_tpu_torch.launch.hooks import HOST_METRICS_WINDOW, SessionHooks, host_metrics, training_env_config
 from surreal_tpu_torch.launch.rollout import successor_and_termination
 from surreal_tpu_torch.launch.trainer import derive_seed
 from surreal_tpu_torch.learners import EVAL_DETERMINISTIC, TRAINING, build_learner
-from surreal_tpu_torch.learners.aggregator import nstep_transitions
+from surreal_tpu_torch.learners.aggregator import nstep_transitions, to_device
 from surreal_tpu_torch.learners.base import check_scan_unroll
 from surreal_tpu_torch.learners.ddpg import LEARN_METRIC_KEYS, ou_noise_step
+from surreal_tpu_torch.learners.prefetch import Prefetcher
 from surreal_tpu_torch.ops.precision import torch_dtype
 from surreal_tpu_torch.replay import build_replay
 from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.telemetry import Tracer
 from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.device import resolve_device
 
@@ -99,9 +118,21 @@ class OffPolicyTrainer:
         self.config = config
         self.device = resolve_device(device)
         self.env = make_env(training_env_config(config.env_config), self.device)
+        self.device_mode = is_jax_env(self.env)
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
         algo = self.learner.config.algo
         self.algo = algo
+        if self.learner.config.replay.kind == "remote":
+            if self.device_mode:
+                raise ValueError(
+                    "replay.kind='remote' (the sharded experience plane) runs "
+                    "the host off-policy path; device (jax:*) envs keep "
+                    "in-process device-resident replay — use a host env, or "
+                    "replay.kind='uniform'|'prioritized'"
+                )
+            raise NotImplementedError(
+                "replay.kind='remote': the sharded experience plane is not ported to PyTorch yet"
+            )
         # the rollout and update scans' unrolls in the JAX package: accepted,
         # nothing to unroll in the port's loops (learners/base.py)
         check_scan_unroll(algo, "rollout_unroll")
@@ -132,25 +163,13 @@ class OffPolicyTrainer:
         die at once with reward 0 and discount 0)."""
         B, dev, f32 = self.num_envs, self.device, torch.float32
         env_state, obs = self.env.reset(B, generator=generator, draws=reset_draws)
-        n = self.algo.n_step
-        tail = None
-        if n > 1:
-            obs_shape = tuple(self.env.specs.obs.shape)
-            tail = {
-                "obs": torch.zeros((n - 1, B, *obs_shape), dtype=f32, device=dev),
-                "next_obs": torch.zeros((n - 1, B, *obs_shape), dtype=f32, device=dev),
-                "action": torch.zeros((n - 1, B, self.act_dim), dtype=f32, device=dev),
-                "reward": torch.zeros((n - 1, B), dtype=f32, device=dev),
-                "done": torch.ones((n - 1, B), dtype=torch.bool, device=dev),
-                "terminated": torch.ones((n - 1, B), dtype=torch.bool, device=dev),
-            }
         return OffPolicyCarry(
             env_state=env_state,
             obs=obs,
             noise=torch.zeros((B, self.act_dim), dtype=f32, device=dev),
             ep_return=torch.zeros(B, dtype=f32, device=dev),
             ep_length=torch.zeros(B, dtype=torch.int32, device=dev),
-            tail=tail,
+            tail=self._fake_tail(),
         )
 
     def init_loop_state(
@@ -299,21 +318,8 @@ class OffPolicyTrainer:
         carry, traj = self._rollout(
             state, carry, warmup, generator, action_noise, warmup_uniforms, reset_draws, step_draws
         )
-        chunk = {k: traj[k] for k in TRANS_KEYS}
-        n = self.algo.n_step
-        if n > 1:
-            # prepend the previous chunk's tail so the n-1 steps at every
-            # chunk boundary still become window starts; carry the new tail
-            full = {k: torch.cat([carry.tail[k], chunk[k]]) for k in TRANS_KEYS}
-            carry = carry._replace(tail={k: v[-(n - 1):] for k, v in full.items()})
-        else:
-            full = chunk
-        trans = nstep_transitions(full, self.algo.gamma, n)
-        if n > 1 and first:
-            trans = scrub_fake_prefix_windows(trans, n, chunk["reward"].shape[1])
-        replay_state = self.replay.insert(replay_state, trans)
-        # obs-normalizer: fold each fresh obs exactly once per chunk
-        state = self.learner.update_obs_stats(state, chunk["obs"])
+        state, replay_state, tail = self._fold_insert(state, replay_state, carry.tail, traj, first)
+        carry = carry._replace(tail=tail)
 
         if self.replay.can_sample(replay_state):
             state, replay_state, metrics = self._run_updates(
@@ -361,6 +367,8 @@ class OffPolicyTrainer:
         try:
             state, iteration, env_steps = hooks.restore(state)
             hooks.begin_run(iteration, env_steps)
+            if not self.device_mode:
+                return self._run_host(total, on_metrics, hooks, state, iteration, env_steps)
             generator = torch.Generator(device=self.device).manual_seed(self.seed)
             carry, replay_state = self.init_loop_state(generator)
             include_replay = bool(cfg.checkpoint.get("include_replay", False)) and hooks.ckpt is not None
@@ -431,6 +439,271 @@ class OffPolicyTrainer:
             return ls.state, hooks.last_metrics
         finally:
             hooks.close()
+
+    # -- host path -----------------------------------------------------------
+    def host_roll_state(self, obs: np.ndarray, seed: int, learner=None) -> dict:
+        """The rollout-side mutable state of the host path, owned by
+        whichever thread collects: the learner it acts through (``learner``,
+        an acting copy for a thread other than the main one; else the
+        trainer's), the env obs, the OU noise [B, A] (host float32), a
+        generator on the card for the Gaussian action draws and one on the
+        CPU for the OU normals and warm-up actions."""
+        return {
+            "learner": learner if learner is not None else self.learner,
+            "obs": obs,
+            "noise": np.zeros((self.num_envs, self.act_dim), np.float32),
+            "gen": torch.Generator(device=self.device).manual_seed(derive_seed(seed, 1)),
+            "host_gen": torch.Generator().manual_seed(derive_seed(seed, 2)),
+        }
+
+    @torch.no_grad()
+    def _explore_rollout(
+        self,
+        roll: dict,
+        a_state,
+        warmup: bool,
+        warmup_actions: np.ndarray | None = None,
+        action_noise: torch.Tensor | None = None,
+        tracer=None,
+    ):
+        """One H-step exploration rollout on the host env: uniform [-1, 1)
+        actions while ``warmup`` (``warmup_actions`` [H, B, A] replaces
+        them), else OU noise around the deterministic action
+        (``action_noise`` [H, B, A]: the OU normals) or the learner's
+        Gaussian training actions (the act noise). The OU state stays as it
+        is during warm-up and restarts at episode ends. Mutates ``roll``;
+        returns (time-major numpy trajectory, finished-episode returns)."""
+        explo = self.algo.exploration
+        steps: list[dict] = []
+        chunk_returns: list[float] = []
+        obs, noise = roll["obs"], roll["noise"]
+        shape = (self.num_envs, self.act_dim)
+        span = (tracer or Tracer(None)).span  # a disabled tracer is a no-op
+        with span("rollout"):
+            for t in range(self.horizon):
+                draws = None if action_noise is None else action_noise[t]
+                if warmup:
+                    if warmup_actions is not None:
+                        action = np.asarray(warmup_actions[t], np.float32)
+                    else:
+                        u = torch.rand(shape, generator=roll["host_gen"])
+                        action = (u * 2.0 - 1.0).numpy()
+                else:
+                    obs_t = torch.from_numpy(np.ascontiguousarray(obs)).to(self.device, non_blocking=True)
+                    if explo.noise == "ou":
+                        a_det, _ = roll["learner"].act(a_state, obs_t, EVAL_DETERMINISTIC)
+                        noise = ou_noise_step(
+                            torch.from_numpy(noise), explo.ou_theta, explo.sigma, explo.ou_dt,
+                            roll["host_gen"], normals=None if draws is None else draws.cpu(),
+                        ).numpy()
+                        action = np.clip(a_det.cpu().numpy() + noise, -1.0, 1.0)  # the step's one read
+                    else:
+                        a, _ = roll["learner"].act(a_state, obs_t, TRAINING, roll["gen"], noise=draws)
+                        action = a.cpu().numpy()  # the step's one read
+                out = self.env.step(action)
+                term_obs = out.info.get("terminal_obs", out.obs)
+                done_b = out.done.reshape(out.done.shape + (1,) * (out.obs.ndim - 1))
+                truncated = np.asarray(out.info.get("truncated", np.zeros(len(out.done), bool)))
+                steps.append({
+                    "obs": obs,
+                    "next_obs": np.where(done_b, term_obs, out.obs),
+                    "action": action,
+                    "reward": out.reward,
+                    "done": out.done,
+                    "terminated": out.done & ~truncated,
+                })
+                if out.done.any():
+                    noise = np.where(out.done[:, None], np.float32(0.0), noise)
+                if "episode_returns" in out.info:
+                    chunk_returns.extend(np.asarray(out.info["episode_returns"]).tolist())
+                obs = out.obs
+        roll["obs"], roll["noise"] = obs, noise
+        traj = {k: np.stack([s[k] for s in steps]) for k in steps[0]}
+        return traj, chunk_returns
+
+    def _fake_tail(self):
+        """The n-1 fake steps that seed the cross-chunk n-step carry (None at
+        n_step 1): done and terminated, so windows starting there die at
+        once with reward 0 and discount 0."""
+        n = self.algo.n_step
+        if n == 1:
+            return None
+        B, dev, f32 = self.num_envs, self.device, torch.float32
+        obs_shape = tuple(self.env.specs.obs.shape)
+        return {
+            "obs": torch.zeros((n - 1, B, *obs_shape), dtype=f32, device=dev),
+            "next_obs": torch.zeros((n - 1, B, *obs_shape), dtype=f32, device=dev),
+            "action": torch.zeros((n - 1, B, self.act_dim), dtype=f32, device=dev),
+            "reward": torch.zeros((n - 1, B), dtype=f32, device=dev),
+            "done": torch.ones((n - 1, B), dtype=torch.bool, device=dev),
+            "terminated": torch.ones((n - 1, B), dtype=torch.bool, device=dev),
+        }
+
+    def _fold_insert(self, state, replay_state, tail, traj: dict, first: bool):
+        """Fold a [H, B] trajectory into n-step transitions behind the
+        previous chunk's ``tail`` (so the n-1 steps at every chunk boundary
+        still become window starts; the run's first chunk has its fake
+        windows scrubbed), insert them, and fold the fresh obs into the
+        obs filter once. Returns (state, replay_state, the new tail)."""
+        n = self.algo.n_step
+        chunk = {k: traj[k] for k in TRANS_KEYS}
+        full = chunk
+        if tail is not None:
+            full = {k: torch.cat([tail[k], chunk[k]]) for k in TRANS_KEYS}
+            tail = {k: v[-(n - 1):] for k, v in full.items()}
+        trans = nstep_transitions(full, self.algo.gamma, n)
+        if tail is not None and first:
+            trans = scrub_fake_prefix_windows(trans, n, chunk["reward"].shape[1])
+        replay_state = self.replay.insert(replay_state, trans)
+        state = self.learner.update_obs_stats(state, chunk["obs"])
+        return state, replay_state, tail
+
+    def _host_update(
+        self,
+        state,
+        replay_state,
+        tail,
+        traj: dict,
+        first: bool,
+        beta: float,
+        generator: torch.Generator | None = None,
+        sample_draws: torch.Tensor | None = None,
+        tracer=None,
+    ):
+        """The host path's learner side of one iteration, on a trajectory
+        already on the card: ``_fold_insert``, then, once the replay can sample,
+        ``updates_per_iter`` sample -> learn -> priority-refresh steps
+        (``sample_draws`` [K, bs]: uniform indices or prioritized
+        uniforms). Metrics are the last update's, as in the reference.
+        Returns (state, replay_state, tail, metrics)."""
+        span = (tracer or Tracer(None)).span  # a disabled tracer is a no-op
+        with span("replay-insert"):
+            state, replay_state, tail = self._fold_insert(state, replay_state, tail, traj, first)
+        metrics: dict = {}
+        if self.replay.can_sample(replay_state):
+            for k in range(int(self.algo.updates_per_iter)):
+                draws = _step_slice(sample_draws, k)
+                with span("replay-sample"):
+                    if self.prioritized:
+                        replay_state, batch, info = self.replay.sample(
+                            replay_state, generator, beta=beta, uniforms=draws
+                        )
+                        batch = dict(batch, is_weights=info["is_weights"])
+                    else:
+                        replay_state, batch, info = self.replay.sample(replay_state, generator, idx=draws)
+                with span("learn"):
+                    state, metrics = self.learner.learn(state, batch)
+                td_abs = metrics.pop("priority/td_abs")
+                if self.prioritized:
+                    replay_state = self.replay.update_priorities(replay_state, info["idx"], td_abs)
+            metrics["replay/sample_age_frac"] = self.replay.age_frac(replay_state, info["idx"])
+        metrics.update(self.replay.gauges(replay_state))
+        return state, replay_state, tail, metrics
+
+    def _run_host(self, total, on_metrics, hooks, state, iteration, env_steps):
+        """Host-env loop. With ``topology.overlap_rollouts`` (the default)
+        the exploration rollout and its copy to the card run on a
+        ``Prefetcher`` staging thread while the main thread drains chunk
+        k's updates; the staging thread acts from the newest PUBLISHED
+        state, up to two iterations behind (off-policy by construction;
+        the warm-up flag shares the bound). Otherwise collect and update
+        alternate with zero policy lag."""
+        cfg = self.config.session_config
+        replay_state = self.replay.init(self._replay_example())
+        include_replay = bool(cfg.checkpoint.get("include_replay", False)) and hooks.ckpt is not None
+        if include_replay and iteration > 0:
+            restored = hooks.ckpt.restore_extra({"replay": replay_state}, step=iteration)
+            if restored is not None:
+                replay_state = restored["replay"]
+        explo = self.algo.exploration
+        recent_returns: deque = deque(maxlen=HOST_METRICS_WINDOW)
+        overlap = overlap_collect(cfg)
+        # the staging thread acts through its own module copies, made here
+        # before it starts
+        roll = self.host_roll_state(self.env.reset(seed=self.config.env_config.seed), self.seed,
+                                    self.learner.acting_copy() if overlap else None)
+        act_holder = [state]
+        steps_holder = [env_steps]
+
+        def collect_chunk():
+            traj, chunk_returns = self._explore_rollout(
+                roll, act_holder[0],  # one coherent policy per chunk
+                steps_holder[0] < explo.warmup_steps, tracer=hooks.tracer,
+            )
+            with hooks.tracer.span("h2d-transfer"):
+                return to_device(traj, self.device), chunk_returns
+
+        prefetch = Prefetcher(collect_chunk, name="offpolicy-stage") if overlap else None
+        stages = (
+            StageSpec("collect", donate=False, overlap=overlap),
+            StageSpec("stage", donate=False, overlap=overlap),
+            StageSpec("learn", donate=False),
+        ) + sideband_stages()
+        engine_cfg = EngineConfig.from_session(cfg)
+        if include_replay and engine_cfg.pipeline_sidebands:
+            hooks.log.warning("engine.pipeline_sidebands is pinned off: checkpoint.include_replay snapshots the live ring")
+            engine_cfg = engine_cfg.inline()
+        ls = LoopState(
+            state=state, key=torch.Generator(device=self.device).manual_seed(self.seed),
+            iteration=iteration, env_steps=env_steps,
+            extras={"replay": replay_state, "tail": self._fake_tail(), "first_chunk": True, "nonce": 0},
+        )
+        if include_replay:
+            hooks.extra_state_fn = lambda: {"replay": ls.extras["replay"]}
+
+        def step(ls):
+            if prefetch is not None:
+                with hooks.tracer.span("chunk-wait"):
+                    traj, ep_returns = prefetch.get()
+            else:
+                traj, ep_returns = collect_chunk()
+            recent_returns.extend(ep_returns)
+            ls.state, ls.extras["replay"], ls.extras["tail"], metrics = self._host_update(
+                ls.state, ls.extras["replay"], ls.extras["tail"], traj, ls.extras["first_chunk"],
+                self._beta(ls.env_steps, total), ls.key, tracer=hooks.tracer,
+            )
+            ls.extras["first_chunk"] = False
+            # publish the acting state and the consumed-step count to the
+            # staging thread (its next chunk explores with them)
+            act_holder[0] = ls.state
+            steps_holder[0] = ls.env_steps + self.steps_per_iter
+            return Outcome(
+                metrics=host_metrics(metrics, recent_returns), steps=self.steps_per_iter,
+                hook_key=derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1),
+            )
+
+        def apply_fault(ls, f):
+            ls.state = faults.apply_trainer_fault(f, ls.state)
+            act_holder[0] = ls.state
+
+        def on_rollback(ls):
+            rb = hooks.recovery.rollback(
+                ls.state, fresh=self._fresh_init,
+                extra_template={"replay": ls.extras["replay"]} if include_replay else None,
+            )
+            ls.state, ls.iteration, ls.env_steps = rb.state, rb.iteration, rb.env_steps
+            if rb.extra is not None:
+                ls.extras["replay"] = rb.extra["replay"]
+            # the staging thread keeps collecting: hand it the restored
+            # acting state and step count; chunks already staged from the
+            # poisoned policy are data the replay (and the bounded guard)
+            # absorb
+            act_holder[0] = ls.state
+            steps_holder[0] = ls.env_steps
+            ls.extras["nonce"] = rb.nonce
+            ls.key = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, rb.nonce))
+
+        try:
+            engine = LoopEngine(
+                hooks, total, step, stages, engine_cfg,
+                on_metrics=on_metrics, apply_fault=apply_fault, on_rollback=on_rollback,
+            )
+            ls = engine.run(ls)
+            hooks.final_checkpoint(ls.iteration, ls.env_steps, ls.state)
+            return ls.state, hooks.last_metrics
+        finally:
+            if prefetch is not None:
+                prefetch.close()
 
     def _fresh_init(self, nonce: int):
         """The divergence guard's fallback when no finite checkpoint exists."""

@@ -1,15 +1,23 @@
-"""Trajectory collection on the device, the port of
-``surreal_tpu/launch/rollout.py`` (``successor_and_termination``,
-``device_rollout``, ``init_device_carry``). The host-env collector is not
-ported yet.
+"""Trajectory collection, the port of ``surreal_tpu/launch/rollout.py``
+(``successor_and_termination``, ``device_rollout``, ``init_device_carry``,
+``host_rollout``).
 
-The reference's ``lax.scan`` over the horizon is a Python loop here; each
-step acts on the whole [B, ...] env batch through the learner's
-``act_step``, with a fresh ``act_init`` carry for each call: a trajectory
-policy's context is segment-aligned (the learn recomputes exactly this
-conditioning), and a memoryless learner's carry is None. Episode returns are tracked in
-band: ``ep_return`` is nonzero only at done steps (the finished episode's
-sum), so metrics need no side channel.
+Two collectors, one batch contract (see learners/ppo.py):
+
+- :func:`device_rollout`: the envs are batched torch envs on the card.
+  The reference's ``lax.scan`` over the horizon is a Python loop here;
+  each step acts on the whole [B, ...] env batch through the learner's
+  ``act_step``, with a fresh ``act_init`` carry for each call: a
+  trajectory policy's context is segment-aligned (the learn recomputes
+  exactly this conditioning), and a memoryless learner's carry is None.
+  Episode returns are tracked in band: ``ep_return`` is nonzero only at
+  done steps (the finished episode's sum), so metrics need no side
+  channel.
+- :func:`host_rollout`: a batched numpy host env (gym, dm_control,
+  robosuite), the SEED-RL pattern: each step copies the obs batch to the
+  card, acts once for all envs, and reads the actions back (the step's one
+  device->host read); the host leaves are stacked in numpy and go to the
+  card once per rollout, one copy per leaf.
 
 Randomness is explicit: action noise (standard normal [T, B, act_dim] for
 a Gaussian head, standard Gumbel [T, B, n_actions] for a categorical one),
@@ -22,9 +30,12 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from surreal_tpu_torch.envs.base import HostEnv
 from surreal_tpu_torch.envs.device.base import AutoReset
+from surreal_tpu_torch.learners.aggregator import multistep_batch
 from surreal_tpu_torch.learners.base import TRAINING, Learner
 
 # the act-info keys that describe the behaviour policy (the head's own)
@@ -120,3 +131,57 @@ def init_device_carry(
         ep_return=torch.zeros(num_envs, dtype=torch.float32, device=env.device),
         ep_length=torch.zeros(num_envs, dtype=torch.int32, device=env.device),
     )
+
+
+@torch.no_grad()
+def host_rollout(
+    env: HostEnv,
+    learner: Learner,
+    state,
+    obs: np.ndarray,
+    horizon: int,
+    generator: torch.Generator | None = None,
+    action_noise: torch.Tensor | None = None,
+):
+    """Collect ``horizon`` steps from a batched host env through
+    ``learner.act`` on the learner's device (one inference per step for
+    ALL envs). ``action_noise`` [T, B, ...] replaces the action draws.
+
+    Returns (last_obs, batch on the learner's device, episode stats): the
+    batch has the learner batch contract, every leaf [T, B, ...]; the
+    stats hold the returns and lengths of the episodes that finished.
+    """
+    device = learner.device
+    steps = []
+    ep_returns: list[float] = []
+    ep_lengths: list[int] = []
+    for t in range(horizon):
+        obs_t = torch.from_numpy(np.ascontiguousarray(obs)).to(device, non_blocking=True)
+        action, info = learner.act(
+            state, obs_t, TRAINING, generator, noise=None if action_noise is None else action_noise[t]
+        )
+        action_np = action.cpu().numpy()  # the step's one device->host read
+        out = env.step(action_np)
+        terminal_obs = out.info.get("terminal_obs")
+        truncated = np.asarray(out.info.get("truncated", np.zeros(len(out.done), bool)))
+        if terminal_obs is not None and out.done.any():
+            done_b = out.done.reshape(out.done.shape + (1,) * (out.obs.ndim - 1))
+            next_obs = np.where(done_b, terminal_obs, out.obs)
+        else:
+            next_obs = out.obs
+        steps.append({
+            "obs": obs_t,
+            "next_obs": next_obs,
+            "action": action,
+            "reward": out.reward,
+            "done": out.done,
+            "terminated": out.done & ~truncated,
+            "behavior_logp": info["logp"],
+            "behavior": {k: v for k, v in info.items() if k in _BEHAVIOR_KEYS},
+        })
+        if "episode_returns" in out.info:
+            ep_returns.extend(np.asarray(out.info["episode_returns"]).tolist())
+            ep_lengths.extend(np.asarray(out.info["episode_lengths"]).tolist())
+        obs = out.obs
+    batch = multistep_batch(steps, device)
+    return obs, batch, {"returns": ep_returns, "lengths": ep_lengths}

@@ -1,37 +1,57 @@
 """Training driver, the port of ``surreal_tpu/launch/trainer.py::Trainer``
-in device mode on one device: per iteration, collect a horizon on the
-batched device env, then one ``learn`` of the on-policy learner (PPO or
-IMPALA).
+on one device, for the on-policy learners (PPO, IMPALA). Two drive modes,
+chosen by the env family:
 
-``run`` is the reference's: ``SessionHooks`` (metrics, eval,
-checkpoints, auto-resume, the interrupt sentinel, the divergence guard)
-around a ``LoopEngine`` whose step is ``_device_train_iter``. Metrics
-reach the host only every ``session_config.metrics.every_n_iters``
-iterations; between those reads an iteration makes no host sync. On a
-rollback the generator is re-seeded from (seed, rollback count) and the
-env carry is re-initialised, where the reference folds the count into its
-keys.
+- **device mode** (``jax:*`` envs): per iteration, collect a horizon on
+  the batched device env, then one ``learn`` (``_device_train_iter``).
+  Metrics reach the host only every ``session_config.metrics.every_n_iters``
+  iterations; between those reads an iteration makes no host sync.
+- **host mode** (gym, dm_control, robosuite): SEED-style batched stepping
+  on the host feeding ``learn`` on the card (``_host_train_iter``), in one
+  of two loops. ``_host_loop_alternate`` (``topology.overlap_rollouts`` or
+  ``engine.overlap_collect`` false) collects, then learns. ``_host_loop_overlap``
+  (the default) steps the env for iteration k+1 on a collector thread,
+  with its own ``torch.Generator``, while the main thread learns on k; the
+  collector acts from the newest published state, at most one update
+  behind. Both threads issue work to the same CUDA stream, so the overlap
+  hides the host's env stepping, not device work. At the stop boundary
+  the in-flight rollout is discarded uncounted; a collector exception is
+  raised on the main thread; after a rollback, the rollouts the poisoned
+  policy collected (the queued one and the one in flight) are dropped.
+
+``run`` is the reference's: ``SessionHooks`` (metrics, eval, checkpoints,
+auto-resume, the interrupt sentinel, the divergence guard) around a
+``LoopEngine``. On a rollback the generator is re-seeded from (seed,
+rollback count), where the reference folds the count into its keys; the
+device env carry is re-initialised, a host env (alternate loop) reset on
+a seed moved by the count.
 
 The reference's guards hold: a trajectory policy (it threads an acting
 carry through the rollout) needs a device env, and a sequence-parallel
 mesh (``topology.mesh.sp > 1``) needs a trajectory policy. Not ported
-yet: host-env mode, the dp/sp meshes (an sp mesh over a trajectory
-policy raises at ``rebind_mesh``) and the autotuner.
+yet: the dp/sp meshes (an sp mesh over a trajectory policy raises at
+``rebind_mesh``) and the autotuner.
 """
 
 from __future__ import annotations
 
+import queue as queue_mod
+import threading
+from collections import deque
 from typing import Callable
 
 import numpy as np
 import torch
 
-from surreal_tpu_torch.engine import EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, sideband_stages
-from surreal_tpu_torch.envs import make_env
-from surreal_tpu_torch.launch.hooks import SessionHooks, training_env_config
-from surreal_tpu_torch.launch.rollout import RolloutCarry, device_rollout, init_device_carry
+from surreal_tpu_torch.engine import (
+    EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, overlap_collect, sideband_stages,
+)
+from surreal_tpu_torch.envs import is_jax_env, make_env
+from surreal_tpu_torch.launch.hooks import HOST_METRICS_WINDOW, SessionHooks, host_metrics, training_env_config
+from surreal_tpu_torch.launch.rollout import RolloutCarry, device_rollout, host_rollout, init_device_carry
 from surreal_tpu_torch.learners import build_learner
 from surreal_tpu_torch.learners.base import check_scan_unroll
+from surreal_tpu_torch.session.telemetry import Tracer
 from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.device import resolve_device
 
@@ -66,6 +86,7 @@ class Trainer:
                 "sequence context carry"
             )
         self.env = make_env(training_env_config(config.env_config), self.device)
+        self.device_mode = is_jax_env(self.env)
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
         topo = config.session_config.get("topology", None)
         mesh = topo.get("mesh", None) if topo is not None else None
@@ -138,47 +159,214 @@ class Trainer:
         try:
             state, iteration, env_steps = hooks.restore(state)
             hooks.begin_run(iteration, env_steps)
-            generator = torch.Generator(device=self.device).manual_seed(self.seed)
-            carry = self.init_loop_state(generator)
-            # the env carry is updated in place, so a deferred boundary
-            # reads a clone of the state (engine/core.py)
-            stages = (StageSpec("collect", donate=True), StageSpec("learn", donate=True)) + sideband_stages()
-
-            def step(ls):
-                # unfenced span: the time to issue the iteration
-                with hooks.tracer.span("train_iter"):
-                    ls.state, ls.extras["carry"], metrics = self._device_train_iter(
-                        ls.state, ls.extras["carry"], ls.key
-                    )
-                return Outcome(
-                    metrics=metrics, steps=self.steps_per_iter,
-                    hook_key=derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1),
-                )
-
-            def apply_fault(ls, f):
-                ls.state = faults.apply_trainer_fault(f, ls.state)
-
-            def on_rollback(ls):
-                rb = hooks.recovery.rollback(ls.state, fresh=self._fresh_init)
-                ls.state, ls.iteration, ls.env_steps = rb.state, rb.iteration, rb.env_steps
-                # re-seed the offending batch: a deterministic workload
-                # must not replay into the same divergence
-                ls.extras["nonce"] = rb.nonce
-                ls.key = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, rb.nonce))
-                ls.extras["carry"] = self.init_loop_state(ls.key)
-
-            engine = LoopEngine(
-                hooks, total, step, stages, EngineConfig.from_session(cfg),
-                on_metrics=on_metrics, apply_fault=apply_fault, on_rollback=on_rollback,
-            )
-            ls = engine.run(LoopState(
-                state=state, key=generator, iteration=iteration, env_steps=env_steps,
-                extras={"carry": carry, "nonce": 0},
-            ))
+            loop = self._device_loop
+            if not self.device_mode:
+                loop = self._host_loop_overlap if overlap_collect(cfg) else self._host_loop_alternate
+            ls = loop(state, iteration, env_steps, total, hooks, on_metrics)
             hooks.final_checkpoint(ls.iteration, ls.env_steps, ls.state)
             return ls.state, hooks.last_metrics
         finally:
             hooks.close()
+
+    # -- device (fused) loop -------------------------------------------------
+    def _device_loop(self, state, iteration, env_steps, total, hooks, on_metrics) -> LoopState:
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        carry = self.init_loop_state(generator)
+        # the env carry is updated in place, so a deferred boundary
+        # reads a clone of the state (engine/core.py)
+        stages = (StageSpec("collect", donate=True), StageSpec("learn", donate=True)) + sideband_stages()
+
+        def step(ls):
+            # unfenced span: the time to issue the iteration
+            with hooks.tracer.span("train_iter"):
+                ls.state, ls.extras["carry"], metrics = self._device_train_iter(
+                    ls.state, ls.extras["carry"], ls.key
+                )
+            return Outcome(metrics=metrics, steps=self.steps_per_iter, hook_key=self._hook_key(ls))
+
+        def on_rollback(ls):
+            self._rollback(ls, hooks)
+            ls.extras["carry"] = self.init_loop_state(ls.key)
+
+        engine = LoopEngine(
+            hooks, total, step, stages, EngineConfig.from_session(self.config.session_config),
+            on_metrics=on_metrics, apply_fault=self._apply_fault, on_rollback=on_rollback,
+        )
+        return engine.run(LoopState(
+            state=state, key=generator, iteration=iteration, env_steps=env_steps,
+            extras={"carry": carry, "nonce": 0},
+        ))
+
+    def _apply_fault(self, ls, f):
+        ls.state = faults.apply_trainer_fault(f, ls.state)
+
+    def _rollback(self, ls, hooks):
+        """Restore the last finite checkpoint and re-seed the offending
+        batch: a deterministic workload must not replay into the same
+        divergence."""
+        rb = hooks.recovery.rollback(ls.state, fresh=self._fresh_init)
+        ls.state, ls.iteration, ls.env_steps = rb.state, rb.iteration, rb.env_steps
+        ls.extras["nonce"] = rb.nonce
+        ls.key = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, rb.nonce))
+        return rb
+
+    def _hook_key(self, ls) -> int:
+        """The boundary's own seed (eval draws) for the iteration ``ls`` is
+        about to count."""
+        return derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1)
+
+    # -- host-env loops ------------------------------------------------------
+    def _host_train_iter(
+        self,
+        state,
+        obs: np.ndarray,
+        generator: torch.Generator | None = None,
+        action_noise: torch.Tensor | None = None,
+        perms: torch.Tensor | None = None,
+        tracer=None,
+    ):
+        """One host iteration: ``host_rollout`` then ``learn`` on the
+        learner's device, each in its ``tracer`` span when one is given.
+        The optional tensors replace the draws from ``generator``; ``perms``
+        is PPO's. Returns (state, last obs, metrics, episode stats)."""
+        span = (tracer or Tracer(None)).span  # a disabled tracer is a no-op
+        with span("rollout"):
+            obs, batch, ep_stats = host_rollout(
+                self.env, self.learner, state, obs, self.horizon, generator, action_noise
+            )
+        learn_draws = {} if perms is None else {"perms": perms}
+        with span("learn"):
+            state, metrics = self.learner.learn(state, batch, generator, **learn_draws)
+        return state, obs, metrics, ep_stats
+
+    def _host_stages(self, overlap: bool):
+        # nothing is updated in place on the host path (the collector acts
+        # from the published state), so a deferred boundary reads the
+        # state as it is
+        return (
+            StageSpec("collect", donate=False, overlap=overlap),
+            StageSpec("learn", donate=False),
+        ) + sideband_stages()
+
+    def _host_loop_alternate(self, state, iteration, env_steps, total, hooks, on_metrics) -> LoopState:
+        """Strict rollout -> learn alternation: the card idles during every
+        env step, but the policy lag is exactly zero."""
+        obs_holder = [self.env.reset(seed=self.config.env_config.seed)]
+        recent_returns: deque = deque(maxlen=HOST_METRICS_WINDOW)
+
+        def step(ls):
+            ls.state, obs_holder[0], metrics, ep_stats = self._host_train_iter(
+                ls.state, obs_holder[0], ls.key, tracer=hooks.tracer
+            )
+            recent_returns.extend(ep_stats["returns"])
+            return Outcome(
+                metrics=host_metrics(metrics, recent_returns), steps=self.steps_per_iter,
+                hook_key=self._hook_key(ls),
+            )
+
+        def on_rollback(ls):
+            rb = self._rollback(ls, hooks)
+            # a NaN policy steps the env into garbage: reset it on a
+            # rollback-distinct seed
+            obs_holder[0] = self.env.reset(seed=self.config.env_config.seed + rb.nonce)
+
+        engine = LoopEngine(
+            hooks, total, step, self._host_stages(False), EngineConfig.from_session(self.config.session_config),
+            on_metrics=on_metrics, apply_fault=self._apply_fault, on_rollback=on_rollback,
+        )
+        return engine.run(LoopState(
+            state=state, key=torch.Generator(device=self.device).manual_seed(self.seed),
+            iteration=iteration, env_steps=env_steps, extras={"nonce": 0},
+        ))
+
+    def _host_loop_overlap(self, state, iteration, env_steps, total, hooks, on_metrics) -> LoopState:
+        """Double-buffered host loop: a collector thread steps the env for
+        iteration k+1 while the main thread learns on k. The collector
+        reads the acting state once per rollout (one behaviour policy per
+        batch, recorded in behavior_logp), at most one update behind. At
+        the stop boundary one in-flight rollout may be discarded; its env
+        steps are not counted. Each rollout carries the rollback generation
+        of the state it acted with, and the learner drops those from before
+        the last rollback (the queued one and the one in flight)."""
+        # the collector reads the newest (state, generation); the main thread writes
+        act_holder = [(state, 0)]
+        generation = [0]
+        out: queue_mod.Queue = queue_mod.Queue(maxsize=1)
+        stop_evt = threading.Event()
+        tracer = hooks.tracer  # thread-safe; the collector spans "rollout"
+        collect_gen = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, 1))
+        actor = self.learner.acting_copy()  # the collector's own modules, made before it starts
+
+        def collect():
+            obs = self.env.reset(seed=self.config.env_config.seed)
+            try:
+                while not stop_evt.is_set():
+                    a_state, gen = act_holder[0]
+                    with tracer.span("rollout"):
+                        obs, batch, ep_stats = host_rollout(
+                            self.env, actor, a_state, obs, self.horizon, collect_gen
+                        )
+                    while not stop_evt.is_set():
+                        try:
+                            out.put((gen, batch, ep_stats), timeout=0.2)
+                            break
+                        except queue_mod.Full:
+                            continue
+            except BaseException as e:  # surface env and act crashes to the main thread
+                out.put(e)
+
+        collector = threading.Thread(target=collect, daemon=True, name="host-collector")
+        collector.start()
+        recent_returns: deque = deque(maxlen=HOST_METRICS_WINDOW)
+
+        def step(ls):
+            with tracer.span("chunk-wait"):
+                while True:
+                    got = out.get()
+                    if isinstance(got, BaseException):
+                        raise got
+                    gen, batch, ep_stats = got
+                    if gen == generation[0]:
+                        break
+            with tracer.span("learn"):
+                ls.state, metrics = self.learner.learn(ls.state, batch, ls.key)
+            act_holder[0] = (ls.state, generation[0])
+            recent_returns.extend(ep_stats["returns"])
+            return Outcome(
+                metrics=host_metrics(metrics, recent_returns), steps=self.steps_per_iter,
+                hook_key=self._hook_key(ls),
+            )
+
+        def apply_fault(ls, f):
+            self._apply_fault(ls, f)
+            act_holder[0] = (ls.state, generation[0])
+
+        def on_rollback(ls):
+            self._rollback(ls, hooks)
+            # the collector acts healthy again; what the poisoned policy
+            # collected is dropped as it arrives. Its own env obs cannot be
+            # reset from here, so a run whose env state went nonfinite
+            # re-trips and exhausts the bounded budget
+            generation[0] += 1
+            act_holder[0] = (ls.state, generation[0])
+
+        try:
+            engine = LoopEngine(
+                hooks, total, step, self._host_stages(True), EngineConfig.from_session(self.config.session_config),
+                on_metrics=on_metrics, apply_fault=apply_fault, on_rollback=on_rollback,
+            )
+            return engine.run(LoopState(
+                state=state, key=torch.Generator(device=self.device).manual_seed(self.seed),
+                iteration=iteration, env_steps=env_steps, extras={"nonce": 0},
+            ))
+        finally:
+            stop_evt.set()
+            while True:  # unblock a collector waiting on the full queue
+                try:
+                    out.get_nowait()
+                except queue_mod.Empty:
+                    break
+            collector.join(timeout=30)
 
     def _fresh_init(self, nonce: int):
         """The divergence guard's fallback when no finite checkpoint exists:

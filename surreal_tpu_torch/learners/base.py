@@ -20,6 +20,7 @@ like the reference's optax state does.
 from __future__ import annotations
 
 import abc
+import copy
 from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
@@ -205,6 +206,20 @@ class Learner(abc.ABC):
                 f"(ppo, impala; got algo {learner_config.algo.name!r}); "
                 "ddpg uses its own actor/critic model build"
             )
+
+    def acting_copy(self) -> "Learner":
+        """This learner with deep copies of its modules, for a thread that
+        acts while the main thread learns (the host loops' collector and
+        staging thread, the evaluator under pipelined side-bands).
+        ``functional_call`` swaps the parameters into the module object
+        while it runs, so two threads applying one module would each see
+        the other's parameters. Call it on the main thread before the
+        other thread starts, while nothing else applies the modules."""
+        twin = copy.copy(self)
+        for name, value in vars(self).items():
+            if isinstance(value, torch.nn.Module):
+                setattr(twin, name, copy.deepcopy(value))
+        return twin
 
     @abc.abstractmethod
     def init(self, generator: torch.Generator | None = None) -> Any:

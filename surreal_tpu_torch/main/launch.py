@@ -5,6 +5,7 @@
     python -m surreal_tpu_torch train ppo jax:lift --folder /tmp/exp1
     python -m surreal_tpu_torch train ddpg jax:lift --folder /tmp/exp2 \\
         --num-envs 256 --set learner_config.algo.n_step=3
+    python -m surreal_tpu_torch train ppo dm_control:cheetah-run --folder /tmp/exp3 --num-envs 32
 
 It builds the reference's three config trees from the same flags, writes
 ``<folder>/config.json`` (atomically), picks the driver (``OffPolicyTrainer``
@@ -68,18 +69,39 @@ def backend_device(backend: str) -> str:
     return BACKENDS[backend]
 
 
-def select_trainer(config, device: str = "cuda"):
-    """Map config -> driver: ddpg -> ``OffPolicyTrainer``, else ``Trainer``."""
+def _validate_seed_topology(config) -> int:
+    """The SEED inference-server topology needs a HOST env and an
+    on-policy algo (the reference's rule, kept so a config the reference
+    refuses is refused here with the same message). Returns
+    num_env_workers."""
+    algo = config.learner_config.algo.name
+    env_name = config.env_config.name
     workers = config.session_config.topology.num_env_workers
+    if workers > 0 and (algo == "ddpg" or env_name.startswith("jax:")):
+        raise ValueError(
+            f"topology.num_env_workers={workers} selects the SEED "
+            "inference-server topology, which needs a HOST env (gym:/"
+            "dm_control:/robosuite:) and an on-policy algo (ppo, impala); "
+            f"got algo={algo!r}, env={env_name!r} — drop --workers, or "
+            "use a host env / on-policy algo"
+        )
+    return workers
+
+
+def select_trainer(config, device: str = "cuda"):
+    """Map config -> trainer: ddpg -> ``OffPolicyTrainer``, else ``Trainer``
+    (the fused device loop, or the host loops for a host env). A host env
+    with env workers would go to the SEED trainer, which raises."""
+    workers = _validate_seed_topology(config)
+    if config.learner_config.algo.name == "ddpg":
+        from surreal_tpu_torch.launch.offpolicy_trainer import OffPolicyTrainer
+
+        return OffPolicyTrainer(config, device=device)
     if workers > 0:
         raise NotImplementedError(
             f"topology.num_env_workers={workers} selects the SEED inference-server topology, "
             "which is not ported to PyTorch yet"
         )
-    if config.learner_config.algo.name == "ddpg":
-        from surreal_tpu_torch.launch.offpolicy_trainer import OffPolicyTrainer
-
-        return OffPolicyTrainer(config, device=device)
     from surreal_tpu_torch.launch.trainer import Trainer
 
     return Trainer(config, device=device)
@@ -119,7 +141,7 @@ def make_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("train", help="launch a training experiment")
     t.add_argument("algo", choices=ALGOS)
-    t.add_argument("env", help="env name with backend prefix: jax:lift, jax:pong, jax:pong16")
+    t.add_argument("env", help="env name with backend prefix: jax:lift, jax:nut_pixels, gym:CartPole-v1, dm_control:cheetah-run, ...")
     t.add_argument("--folder", required=True, help="session/experiment directory")
     t.add_argument("--num-envs", type=int, default=64)
     t.add_argument("--total-steps", type=int, default=None)

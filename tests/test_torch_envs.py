@@ -139,9 +139,12 @@ def test_make_env_builds_lift_and_refuses_unported_envs():
     assert obs.shape == (3, 17) and state.step_count.dtype == torch.int32
     with pytest.raises(ValueError, match="no step draws"):
         env.step(state, torch.zeros(3, 4), step_draws=torch.zeros(3, 1))
-    for name in ("jax:nut", "gym:CartPole-v1"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_env(Config(name=name).extend(BASE_ENV_CONFIG), device="cpu")
+    # every env name is ported; video recording on a host env is not, and
+    # robosuite stays behind the reference's import guard
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_env(Config(name="gym:CartPole-v1", video=Config(enabled=True)).extend(BASE_ENV_CONFIG), device="cpu")
+    with pytest.raises(ImportError, match="robosuite"):
+        make_env(Config(name="robosuite:Lift").extend(BASE_ENV_CONFIG), device="cpu")
 
 
 @pytest.mark.parametrize("name,port_cls,jax_cls", [

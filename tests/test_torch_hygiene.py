@@ -40,7 +40,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "envs/device/pendulum.py", "envs/device/cartpole.py", "ops/ring_attention.py", "models/attention.py",
         "learners/seq_policy.py",
     }
-    assert session_runtime | trajectory <= scanned, f"not scanned: {sorted((session_runtime | trajectory) - scanned)}"
+    host = {
+        "envs/gym_adapter.py", "envs/dm_control_adapter.py", "envs/robosuite_adapter.py", "envs/wrappers.py",
+        "learners/prefetch.py", "envs/device/nut_assembly.py", "envs/device/pixels.py",
+    }
+    wanted = session_runtime | trajectory | host
+    assert wanted <= scanned, f"not scanned: {sorted(wanted - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
         for path in files
