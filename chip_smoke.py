@@ -14,9 +14,12 @@ learn) under PPO on jax:pendulum and pixel jax:pong16 (GAE; the scan at
 'assoc') and IMPALA on jax:cartpole (V-trace), then the host-env paths
 (PPO on dm_control:cheetah-run and gym:CartPole-v1 through the Trainer's
 alternate and overlap loops, IMPALA on gym:CartPole-v1, DDPG with
-prioritized replay on gym:Pendulum-v1 through its host loop) and PPO with
-the NatureCNN on the NutAssembly pixel env jax:nut_pixels. Five kernels
-are built and checked. Phases, each printing one JSON line:
+prioritized replay on gym:Pendulum-v1 through its host loop), PPO with
+the NatureCNN on the NutAssembly pixel env jax:nut_pixels, and the SEED
+topology (env workers, threads or spawned processes, feeding one batched
+inference server: PPO on cheetah-run, IMPALA on CartPole and on 256
+pixel envs). Five kernels are built and checked. Phases, each printing
+one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
 2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
@@ -109,7 +112,25 @@ are built and checked. Phases, each printing one JSON line:
              geometry (512 envs x 32 steps, 2 x 4, the default NatureCNN,
              'mixed'; 4 + 8 iterations); and ``train ppo
              dm_control:cheetah-run --num-envs 32`` with the host
-             evaluator and checkpoints, then an auto-resume.
+             evaluator and checkpoints, then an auto-resume;
+8. seed    - the SEED topology (the probe also reports ale_py and zmq;
+             spawned workers get the fixture envs through this script's
+             last lines, which a spawned child runs as __mp_main__): one
+             SEED learn on a fixed chunk on the card against the CPU (f32,
+             IMPALA on CartPole [32, 8], PPO on cheetah-run [64, 4]);
+             ``SEEDTrainer.run`` with 4 warm-up and 16 timed learns (one
+             chunk a learn) for PPO on cheetah-run over 4 worker processes
+             x 8 envs on shared-memory slabs (perf_report.py:808-816, chunks
+             [64, 4], 4 x 4, 'mixed'; GAE once a learn), IMPALA on CartPole
+             over 2 thread workers x 16 envs on the pickle wire (chunks [32,
+             8]; V-trace once a learn) and IMPALA with the NatureCNN over 4
+             worker processes x 64 pixel envs with jax:pong's specs (a
+             fixture: BASELINE config (5)'s 256 envs, chunks [32, 32]), each
+             with its serve and wire figures, staleness and lineage gauges,
+             host syncs (one a serve, none in a learn) and the same learn
+             timed with the data plane stopped; a worker process terminated
+             mid-run and respawned, with no slab left in /dev/shm; and
+             ``train impala gym:CartPole-v1 --workers 2`` for 3 iterations.
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -161,13 +182,32 @@ PONG16_CNN = dict(enabled=True, channels=[8, 16], kernels=[4, 3], strides=[2, 1]
 SCAN_EDGE_SHAPES = [(1000, 33), (MAIN_T - 1, MAIN_B), (MAIN_T, 5), (PONG_T, PONG_B - 1), (64, 65536), (3, 1000)]
 # GAE's shapes on the host PPO and nut_pixels paths
 HOST_GAE_SHAPES = [(CHEETAH_T, CHEETAH_B), (NUT_T, NUT_B), (CARTPOLE_T, CARTPOLE_B)]
+# a SEED iteration learns one chunk: with 4 pipelined workers a round of
+# the fleet is 8 chunks, so the timed window spans two rounds
+SEED_WARMUP_ITERS, SEED_TIMED_ITERS = 4, 16
+# the JAX package's perf_report.py:808-816 SEED geometry: 4 worker
+# processes x 8 envs (the 32-env fleet of host-ppo-cheetah), chunks [64, 4]
+SEED_PPO_WORKERS, SEED_PPO_ENVS = 4, 8
+# host-impala-cartpole's 32 envs over the 2 thread workers of
+# perf_wallclock.py:2201-2208, chunks [32, 8]
+SEED_CARTPOLE_WORKERS, SEED_CARTPOLE_ENVS = 2, 16
+# BASELINE config (5)'s 256 envs: 4 worker processes x 64, chunks [32, 32]
+SEED_PIXEL_WORKERS, SEED_PIXEL_ENVS, SEED_PIXEL_T = 4, 64, 32
+SEED_SYNC_SERVES = 16
+# the card-versus-CPU SEED learn's bar on params, the learn-level one
+SEED_PARAM_ATOL = 1e-5
+# the SEED learns' chunks (pipelined workers: half a worker's envs each):
+# GAE at PPO's [64, 4], V-trace at IMPALA's [32, 8] and [32, 32]
+SEED_GAE_SHAPES = [(CHEETAH_T, SEED_PPO_ENVS // 2)]
+SEED_VTRACE_SHAPES = [(CARTPOLE_T, SEED_CARTPOLE_ENVS // 2), (SEED_PIXEL_T, SEED_PIXEL_ENVS // 2)]
 KERNEL_SHAPES = [(MAIN_T, MAIN_B), (1, 1), (7, 1000), (MAIN_T, MAIN_B + 1), (TRAJ_T, TRAJ_B), *HOST_GAE_SHAPES,
-                 *SCAN_EDGE_SHAPES]
+                 *SEED_GAE_SHAPES, *SCAN_EDGE_SHAPES]
 # the reverse scan runs at PPO's and IMPALA's shapes (the 'assoc' forms); its
 # 8 KB stages hold all of T = 1000 in the ring at 33 columns, so two shapes
 # more wrap the ring, under cp.async and under TMA
 REV_SCAN_SHAPES = [*KERNEL_SHAPES, (PONG_T, PONG_B), (2000, 33), (2 * MAIN_T, MAIN_B)]
 VTRACE_SHAPES = [(PONG_T, PONG_B), (1, 1), (7, 1000), (PONG_T, PONG_B + 1), (PONG_T, 5), (CARTPOLE_T, CARTPOLE_B),
+                 *SEED_VTRACE_SHAPES,
                  *SCAN_EDGE_SHAPES]
 # V-trace's float operations per element (csrc/vtrace.cu): rho 2 (sub,
 # exp), delta 5, recursion 4, vs 1, successor 4, pg advantage 5
@@ -364,7 +404,7 @@ def phase_kernels(ops_gae) -> dict:
     add."""
     return kernel_phase(
         "gae", ops_gae.gae_advantages_masked, ops_gae.gae_masked_plain, gae_inputs, KERNEL_SHAPES,
-        reads=5, writes=2, ops=6, plan=scan_plan_of(5), also_timed=[(TRAJ_T, TRAJ_B), *HOST_GAE_SHAPES],
+        reads=5, writes=2, ops=6, plan=scan_plan_of(5), also_timed=[(TRAJ_T, TRAJ_B), *HOST_GAE_SHAPES, *SEED_GAE_SHAPES],
     )
 
 
@@ -403,7 +443,7 @@ def phase_vtrace_kernel(ops_vtrace) -> dict:
             raise AssertionError(f"vtrace inputs at [{T}, {B}] do not exercise the clips")
     return kernel_phase(
         "vtrace", ops_vtrace.vtrace_fused, ops_vtrace.vtrace_fused_plain, vtrace_inputs, VTRACE_SHAPES,
-        reads=8, writes=2, ops=VTRACE_OPS, plan=scan_plan_of(8), also_timed=[(CARTPOLE_T, CARTPOLE_B)],
+        reads=8, writes=2, ops=VTRACE_OPS, plan=scan_plan_of(8), also_timed=[(CARTPOLE_T, CARTPOLE_B), *SEED_VTRACE_SHAPES[:1]],
     )
 
 
@@ -1682,6 +1722,10 @@ HOST_ENVS = {
 }
 HOST_ENV_PACKAGES = {"gym:CartPole-v1": ("gymnasium",), "gym:Pendulum-v1": ("gymnasium",),
                      "dm_control:cheetah-run": ("dm_control", "mujoco")}
+# BASELINE config (5)'s Atari Pong: no ALE or ROMs on either machine, so the
+# SEED pixel phase always runs a fixture with jax:pong's specs
+PONG_HOST_ENV = "gym:ALE/Pong-v5"
+FIXTURE_ENV_VAR = "CHIP_SMOKE_FIXTURE_ENVS"  # spawned env workers read it at import
 HOST_WARMUP_ITERS, HOST_TIMED_ITERS = 2, 4
 
 
@@ -1691,7 +1735,7 @@ def phase_env_probe() -> dict:
     import importlib.metadata
 
     found = {}
-    for name in ("gymnasium", "dm_control", "mujoco"):
+    for name in ("gymnasium", "dm_control", "mujoco", "ale_py", "zmq"):
         try:
             mod = importlib.import_module(name)
         except Exception as exc:  # a probe: what is missing is the answer
@@ -1753,26 +1797,80 @@ def fixture_env_class(HostEnv, StepOutput, ArraySpec, DiscreteSpec, EnvSpecs):
     return FixtureHostEnv
 
 
+def pixel_fixture_env_class(HostEnv, StepOutput, ArraySpec, DiscreteSpec, EnvSpecs):
+    """A seeded numpy host env with jax:pong's specs ([42, 42, 2] uint8
+    frames, 3 actions): a ball (a point mass in 2-D pushed by the action)
+    drawn as a bright 3x3 square over a fixed noise background, the second
+    channel the previous frame; reward -|x|^2, an episode ends when the
+    ball leaves [-3, 3] or after 1,000 steps."""
+
+    class PixelFixtureEnv(HostEnv):
+        def __init__(self, num_envs: int, seed: int):
+            self.specs = EnvSpecs(obs=ArraySpec(shape=(42, 42, 2), dtype=np.dtype(np.uint8), name="obs"),
+                                  action=DiscreteSpec(shape=(), dtype=np.dtype(np.int32), name="action", n=3))
+            self.num_envs = num_envs
+            self._rng = np.random.default_rng(seed)
+            self._push = np.array([[0.0, 0.0], [0.0, 0.3], [0.0, -0.3]], np.float32)
+            self._background = np.random.default_rng(98).integers(0, 40, (42, 42), dtype=np.uint8)
+
+        def _render(self):
+            frame = np.broadcast_to(self._background, (self.num_envs, 42, 42)).copy()
+            px = np.clip(((self._x + 3.0) / 6.0 * 39).astype(np.int64), 0, 39)
+            d = np.arange(3)
+            rows = (px[:, 1, None, None] + d[None, :, None])
+            cols = (px[:, 0, None, None] + d[None, None, :])
+            frame[np.arange(self.num_envs)[:, None, None], rows, cols] = 255
+            return frame
+
+        def _obs(self):
+            frame = self._render()
+            obs = np.stack([frame, self._prev], axis=-1)
+            self._prev = frame
+            return obs
+
+        def reset(self, seed=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t = np.zeros(self.num_envs, np.int64)
+            self._x = self._rng.normal(0.0, 0.5, (self.num_envs, 2)).astype(np.float32)
+            self._prev = self._render()
+            return self._obs()
+
+        def step(self, actions):
+            self._x = (0.95 * self._x + self._push[actions]
+                       + 0.05 * self._rng.normal(size=self._x.shape)).astype(np.float32)
+            reward = -(self._x ** 2).sum(1).astype(np.float32)
+            self._t += 1
+            failed = (np.abs(self._x) > 3.0).any(1)
+            truncated = (self._t >= 1000) & ~failed
+            done = failed | truncated
+            terminal = np.stack([self._render(), self._prev], axis=-1)
+            if done.any():
+                self._x[done] = self._rng.normal(0.0, 0.5, (int(done.sum()), 2)).astype(np.float32)
+                self._t[done] = 0
+            return StepOutput(obs=self._obs(), reward=reward, done=done,
+                              info={"terminal_obs": terminal, "truncated": truncated})
+
+    return PixelFixtureEnv
+
+
 def make_fixture_env(name: str, num_envs: int, seed: int):
     """The fixture env of ``name``'s specs inside EpisodeStatsWrapper, as
     the factory wraps a host env."""
     from surreal_tpu_torch.envs.base import ArraySpec, DiscreteSpec, EnvSpecs, HostEnv, StepOutput
     from surreal_tpu_torch.envs.wrappers import EpisodeStatsWrapper
 
+    if name == PONG_HOST_ENV:
+        Pixels = pixel_fixture_env_class(HostEnv, StepOutput, ArraySpec, DiscreteSpec, EnvSpecs)
+        return EpisodeStatsWrapper(Pixels(num_envs, seed))
     Fixture = fixture_env_class(HostEnv, StepOutput, ArraySpec, DiscreteSpec, EnvSpecs)
     return EpisodeStatsWrapper(Fixture(name, num_envs, seed))
 
 
-def install_fixture_envs(env_source: dict) -> None:
-    """Where a host env's package is missing, make_env builds the fixture
-    env of its specs for every trainer and the evaluator."""
-    missing = {env for env, src in env_source.items() if src == "fixture"}
-    if not missing:
-        return
+def patch_make_env(missing, modules) -> None:
+    """``make_env`` of each module builds the fixture env for the names in
+    ``missing`` and the real env otherwise."""
     import surreal_tpu_torch.envs.factory as factory
-    import surreal_tpu_torch.launch.evaluator as evaluator
-    import surreal_tpu_torch.launch.offpolicy_trainer as offpolicy_trainer
-    import surreal_tpu_torch.launch.trainer as trainer
 
     real = factory.make_env
 
@@ -1781,8 +1879,25 @@ def install_fixture_envs(env_source: dict) -> None:
             return make_fixture_env(env_config.name, env_config.num_envs, env_config.seed)
         return real(env_config, device)
 
-    for mod in (trainer, offpolicy_trainer, evaluator):
+    for mod in modules:
         mod.make_env = make_env
+
+
+def install_fixture_envs(env_source: dict) -> None:
+    """Where a host env's package is missing, make_env builds the fixture
+    env of its specs for every trainer, the evaluator and the SEED env
+    workers: thread workers through the patched module, spawned ones
+    through the module-level hook at the end of this file, which a spawned
+    child runs when it imports this script as ``__mp_main__``."""
+    missing = {env for env, src in env_source.items() if src == "fixture"} | {PONG_HOST_ENV}
+    import surreal_tpu_torch.distributed.env_worker as env_worker
+    import surreal_tpu_torch.launch.evaluator as evaluator
+    import surreal_tpu_torch.launch.offpolicy_trainer as offpolicy_trainer
+    import surreal_tpu_torch.launch.seed_trainer as seed_trainer
+    import surreal_tpu_torch.launch.trainer as trainer
+
+    patch_make_env(missing, (trainer, offpolicy_trainer, evaluator, seed_trainer, env_worker))
+    os.environ[FIXTURE_ENV_VAR] = json.dumps(sorted(missing))
 
 
 def host_config(M, algo: dict, env: str, num_envs: int, session=None, **learner):
@@ -1793,9 +1908,10 @@ def host_config(M, algo: dict, env: str, num_envs: int, session=None, **learner)
     ).extend(M.base_config())
 
 
-def count_syncs(fn):
+def count_syncs(fn, sites: dict | None = None):
     """(fn(), the number of host syncs torch reports while it runs), under
-    torch.cuda.set_sync_debug_mode("warn")."""
+    torch.cuda.set_sync_debug_mode("warn"); ``sites`` gathers the count by
+    the file:line that triggered each."""
     import warnings
 
     torch.cuda.synchronize()
@@ -1806,7 +1922,14 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    # the first mode switch of a process also warns "Synchronization debug
+    # mode is a prototype feature ...": not a sync
+    syncs = [w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    if sites is not None:
+        for w in syncs:
+            site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return out, len(syncs)
 
 
 def phase_parity_host_ppo(M, counters: dict, gae_impl: str, env_source: dict) -> dict:
@@ -2208,6 +2331,296 @@ def phase_host(M, ops_gae, ops_vtrace, RS, RR) -> dict:
         "replay_gather": {"host_ddpg_pendulum": runs["host_ddpg_pendulum"]["replay_gather_launches"]},
         "replay_scatter": {"host_ddpg_pendulum": runs["host_ddpg_pendulum"]["replay_scatter_launches"]},
         "replay_gather_check": gather_check,
+        "env_source": env_source,
+    }
+
+
+# -- the SEED topology ----------------------------------------------------------
+
+
+
+def seed_config(M, algo: dict, env: str, workers: int, num_envs: int, mode: str, **learner):
+    return M.Config(
+        learner_config=M.Config(algo=M.Config(algo), **{k: M.Config(v) for k, v in learner.items()}),
+        env_config=M.Config(name=env, num_envs=num_envs),
+        session_config=timed_session(M.Config, topology=M.Config(num_env_workers=workers, worker_mode=mode)),
+    ).extend(M.base_config())
+
+
+def keep_last_chunk(trainer) -> list:
+    """The trainer's last staged chunk, as the server assembled it (a
+    shallow copy taken before staging pops its host-side columns)."""
+    kept = []
+    stage = trainer._stage
+
+    def keeping(chunk, tracer):
+        kept[:] = [dict(chunk)]
+        return stage(chunk, tracer)
+
+    trainer._stage = keeping
+    return kept
+
+
+def seed_sync_check(trainer, state, chunk: dict, width: int) -> dict:
+    """Host syncs of the SEED path on the card: the server's act function
+    over ``width`` rows, SEED_SYNC_SERVES times (one read of actions and
+    info each), staging one chunk, and one learn on it (none)."""
+    from surreal_tpu_torch.session.telemetry import Tracer
+
+    act_fn = trainer._make_act_fn(trainer.learner.acting_copy(), state,
+                                  torch.Generator(device="cuda").manual_seed(3))
+    rows = chunk["obs"].reshape(-1, *chunk["obs"].shape[2:])
+    obs = rows[np.arange(width) % len(rows)]
+    act_fn(obs)
+    sites = {}
+    _, serve = count_syncs(lambda: [act_fn(obs) for _ in range(SEED_SYNC_SERVES)], sites)
+    (batch, *_), stage = count_syncs(lambda: trainer._stage(dict(chunk), Tracer(None)), sites)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    _, learn = count_syncs(lambda: trainer._learn(state, batch, gen), sites)
+    # the same learn with the data plane stopped: the run's learn spans
+    # against this show what serving beside it costs
+    alone = [fenced_ms(lambda: trainer._learn(state, batch, gen))[1] for _ in range(3)]
+    out = {"serves": SEED_SYNC_SERVES, "width": width, "serve_syncs": serve, "stage_syncs": stage,
+           "learn_syncs": learn, "syncs_per_serve": serve / SEED_SYNC_SERVES, "sites": sites,
+           "learn_ms_alone": alone}
+    if serve != SEED_SYNC_SERVES or learn != 0:
+        emit({"phase": "seed", "sync_check_failed": out})
+        raise AssertionError(f"SEED host syncs: {out}; expected one a serve and none in a learn")
+    return out
+
+
+def phase_seed_train(M, path: str, algo: dict, env: str, workers: int, num_envs: int, mode: str,
+                     counters: dict, env_source: dict, **learner) -> dict:
+    """``SEEDTrainer.run`` on the card (``timed_run``: SEED_WARMUP_ITERS +
+    SEED_TIMED_ITERS learns, kernel launches counted, every metric finite),
+    then the serve and wire figures of its server, the staleness and
+    lineage gauges of its last row and the host syncs of its paths."""
+    trainer = M.SEEDTrainer(seed_config(M, algo, env, workers, num_envs, mode, **learner))
+    kept = keep_last_chunk(trainer)
+    state, timing = timed_run(trainer, counters, SEED_WARMUP_ITERS, SEED_TIMED_ITERS)
+    m = timing["metrics"]
+    hops = trainer._server.hop_stats()
+    spans = timing["span_ms"][SEED_WARMUP_ITERS:]
+    chunk_wait = [sp.get("chunk-wait", 0.0) for sp in spans]
+    timed_iter_ms = timing["iter_ms"][SEED_WARMUP_ITERS - 1:]
+    result = {
+        "phase": "seed", "path": path, "env": env, "env_source": env_source.get(env, "fixture"),
+        "workers": workers, "worker_mode": mode, "transport": trainer.worker_transport,
+        "pipeline": trainer.pipeline_workers, "envs_per_worker": num_envs,
+        "chunk": [trainer.algo.horizon, trainer.chunk_width], "algo": algo, **timing,
+        "serve_ms": hops.get("serve_batch_ms"), "worker_to_server_ms": hops.get("worker_to_server_ms"),
+        "serve_batch_width": m.get("server/serve_batch"), "wire_bytes_per_step": m.get("server/wire_bytes_per_step"),
+        "shm_workers": m.get("server/shm_workers"), "pickle_workers": m.get("server/pickle_workers"),
+        "chunk_wait_ms": chunk_wait, "chunk_wait_share": sum(chunk_wait) / max(sum(timed_iter_ms), 1e-9),
+        "learn_ms": [sp.get("learn") for sp in spans], "h2d_ms": [sp.get("h2d-transfer") for sp in spans],
+        "staleness_updates_behind": m.get("staleness/updates_behind"),
+        "lineage": {k: v for k, v in m.items() if k.startswith("lineage/")},
+        "evicted_chunks": m.get("server/evicted_chunks"), "queue_depth": m.get("server/queue_depth"),
+        "syncs": seed_sync_check(trainer, state, kept[0], max(1, round(m.get("server/serve_batch", 1.0)))),
+    }
+    emit(result)
+    return result
+
+
+def numpy_policy(specs):
+    """A numpy policy for collecting a fixed chunk: actions and the
+    behaviour info (the learner head's keys) from each row's obs."""
+    discrete = specs.discrete
+
+    def act_fn(obs):
+        b = obs.shape[0]
+        s = np.tanh(obs.reshape(b, -1).astype(np.float32).mean(axis=1))
+        if discrete:
+            n = specs.action.n
+            logits = np.stack([s * (k - n / 2) for k in range(n)], axis=1).astype(np.float32)
+            action = np.argmax(logits, axis=1).astype(np.int32)
+            logp = logits[np.arange(b), action] - np.log(np.exp(logits).sum(axis=1))
+            return action, {"logp": logp.astype(np.float32), "logits": logits}
+        dim = specs.action.shape[0]
+        mean = np.tile(0.5 * s[:, None], (1, dim)).astype(np.float32)
+        log_std = np.full((b, dim), -0.5, np.float32)
+        action = (mean + 0.3 * np.sin(np.arange(dim) + 5.0 * s[:, None])).astype(np.float32)
+        z = (action - mean) / np.exp(log_std)
+        logp = (-0.5 * z ** 2 - log_std - 0.5 * np.log(2 * np.pi)).sum(axis=1)
+        return action, {"logp": logp.astype(np.float32), "mean": mean, "log_std": log_std}
+
+    return act_fn
+
+
+def fixed_chunk(M, env: str, num_envs: int, horizon: int) -> dict:
+    """One chunk assembled by the port's server from one pipelined worker
+    thread under ``numpy_policy``."""
+    import threading
+
+    import surreal_tpu_torch.distributed.env_worker as env_worker
+    from surreal_tpu_torch.distributed import InferenceServer
+
+    env_cfg = M.Config(name=env, num_envs=num_envs).extend(M.BASE_ENV_CONFIG)
+    probe = env_worker.make_env(env_cfg)  # the workers' make_env: the fixture where one stands in
+    server = InferenceServer(act_fn=numpy_policy(probe.specs), unroll_length=horizon)
+    probe.close()
+    stop = threading.Event()
+    worker = threading.Thread(target=env_worker.run_env_worker, args=(env_cfg, server.address, 0),
+                              kwargs=dict(stop_event=stop, pipeline=True), daemon=True)
+    worker.start()
+    try:
+        chunk = server.chunks.get(timeout=60)
+    finally:
+        stop.set()
+        server.close()
+        worker.join(timeout=10)
+    chunk.pop("_t_ready")
+    return chunk
+
+
+def phase_seed_parity(M, counters: dict, env_source: dict) -> dict:
+    """One SEED learn on the same fixed chunk on the card and on the CPU
+    (f32, TF32 off), from the same weights: IMPALA on a CartPole chunk
+    [32, 8], and PPO on a cheetah-run chunk [64, 4] (4 x 4, the same epoch
+    permutations) at gae_impl 'xla' and 'assoc'; on the card each learn
+    launches the kernels of ``counters[case]`` as often as it says. Bars of
+    the memoryless parity phases: metrics 1e-4 + 1e-3 relative, the update
+    ratio 5e-2; params SEED_PARAM_ATOL, the learn-level bar."""
+    from surreal_tpu_torch.learners.ppo import _block_layout
+    from surreal_tpu_torch.session.telemetry import Tracer
+
+    out, chunks = {}, {}
+    ppo = dict(name="ppo", horizon=64, epochs=4, num_minibatches=4, precision="f32")
+    cases = [("impala", dict(name="impala", horizon=32, precision="f32"), "gym:CartPole-v1", 16),
+             ("ppo", ppo, "dm_control:cheetah-run", 8),
+             ("ppo_assoc", dict(ppo, gae_impl="assoc"), "dm_control:cheetah-run", 8)]
+    for name, algo, env, num_envs in cases:
+        if env not in chunks:
+            chunks[env] = fixed_chunk(M, env, num_envs, algo["horizon"])
+        chunk = chunks[env]
+        T, B = chunk["reward"].shape
+        draws = {}
+        if algo["name"] == "ppo":
+            gen = torch.Generator().manual_seed(11)
+            bpm = _block_layout(T * B, 4, chunk["obs"].shape[-1] * 4)
+            domain = 4 * bpm if bpm else T * B
+            draws["perms"] = torch.stack([torch.randperm(domain, generator=gen) for _ in range(4)])
+        res, launches = {}, {}
+        for dev in ("cuda", "cpu"):
+            tr = M.SEEDTrainer(seed_config(M, algo, env, 1, num_envs, "thread"), device=dev)
+            state = tr.learner.init(torch.Generator().manual_seed(0))
+            batch = tr._stage(dict(chunk), Tracer(None))[0]
+            learn = lambda: tr._learn(state, batch, None, **{k: v.to(dev) for k, v in draws.items()})  # noqa: E731
+            if dev == "cuda":
+                (new, metrics), launches = count_launches(counters[name], learn)
+            else:
+                new, metrics = learn()
+            res[dev] = ({k: v.float().cpu() for k, v in new.params.items()}, {k: float(v) for k, v in metrics.items()})
+        errs, refs = {}, {}
+        for k, want in res["cpu"][1].items():
+            got = res["cuda"][1][k]
+            rtol = 5e-2 if k == "health/update_ratio" else 1e-3
+            if not ((math.isnan(want) and math.isnan(got)) or abs(got - want) <= 1e-4 + rtol * abs(want)):
+                raise AssertionError(f"seed {name} parity metric {k}: cuda {got} vs cpu {want}")
+            errs[k], refs[k] = abs(got - want), want
+        param_err = max(float((res["cuda"][0][k] - v).abs().max()) for k, v in res["cpu"][0].items())
+        out[name] = {"env": env, "env_source": env_source.get(env, "fixture"), "chunk": [T, B],
+                     "gae_impl": algo.get("gae_impl", "xla") if algo["name"] == "ppo" else None, "launches": launches, "metric_abs_err": errs,
+                     "metric_cpu": refs, "param_max_abs_err": param_err, "param_atol": SEED_PARAM_ATOL}
+        if not param_err <= SEED_PARAM_ATOL:
+            emit({"phase": "parity", "path": "seed_learn", "failed": name, **out[name]})
+            raise AssertionError(f"seed {name} parity params: max abs err {param_err} > {SEED_PARAM_ATOL}")
+    emit({"phase": "parity", "path": "seed_learn", "tf32": False, **out})
+    return out
+
+
+def phase_seed_respawn(M, vtrace, env_source: dict) -> dict:
+    """SEED IMPALA on CartPole with 2 worker processes x 8 envs on shm:
+    worker 0 is terminated after the 4th learn; it is respawned, the run
+    completes its 24 learns, and after ``close`` no slab of this process is
+    left in /dev/shm."""
+    import glob
+
+    from surreal_tpu_torch.distributed.shm_transport import SLAB_PREFIX
+
+    iters = 24
+    trainer = M.SEEDTrainer(seed_config(M, dict(name="impala", horizon=32, precision="mixed"),
+                                        "gym:CartPole-v1", 2, 8, "process"))
+    killed = []
+
+    def on_metrics(iteration, metrics):
+        if iteration >= 4 and not killed:
+            deadline = time.monotonic() + 60  # both workers on their slabs first
+            while trainer._server.transport_stats()["shm_workers"] < 2 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            w = trainer._workers[0]
+            killed.append(w.pid)
+            w.terminate()
+            w.join(timeout=10)
+
+    (_, final), launches = count_launches(
+        {"vtrace": (vtrace, iters)},
+        lambda: trainer.run(max_env_steps=iters * trainer.steps_per_iter, on_metrics=on_metrics))
+    residue = glob.glob(f"/dev/shm/{SLAB_PREFIX}*_{os.getpid()}_*")
+    checks = {
+        "killed": bool(killed), "respawned": final["workers/respawns"] >= 1.0,
+        "new_pid": bool(killed) and trainer._workers[0].pid != killed[0],
+        "completed": final["time/env_steps"] == iters * trainer.steps_per_iter,
+        "shm_workers": final["server/shm_workers"] == 2.0, "no_shm_residue": not residue,
+        "workers_stopped": not any(w.is_alive() for w in trainer._workers),
+    }
+    result = {"phase": "seed", "path": "seed_respawn", "env_source": env_source.get("gym:CartPole-v1", "fixture"),
+              "checks": checks, "respawns": final["workers/respawns"], "launches": launches, "residue": residue}
+    emit(result)
+    if not all(checks.values()):
+        raise AssertionError(f"SEED respawn checks failed: {checks}")
+    return result
+
+
+def seed_cli(M, vtrace, env_source: dict) -> dict:
+    """``train impala gym:CartPole-v1 --workers 2`` through the CLI (64
+    envs, so pipelined chunks [64, 32]) for 3 iterations: V-trace once a
+    learn, finite losses."""
+    folder, T, width = scratch_dir("cli_seed"), 64, 32
+    argv = ["train", "impala", "gym:CartPole-v1", "--folder", folder, "--workers", "2",
+            "--total-steps", str(3 * T * width), "--set", "session_config.metrics.every_n_iters=1",
+            "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+    final, launches = count_launches({"vtrace": (vtrace, 3)}, lambda: run_cli(M, argv))
+    checks = {"steps": final["time/env_steps"] == 3 * T * width,
+              "finite": all(math.isfinite(final[k]) for k in ("loss/pg", "loss/value", "health/grad_norm"))}
+    result = {"phase": "session", "step": "cli_seed", "env_source": env_source.get("gym:CartPole-v1", "fixture"),
+              "checks": checks, "launches": launches, "final": final}
+    emit(result)
+    if not all(checks.values()):
+        raise AssertionError(f"train impala --workers 2 checks failed: {checks}")
+    return result
+
+
+def phase_seed(M, ops_gae, ops_vtrace, RS, env_source: dict) -> dict:
+    """The SEED topology (BASELINE config 5): PPO on cheetah-run over 4
+    worker processes on shm, IMPALA on CartPole over 2 thread workers on
+    the pickle wire, IMPALA with the NatureCNN over 4 worker processes x 64
+    pixel envs on shm; the card-versus-CPU learn on a fixed chunk; a
+    terminated worker respawned; the CLI. Returns each kernel's launches
+    by path."""
+    gae = {"gae": (ops_gae.gae_advantages_masked, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    gae_assoc = {"gae": (ops_gae.gae_advantages_masked, 0), "rev_scan": (RS.reverse_linear_scan, 1)}
+    vtrace = {"vtrace": (ops_vtrace.vtrace_fused, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    parity = phase_seed_parity(M, {"impala": vtrace, "ppo": gae, "ppo_assoc": gae_assoc}, env_source)
+    ppo = phase_seed_train(M, "seed_ppo_cheetah", dict(name="ppo", horizon=CHEETAH_T, epochs=4, num_minibatches=4,
+                                                       precision="mixed"),
+                           "dm_control:cheetah-run", SEED_PPO_WORKERS, SEED_PPO_ENVS, "process", gae, env_source)
+    cartpole = phase_seed_train(M, "seed_impala_cartpole", dict(name="impala", horizon=CARTPOLE_T, precision="mixed"),
+                                "gym:CartPole-v1", SEED_CARTPOLE_WORKERS, SEED_CARTPOLE_ENVS, "thread", vtrace,
+                                env_source)
+    pixels = phase_seed_train(M, "seed_impala_pixels256", dict(name="impala", horizon=SEED_PIXEL_T,
+                                                               precision="mixed"),
+                              PONG_HOST_ENV, SEED_PIXEL_WORKERS, SEED_PIXEL_ENVS, "process", vtrace, env_source,
+                              model=dict(cnn=dict(enabled=True)))
+    respawn = phase_seed_respawn(M, ops_vtrace.vtrace_fused, env_source)
+    cli = seed_cli(M, ops_vtrace.vtrace_fused, env_source)
+    return {
+        "gae": {"seed_learn_parity": parity["ppo"]["launches"]["gae"], "seed_ppo_cheetah": ppo["gae_launches"]},
+        "vtrace": {"seed_learn_parity": parity["impala"]["launches"]["vtrace"],
+                   "seed_impala_cartpole": cartpole["vtrace_launches"],
+                   "seed_impala_pixels256": pixels["vtrace_launches"], "seed_respawn": respawn["launches"]["vtrace"],
+                   "seed_cli": cli["launches"]["vtrace"]},
+        "rev_scan": {"seed_learn_parity_assoc": parity["ppo_assoc"]["launches"]["rev_scan"]},
     }
 
 
@@ -2243,10 +2656,12 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     from surreal_tpu_torch.utils.tree import tree_flatten
 
     from surreal_tpu_torch.envs import make_env
+    from surreal_tpu_torch.launch.seed_trainer import SEEDTrainer
     from surreal_tpu_torch.session.default_configs import BASE_ENV_CONFIG
 
     M = SimpleNamespace(
         Config=Config, base_config=base_config, Trainer=Trainer, OffPolicyTrainer=OffPolicyTrainer, launch=launch,
+        SEEDTrainer=SEEDTrainer,
         SessionHooks=SessionHooks, CheckpointManager=CheckpointManager, iter_jsonl=_iter_jsonl,
         tree_flatten=tree_flatten, make_env=make_env, BASE_ENV_CONFIG=BASE_ENV_CONFIG,
     )
@@ -2293,18 +2708,21 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     phase_session(M, gae_xla, {"replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K)})
     phase_session_trajectory(M, gae_xla, vtrace_xla)
     host = phase_host(M, ops_gae, ops_vtrace, RS, RR)
+    seed = phase_seed(M, ops_gae, ops_vtrace, RS, host["env_source"])
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
     gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
-                               **host["gae"]}
+                               **host["gae"], **seed["gae"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
-                                  "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"]}
+                                  "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
+                                  **seed["vtrace"]}
     gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"]}
     gather["max_abs_err"] = max(gather["max_abs_err"], host["replay_gather_check"]["max_abs_err"])
     scatter["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_scatter_launches"], **host["replay_scatter"]}
     rev_scan["launches_by_path"] = {"ppo_lift_assoc": train_assoc["rev_scan_launches"],
-                                    "impala_pong_assoc": train_impala_assoc["rev_scan_launches"], **host["rev_scan"]}
+                                    "impala_pong_assoc": train_impala_assoc["rev_scan_launches"], **host["rev_scan"],
+                                    **seed["rev_scan"]}
     for k in (gae, vtrace, gather, scatter, rev_scan):
         k["launches"] = sum(k["launches_by_path"].values())
 
@@ -2313,6 +2731,13 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0
 
+
+if __name__ == "__mp_main__" and os.environ.get(FIXTURE_ENV_VAR):
+    # a spawned SEED env worker imports this script as __mp_main__ before
+    # it runs: give its make_env the parent's fixture envs
+    import surreal_tpu_torch.distributed.env_worker as _env_worker
+
+    patch_make_env(set(json.loads(os.environ[FIXTURE_ENV_VAR])), (_env_worker,))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -124,12 +124,23 @@ class SessionHooks:
         self.log = get_logger(name, cfg.folder)
         self.writer = make_metrics_writer(cfg, name=name)
         tel = cfg.get("telemetry", None)
+        # causal tracing and lineage, read as the reference reads them:
+        # telemetry.trace.sample_n head-samples 1 in N worker steps of the
+        # SEED path (0 disables span emission); telemetry.lineage stamps
+        # every SEED transition with its provenance (on by default: the
+        # lineage/* staleness gauges depend on it)
+        trace_cfg = tel.get("trace", None) if tel is not None else None
+        self.trace_sample_n = int(trace_cfg.get("sample_n", 64) if trace_cfg is not None else 64)
+        self.lineage_enabled = bool(tel.get("lineage", True) if tel is not None else True)
         self.tracer = Tracer(
             cfg.folder,
             enabled=bool(tel.enabled) if tel is not None else True,
             name=name,
             max_log_mb=tel.get("max_log_mb", None) if tel is not None else None,
         )
+        # the run-scoped trace id every event carries; spawned env workers
+        # and the inference server inherit it
+        self.trace_id = self.tracer.trace_id
         self.ckpt: CheckpointManager | None = make_checkpoint_manager(cfg, on_event=self.tracer.event)
         pol = getattr(learner, "policy", None)
         self.precision = pol
@@ -318,6 +329,13 @@ class SessionHooks:
                 )
             stop = True
         return m, stop
+
+    def data_plane_event(self, **info) -> None:
+        """Record the SEED data plane's negotiated shape (transport mix,
+        pipeline occupancy, wire bytes a step) as one log line and one
+        ``data_plane`` telemetry event."""
+        self.log.info("data plane: %s", " ".join(f"{k}={v}" for k, v in sorted(info.items())))
+        self.tracer.event("data_plane", **info)
 
     @property
     def interrupted(self) -> bool:

@@ -6,19 +6,22 @@
     python -m surreal_tpu_torch train ddpg jax:lift --folder /tmp/exp2 \\
         --num-envs 256 --set learner_config.algo.n_step=3
     python -m surreal_tpu_torch train ppo dm_control:cheetah-run --folder /tmp/exp3 --num-envs 32
+    python -m surreal_tpu_torch train impala gym:CartPole-v1 --folder /tmp/exp4 --workers 2
 
 It builds the reference's three config trees from the same flags, writes
 ``<folder>/config.json`` (atomically), picks the driver (``OffPolicyTrainer``
-for ddpg, else ``Trainer``), runs it with the session services of
+for ddpg, ``SEEDTrainer`` for a host env with ``--workers N`` env
+workers, else ``Trainer``), runs it with the session services of
 ``launch/hooks.py`` and prints the final metrics as one sorted JSON line.
 
 ``session_config.backend`` keeps the reference's values: 'tpu' (the
 default, "the accelerator") runs on the CUDA card and raises without
 one; 'cpu' runs on the CPU (``--set session_config.backend=cpu``).
 
-Not ported yet, and refused with exit code 2: ``--workers`` (the SEED
-topology), ``--local-procs`` (process groups) and the other subcommands
-(eval, actor, tune, profile, diag, top, trace, why, chaos).
+Refused with exit code 2: ``--workers`` with ddpg or a ``jax:`` env (the
+reference's rule and message), and, not ported yet, ``--local-procs``
+(process groups, with the multi-host SEED trainer) and the other
+subcommands (eval, actor, tune, profile, diag, top, trace, why, chaos).
 """
 
 from __future__ import annotations
@@ -89,19 +92,19 @@ def _validate_seed_topology(config) -> int:
 
 
 def select_trainer(config, device: str = "cuda"):
-    """Map config -> trainer: ddpg -> ``OffPolicyTrainer``, else ``Trainer``
-    (the fused device loop, or the host loops for a host env). A host env
-    with env workers would go to the SEED trainer, which raises."""
+    """Map config -> trainer: ddpg -> ``OffPolicyTrainer``; a host env with
+    env workers -> ``SEEDTrainer`` (the batched inference server and its
+    worker threads or processes); else ``Trainer`` (the fused device loop,
+    or the host loops for a host env)."""
     workers = _validate_seed_topology(config)
     if config.learner_config.algo.name == "ddpg":
         from surreal_tpu_torch.launch.offpolicy_trainer import OffPolicyTrainer
 
         return OffPolicyTrainer(config, device=device)
     if workers > 0:
-        raise NotImplementedError(
-            f"topology.num_env_workers={workers} selects the SEED inference-server topology, "
-            "which is not ported to PyTorch yet"
-        )
+        from surreal_tpu_torch.launch.seed_trainer import SEEDTrainer
+
+        return SEEDTrainer(config, device=device)
     from surreal_tpu_torch.launch.trainer import Trainer
 
     return Trainer(config, device=device)
@@ -111,10 +114,12 @@ def run_train(args) -> int:
     if getattr(args, "local_procs", None):
         print("surreal_tpu_torch: --local-procs (process groups) is not ported to PyTorch yet", file=sys.stderr)
         return 2
-    if getattr(args, "workers", None):
-        print("surreal_tpu_torch: --workers (the SEED topology) is not ported to PyTorch yet", file=sys.stderr)
-        return 2
     config = build_config(args)
+    try:
+        _validate_seed_topology(config)
+    except ValueError as e:
+        print(f"surreal_tpu_torch: {e}", file=sys.stderr)
+        return 2
     device = backend_device(config.session_config.backend)
     folder = config.session_config.folder
     os.makedirs(folder, exist_ok=True)
@@ -146,7 +151,7 @@ def make_parser() -> argparse.ArgumentParser:
     t.add_argument("--num-envs", type=int, default=64)
     t.add_argument("--total-steps", type=int, default=None)
     t.add_argument("--restore-from", default=None, help="foreign session folder to warm-start from")
-    t.add_argument("--workers", type=int, default=None, help="not ported: the SEED topology's env workers")
+    t.add_argument("--workers", type=int, default=None, help="env workers of the SEED topology (a host env, ppo or impala)")
     t.add_argument("--local-procs", type=int, default=None, help="not ported: local multi-process groups")
     t.add_argument("--set", nargs="*", metavar="KEY=VAL", default=[],
                    help="dotlist overrides, e.g. learner_config.algo.horizon=64")

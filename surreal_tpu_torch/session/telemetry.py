@@ -1,7 +1,9 @@
 """Telemetry spine, the port of the core of
-``surreal_tpu/session/telemetry.py``: ``Tracer`` (span accumulators and
-the JSONL event log under ``<folder>/telemetry/events.jsonl``, with
-size-based rotation), ``latency_percentiles`` and ``_iter_jsonl``.
+``surreal_tpu/session/telemetry.py``: ``Tracer`` (span accumulators, the
+JSONL event log under ``<folder>/telemetry/events.jsonl`` with size-based
+rotation, and causal span emission), ``latency_percentiles``,
+``TraceContext``, ``head_sampled``, ``LineageReducer`` and
+``_iter_jsonl``.
 
 Spans are unfenced, as in the reference: a span around a dispatch of
 CUDA work measures the host's time to issue it. Per-window totals still
@@ -14,11 +16,17 @@ phase and are written as one ``phases`` event per ``flush_phases`` call
 Events are one JSON object per line with ``type``, ``t`` (unix seconds),
 ``trace`` (the run's trace id) and ``seq``. The types the port writes:
 ``session``, ``phases``, ``span``, ``metrics``, ``precision``,
-``recovery``, ``fault``, ``engine`` and ``unported`` (the subsystems a
-session's config turns on that the port does not have; see
-``launch/hooks.py``).
+``recovery``, ``fault``, ``engine``, ``data_plane`` and ``hops`` (the
+SEED trainer) and ``unported`` (the subsystems a session's config turns
+on that the port does not have; see ``launch/hooks.py``).
 
-Not ported yet: causal trace contexts and lineage, the heartbeat writer
+Causal spans (the SEED path): the inference server head-samples 1 in
+``telemetry.trace.sample_n`` worker steps (:func:`head_sampled`), emits a
+worker root span and a forward child through :meth:`Tracer.emit_span`,
+and the learn that consumes the chunk closes the tree. The reference's
+``trace.emit`` fault site is not ported.
+
+Not ported yet: the heartbeat writer, the flight recorder's exemplar ring
 and the readers (``diag``, ``trace``, ``top``, ``why``).
 """
 
@@ -49,6 +57,78 @@ def latency_percentiles(samples) -> dict[str, float] | None:
     return {"p50": pct(0.50), "p90": pct(0.90), "p99": pct(0.99), "n": n}
 
 
+class TraceContext:
+    """One head-sampled request's position in its causal span tree: the
+    exemplar id names the tree, ``span_id`` this hop, ``parent_id`` the
+    hop that caused it."""
+
+    __slots__ = ("exemplar", "span_id", "parent_id")
+
+    def __init__(self, exemplar: str, span_id: int, parent_id: int | None = None):
+        self.exemplar = str(exemplar)
+        self.span_id = int(span_id)
+        self.parent_id = None if parent_id is None else int(parent_id)
+
+    def child(self, span_id: int) -> "TraceContext":
+        return TraceContext(self.exemplar, span_id, self.span_id)
+
+
+def head_sampled(counter: int, sample_n: int) -> bool:
+    """The 1-in-N head-sampling rule: the FIRST request of a stream
+    (counter 1) is always an exemplar, then every ``sample_n``-th after
+    it. ``sample_n <= 0`` disables."""
+    if sample_n <= 0:
+        return False
+    return (int(counter) - 1) % int(sample_n) == 0
+
+
+class LineageReducer:
+    """Exact per-update staleness from per-transition lineage stamps: every
+    transition carries the param version that acted it, and the reducer
+    turns one update's version column (host memory, popped before the
+    chunk goes to the card) into the ``lineage/*`` gauges. Percentiles use
+    :func:`latency_percentiles`' index rule over the sorted staleness
+    multiset, walked through the version counts."""
+
+    def __init__(self):
+        self.updates = 0
+        self.last: dict[str, float] = {}
+
+    def reduce(self, current_version: int, versions) -> dict[str, float]:
+        """One update's ``lineage/*`` gauges from its acting-version column
+        (a host int array of any shape); empty when the column is empty."""
+        import numpy as np
+
+        arr = np.asarray(versions).reshape(-1)
+        if arr.size == 0:
+            return {}
+        vals, counts = np.unique(arr.astype(np.int64), return_counts=True)
+        cur = int(current_version)
+        # staleness ascending = current - version with the versions walked
+        # descending; cumulative counts give the element at any exact index
+        stal = [int(cur - v) for v in vals[::-1]]
+        cnts = [int(c) for c in counts[::-1]]
+        n = int(arr.size)
+
+        def pct(p: float) -> int:
+            k = min(n - 1, int(p * (n - 1) + 0.5))
+            seen = 0
+            for st, c in zip(stal, cnts):
+                seen += c
+                if k < seen:
+                    return st
+            return stal[-1]
+
+        self.updates += 1
+        self.last = {
+            "lineage/staleness_p50": float(pct(0.50)),
+            "lineage/staleness_p99": float(pct(0.99)),
+            "lineage/staleness_max": float(stal[-1]),
+            "lineage/versions_per_batch": float(len(stal)),
+        }
+        return dict(self.last)
+
+
 class Tracer:
     """Span tracing and the JSONL event log of one session. A disabled
     tracer (``enabled=False`` or no folder) is a free no-op. Thread-safe:
@@ -68,6 +148,10 @@ class Tracer:
         self.rotations = 0
         self.trace_id = trace_id or uuid.uuid4().hex[:16]
         self._seq = 0
+        # causal spans: a run-unique span-id counter (every emitter is a
+        # thread of this process) and the emitted count
+        self.spans_emitted = 0
+        self._span_ids = 0
         # the last flushed phase window ({name: {count, total_s, max_ms}})
         self.last_window: dict[str, dict] = {}
         if self.enabled:
@@ -136,6 +220,36 @@ class Tracer:
                 st[2] = max(st[2], dur)
             if emit:
                 self.event("span", name=name, dur_s=dur)
+
+    # -- causal spans ----------------------------------------------------------
+    def next_span_id(self) -> int:
+        """A run-unique span id."""
+        with self._lock:
+            self._span_ids += 1
+            return self._span_ids
+
+    def trace_context(self, exemplar: str) -> TraceContext:
+        """A ROOT context for a newly head-sampled request."""
+        return TraceContext(exemplar, self.next_span_id(), None)
+
+    def emit_span(self, name: str, ctx: TraceContext, *, tier: str | None = None,
+                  dur_ms: float | None = None, **fields) -> None:
+        """One causal ``span`` event for hop ``ctx`` of its exemplar tree
+        (callers measure ``dur_ms`` before calling)."""
+        if not self.enabled:
+            return
+        rec = {"name": name, "exemplar": ctx.exemplar, "span": ctx.span_id, "parent": ctx.parent_id, **fields}
+        if tier is not None:
+            rec["tier"] = tier
+        if dur_ms is not None:
+            rec["dur_ms"] = float(dur_ms)
+        with self._lock:
+            self.spans_emitted += 1
+        self.event("span", **rec)
+
+    def trace_gauges(self) -> dict[str, float]:
+        """The ``trace/*`` gauges merged into a metrics row."""
+        return {"trace/spans": float(self.spans_emitted)}
 
     def flush_phases(self, step) -> dict[str, float]:
         """Write one ``phases`` event for the window since the last flush

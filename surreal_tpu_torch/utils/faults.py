@@ -1,7 +1,8 @@
-"""Deterministic fault injection for the trainer sites, the port of the
-trainer part of ``surreal_tpu/utils/faults.py`` (``FaultInjector``,
-``configure_from``, ``fire``, ``drain_fired``, ``sleep_ms``,
-``FaultInjected``, ``poison_state``, ``apply_trainer_fault``).
+"""Deterministic fault injection for the trainer and SEED data-plane
+sites, the port of ``surreal_tpu/utils/faults.py``'s registry
+(``FaultInjector``, ``configure_from``, ``fire``, ``drain_fired``,
+``sleep_ms``, ``corrupt_array``, ``FaultInjected``, ``poison_state``,
+``apply_trainer_fault``).
 
 A plan is a list of specs ``{"site": ..., "kind": ..., "at": K, "times":
 N, ...}``: the fault fires on calls ``K .. K+N-1`` (0-based) to its site,
@@ -16,11 +17,21 @@ port has:
                         ``delay_stage``: sleep ``ms``;
                         ``kill_stage``: raise FaultInjected in the
                         boundary (counted, training goes on)
+    env_worker.step     once per SEED env-worker loop turn
+                        ``kill_worker``: raise FaultInjected (the worker
+                        dies; the trainer respawns it); ``delay``
+    transport.send      once per worker request frame
+                        ``drop_frame``: swallow it (the silence budget
+                        recovers); ``delay_frame``: sleep ``ms``;
+                        ``corrupt_slab``: NaN-stomp the obs payload
+    server.serve        once per inference-server micro-batch
+                        ``delay``: sleep ``ms``
 
 The reference's other sites belong to subsystems the port does not have
-yet (the host data plane, the serving tier, the experience plane, the
-ops plane): a plan entry for one of them raises ``NotImplementedError``
-naming the site. ``session_config.faults.plan`` (a list, or a JSON
+yet (the parameter service, the serving tier, the experience plane, the
+ops plane, causal-span emission): a plan entry for one of them raises
+``NotImplementedError`` naming the site. A spawned env worker starts
+with an empty registry; the SEED trainer forwards the plan to it. ``session_config.faults.plan`` (a list, or a JSON
 string for ``--set``) configures the registry at run start, which also
 resets it. ``SessionHooks`` drains the record of fired faults into
 ``fault`` telemetry events.
@@ -42,11 +53,14 @@ from surreal_tpu_torch.utils.tree import tree_map
 SITE_KINDS: dict[str, frozenset[str]] = {
     "trainer.iteration": frozenset({"sigterm", "nan_state", "delay"}),
     "engine.stage": frozenset({"delay_stage", "kill_stage"}),
+    "env_worker.step": frozenset({"kill_worker", "delay"}),
+    "transport.send": frozenset({"drop_frame", "delay_frame", "corrupt_slab"}),
+    "server.serve": frozenset({"delay"}),
 }
 SITES = frozenset(SITE_KINDS)
 # the reference's sites on paths the port does not have yet
 UNPORTED_SITES = frozenset({
-    "env_worker.step", "transport.send", "server.serve", "param_service.reply", "experience.shard",
+    "param_service.reply", "experience.shard",
     "experience.sample", "experience.send", "experience.spill", "fleet.replica", "param.publish",
     "gateway.session", "ops.push", "trace.emit", "watchdog.eval", "lgroup.member",
 })
@@ -129,6 +143,11 @@ def configure_from(session_config) -> FaultInjector:
     return configure(plan)
 
 
+def get() -> FaultInjector:
+    """The installed registry."""
+    return _injector
+
+
 def fire(site: str) -> dict | None:
     return _injector.fire(site)
 
@@ -139,6 +158,20 @@ def drain_fired() -> list[dict]:
 
 def sleep_ms(spec: dict) -> None:
     time.sleep(float(spec.get("ms", 10.0)) / 1e3)
+
+
+def corrupt_array(arr):
+    """Overwrite a payload array in place with NaN (floating) or the dtype
+    max (integral): the 'corrupt a slab slot' injection. Returns arr."""
+    import numpy as np
+
+    if np.issubdtype(arr.dtype, np.floating):
+        arr[...] = np.nan
+    elif np.issubdtype(arr.dtype, np.integer):
+        arr[...] = np.iinfo(arr.dtype).max
+    else:  # bool payloads: flip everything
+        arr[...] = True
+    return arr
 
 
 def poison_state(state: Any) -> Any:

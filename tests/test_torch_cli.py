@@ -101,7 +101,7 @@ UNPORTED_OPTIONS = {
     "session_config.topology.multihost": {"session_config": {"topology": {"multihost": {"coordinator": "h:1"}}}},
     "env_config.video": {"env_config": {"video": {"enabled": True, "dir": "v"}},
                          "session_config": {"eval": {"every_n_iters": 1}}},
-    "transport.send": {"session_config": {"faults": {"plan": [{"site": "transport.send", "kind": "drop_frame"}]}}},
+    "experience.send": {"session_config": {"faults": {"plan": [{"site": "experience.send", "kind": "drop_frame"}]}}},
 }
 
 

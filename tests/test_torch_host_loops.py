@@ -33,6 +33,7 @@ from surreal_tpu_torch.launch import trainer as trainer_mod
 from surreal_tpu_torch.launch.evaluator import Evaluator
 from surreal_tpu_torch.launch.offpolicy_trainer import OffPolicyTrainer
 from surreal_tpu_torch.launch.rollout import host_rollout
+from surreal_tpu_torch.launch.seed_trainer import SEEDTrainer
 from surreal_tpu_torch.launch.trainer import Trainer
 from surreal_tpu_torch.learners.aggregator import to_device
 from surreal_tpu_torch.main import launch as torch_launch
@@ -485,19 +486,15 @@ def test_train_cli_on_a_host_env(tmp_path, capsys):
 
 
 def test_host_paths_refuse_what_the_port_does_not_carry(tmp_path, monkeypatch, capsys):
-    base = ["train", "ppo", "gym:CartPole-v1", "--folder", str(tmp_path), "--set", "session_config.backend=cpu"]
-    assert torch_launch.main(base + ["--workers", "2"]) == 2
-    assert "SEED" in capsys.readouterr().err
-
     def cfg(algo="ppo", env="gym:CartPole-v1", **over):
         tree = dict(learner_config=dict(algo=dict(name=algo), **over), env_config=dict(name=env, num_envs=2),
                     session_config=dict(folder=str(tmp_path)))
         return Config(tree).extend(base_config())
 
+    # env workers on a host env select the SEED topology (tests/test_torch_seed.py runs it)
     host_seed = cfg()
     host_seed.session_config.topology.num_env_workers = 2
-    with pytest.raises(NotImplementedError, match="SEED"):
-        torch_launch.select_trainer(host_seed, "cpu")
+    assert isinstance(torch_launch.select_trainer(host_seed, "cpu"), SEEDTrainer)
     device_seed = cfg(env="jax:lift")
     device_seed.session_config.topology.num_env_workers = 2
     with pytest.raises(ValueError, match="needs a HOST env"):

@@ -1,5 +1,6 @@
-"""Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
-package, and its entry points never fall back to the CPU on their own."""
+"""Hygiene of the PyTorch port: it imports nothing of JAX, of the JAX
+package or of zmq (its SEED wire is the standard library's sockets), and
+its entry points never fall back to the CPU on their own."""
 
 import ast
 import pathlib
@@ -14,7 +15,7 @@ from surreal_tpu_torch.session.default_configs import base_config
 
 _PKG = pathlib.Path(surreal_tpu_torch.__file__).parent
 _REPO = _PKG.parent
-_BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "surreal_tpu")
+_BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "surreal_tpu", "zmq")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -44,7 +45,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "envs/gym_adapter.py", "envs/dm_control_adapter.py", "envs/robosuite_adapter.py", "envs/wrappers.py",
         "learners/prefetch.py", "envs/device/nut_assembly.py", "envs/device/pixels.py",
     }
-    wanted = session_runtime | trajectory | host
+    seed = {
+        "distributed/__init__.py", "distributed/sockets.py", "distributed/shm_transport.py",
+        "distributed/inference_server.py", "distributed/env_worker.py", "launch/seed_trainer.py",
+        "utils/respawn.py",
+    }
+    wanted = session_runtime | trajectory | host | seed
     assert wanted <= scanned, f"not scanned: {sorted(wanted - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
@@ -52,7 +58,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for line, root in _imported_roots(path)
         if root in _BANNED
     ]
-    assert not bad, "the port must not import JAX or the JAX package:\n" + "\n".join(bad)
+    assert not bad, "the port must not import JAX, the JAX package or zmq:\n" + "\n".join(bad)
 
 
 def _tiny_config():

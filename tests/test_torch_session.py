@@ -226,8 +226,8 @@ def test_fault_plans_match_jax(plan):
         return fired, mod.drain_fired(), inj.counts()
 
     assert record(torch_faults, Config) == record(jax_faults, JaxConfig)
-    with pytest.raises(NotImplementedError, match="transport.send"):
-        torch_faults.configure([{"site": "transport.send", "kind": "drop_frame"}])
+    with pytest.raises(NotImplementedError, match="experience.send"):
+        torch_faults.configure([{"site": "experience.send", "kind": "drop_frame"}])
 
 
 # -- checkpoints --------------------------------------------------------------
