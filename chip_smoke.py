@@ -18,8 +18,9 @@ prioritized replay on gym:Pendulum-v1 through its host loop), PPO with
 the NatureCNN on the NutAssembly pixel env jax:nut_pixels, and the SEED
 topology (env workers, threads or spawned processes, feeding one batched
 inference server: PPO on cheetah-run, IMPALA on CartPole and on 256
-pixel envs). Five kernels are built and checked. Phases, each printing
-one JSON line:
+pixel envs), and the profiling and cost accounting of a session (the
+profiler captures, the perf gauges, the diag and trace readers). Five
+kernels are built and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
 2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
@@ -130,7 +131,27 @@ one JSON line:
              host syncs (one a serve, none in a learn) and the same learn
              timed with the data plane stopped; a worker process terminated
              mid-run and respawned, with no slab left in /dev/shm; and
-             ``train impala gym:CartPole-v1 --workers 2`` for 3 iterations.
+             ``train impala gym:CartPole-v1 --workers 2`` for 3 iterations;
+9. profile - profiling and cost accounting: ``train ppo jax:lift`` at the
+             north-star geometry with the ``session.profiler`` window
+             (iterations 4-5 captured), then a second session resumed in
+             the same folder while another process runs ``python -m
+             surreal_tpu_torch profile <folder>``; for each capture, from
+             its Chrome trace, the window's wall time, the device busy
+             share (the union of the CUDA kernel intervals), the GAE
+             kernel's launches (one a learn of the window) and the eight
+             kernels with the most time, and how much longer a profiled
+             iteration took; ``diag <folder>`` listing the program costs
+             and both captures; ``perf/mfu`` in (0, 1.05] and
+             ``perf/flops_per_s`` within 10% of the counted FLOPs over
+             fenced iteration times; the card's ``program_cost`` FLOPs,
+             bytes and kernel entries equal to the CPU's for one config
+             at 256 x 32 (PPO at 'xla' and 'assoc', IMPALA, prioritized
+             DDPG); ``train impala gym:CartPole-v1 --workers 2`` with every
+             worker step head-sampled, then ``trace <folder>``: span
+             trees, none torn. (The session phase's set_sync_debug_mode
+             iteration runs with the cost counting and the profile
+             trigger on, their defaults.)
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -2624,6 +2645,251 @@ def phase_seed(M, ops_gae, ops_vtrace, RS, env_source: dict) -> dict:
     }
 
 
+# -- profiling and cost accounting -------------------------------------------
+
+# run A: iterations 1-8 with the session.profiler window at iteration 3 for
+# 2 (it captures iterations 4 and 5); run B: iterations 9-18 in the same
+# folder, resumed, profiled through the `profile` subcommand
+PROFILE_ITERS, PROFILE_START, PROFILE_WINDOW, PROFILE_RESUMED_ITERS = 8, 3, 2, 10
+PROFILE_GAUGE_ITERS = (6, 7, 8)  # run A's iterations after the window, timed against the gauges
+COUNT_B, COUNT_T = 256, 32       # the geometry of the card-versus-CPU counts
+TOP_KERNELS = 8
+
+
+def north_star_argv(folder: str, iters: int, *sets: str) -> list[str]:
+    """``train ppo jax:lift`` at the north-star geometry, metrics every
+    iteration, no periodic checkpoint or eval (the run-end checkpoint is
+    saved, so a second session resumes)."""
+    return ["train", "ppo", "jax:lift", "--folder", folder, "--num-envs", str(MAIN_B),
+            "--total-steps", str(iters * MAIN_B * MAIN_T), "--set",
+            f"learner_config.algo.horizon={MAIN_T}", "learner_config.algo.epochs=4",
+            "learner_config.algo.num_minibatches=4", "learner_config.algo.precision=mixed",
+            "session_config.metrics.every_n_iters=1", "session_config.checkpoint.every_n_iters=1000",
+            "session_config.eval.every_n_iters=0", "session_config.metrics.console=false",
+            "session_config.metrics.tensorboard=false", *sets]
+
+
+def capture_summary(trace_path: str, kernel_name: str) -> dict:
+    """One Chrome trace of ``session/profile.py``: the capture's wall time
+    (first event to last), the device busy share (the union of the CUDA
+    kernel intervals over that time), the launches of ``kernel_name`` and
+    the kernels with the most time."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    busy, end = 0.0, t0
+    for e in kernels:
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+            end = b
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        s = by_name.setdefault(e["name"], [0, 0.0])
+        s[0] += 1
+        s[1] += e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    return {
+        "wall_ms": (t1 - t0) / 1e3, "kernel_busy_ms": busy / 1e3, "busy_share": busy / (t1 - t0),
+        "kernel_launches": len(kernels),
+        "memcpy_memset_ms": sum(e["dur"] for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")) / 1e3,
+        f"{kernel_name}_launches": sum(n for name, (n, _) in by_name.items() if kernel_name in name),
+        "top_kernels": [{"name": name[:100], "launches": n, "ms": us / 1e3} for name, (n, us) in top],
+    }
+
+
+def stamped_cli(M, argv: list[str], stamps: dict) -> dict:
+    """``run_cli`` with the host clock read after each metrics boundary
+    (every iteration here): each boundary ends in the metrics read, a
+    fence, so the gaps are fenced iteration times."""
+    def stamp_end(orig):
+        def end_iteration(self, iteration, *a, **kw):
+            out = orig(self, iteration, *a, **kw)
+            if out[0] is not None:
+                stamps[iteration] = time.perf_counter()
+            return out
+        return end_iteration
+
+    with Patched(M.SessionHooks, "end_iteration", stamp_end):
+        return run_cli(M, argv)
+
+
+def profile_sessions(M, gae) -> dict:
+    """(a)-(d): run A with the profiler window, run B resumed in the same
+    folder with ``profile <folder>`` written from another process while it
+    runs; each capture summarised; ``diag`` of the folder; the perf gauges
+    against fenced iteration times."""
+    folder = scratch_dir("profile")
+    stamps: dict[int, float] = {}
+    argv_a = north_star_argv(folder, PROFILE_ITERS, "session_config.profiler.enabled=true",
+                             f"session_config.profiler.start_iter={PROFILE_START}",
+                             f"session_config.profiler.num_iters={PROFILE_WINDOW}")
+    started = {"a": time.perf_counter()}
+    _, launches_a = count_launches({"gae": (gae, PROFILE_ITERS)}, lambda: stamped_cli(M, argv_a, stamps))
+    total = PROFILE_ITERS + PROFILE_RESUMED_ITERS
+    argv_b = north_star_argv(folder, total)
+    # the user's other shell: the profile subcommand, started with run B
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "surreal_tpu_torch", "profile", folder, "--iters", str(PROFILE_WINDOW)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    started["b"] = time.perf_counter()
+    try:
+        _, launches_b = count_launches({"gae": (gae, PROFILE_RESUMED_ITERS)}, lambda: stamped_cli(M, argv_b, stamps))
+    finally:
+        cli_out, cli_err = cli.communicate(timeout=120)
+    if cli.returncode != 0 or "profile trigger written" not in cli_out:
+        raise AssertionError(f"profile subcommand rc {cli.returncode}: {cli_out} {cli_err}")
+
+    events = session_events(folder, M.iter_jsonl)
+    profiles = [e for e in events if e["type"] == "profile"]
+    if any("error" in p for p in profiles):
+        raise AssertionError(f"a profile capture failed: {profiles}")
+    reasons = [p["reason"] for p in profiles]
+    if reasons != ["profiler_knob", "trigger_file"]:
+        raise AssertionError(f"profile captures {reasons}, expected the window and the trigger file's")
+    unprofiled = [(stamps[i] - stamps[i - 1]) * 1e3 for i in PROFILE_GAUGE_ITERS]
+    captures = []
+    for p in profiles:
+        learns = p["end_iter"] - p["start_iter"]
+        summary = capture_summary(os.path.join(p["dir"], "trace.json"), "gae_masked_kernel")
+        if summary["gae_masked_kernel_launches"] != learns:
+            raise AssertionError(f"capture {p['reason']}: {summary['gae_masked_kernel_launches']} GAE launches in "
+                                 f"{learns} learns")
+        # the last boundary's gap also holds stopping the profiler and
+        # writing the trace
+        inside = [(stamps[i] - stamps[i - 1]) * 1e3 for i in range(p["start_iter"] + 1, p["end_iter"] + 1)]
+        per_iter = summary["wall_ms"] / learns
+        captures.append({
+            "reason": p["reason"], "start_iter": p["start_iter"], "end_iter": p["end_iter"], "learns": learns,
+            "profiled_iteration_ms": inside, "window_ms_per_iteration": per_iter,
+            "slowdown_in_window": per_iter / statistics.median(unprofiled),
+            "kernel_ms_per_iteration": summary["kernel_busy_ms"] / learns,
+            # the kernels' time is the card's, which the profiler's host
+            # records do not lengthen: over the unprofiled iterations
+            "busy_share_unprofiled": summary["kernel_busy_ms"] / learns / statistics.median(unprofiled),
+            "trace_mb": os.path.getsize(os.path.join(p["dir"], "trace.json")) / 1e6, **summary,
+        })
+
+    # (c) diag of the folder: the program costs and both captures
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = M.launch.main(["diag", folder])
+    report = out.getvalue()
+    perf = report[report.index("Performance"):] if "Performance" in report else ""
+    if rc != 0 or "train_iter" not in perf or not all(p["dir"] in perf for p in profiles):
+        raise AssertionError(f"diag rc {rc}; its Performance section lacks the program or a capture:\n{report}")
+
+    # (d) the gauges against fenced iteration times, run A after the window
+    (cost_a, *_) = [e for e in events if e["type"] == "program_cost" and e["name"] == "train_iter"]
+    rows = {e["step"] // (MAIN_B * MAIN_T): e["values"] for e in events if e["type"] == "metrics"}
+    fenced_s = [stamps[i] - stamps[i - 1] for i in PROFILE_GAUGE_ITERS]
+    gauge_s = [cost_a["flops"] / rows[i]["perf/flops_per_s"] for i in PROFILE_GAUGE_ITERS]
+    measured = cost_a["flops"] * len(fenced_s) / sum(fenced_s)
+    gauged = cost_a["flops"] * len(gauge_s) / sum(gauge_s)
+    mfu = [rows[i]["perf/mfu"] for i in sorted(rows)]
+    result = {
+        "phase": "profile", "step": "north_star", "folder_iterations": total, "gae_launches": launches_a["gae"] +
+        launches_b["gae"], "captures": captures, "profile_cli": cli_out.strip().splitlines()[0],
+        "program_cost": {k: cost_a[k] for k in ("flops", "bytes_accessed", "transcendentals", "arithmetic_intensity",
+                                                 "kernels", "device_kind", "peak_flops", "peak_membw")},
+        "perf_flops_per_s": gauged, "fenced_flops_per_s": measured, "gauge_over_fenced": gauged / measured,
+        "perf_mfu": mfu, "perf_membw_util": [rows[i]["perf/membw_util"] for i in sorted(rows)],
+        "iteration_ms_unprofiled": unprofiled,
+        # from the CLI call to the first boundary: building the session and
+        # the counted first iteration
+        "first_iteration_ms": [(stamps[1] - started["a"]) * 1e3,
+                               (stamps[PROFILE_ITERS + 1] - started["b"]) * 1e3],
+        "diag_rc": rc,
+    }
+    emit(result)
+    if not all(0.0 < m <= 1.05 for m in mfu):
+        raise AssertionError(f"perf/mfu out of (0, 1.05]: {mfu}")
+    if abs(gauged / measured - 1.0) > 0.10:
+        raise AssertionError(f"perf/flops_per_s {gauged:.4g} vs fenced {measured:.4g}: more than 10% apart")
+    return result
+
+
+def counted_costs(M, config, device: str, iters: int) -> dict:
+    """The ``program_cost`` record of a short session of ``config`` on
+    ``device``."""
+    trainer = (M.OffPolicyTrainer if config.learner_config.algo.name == "ddpg" else M.Trainer)(config, device=device)
+    trainer.run(max_env_steps=iters * trainer.steps_per_iter)
+    (rec,) = [e for e in session_events(config.session_config.folder, M.iter_jsonl)
+              if e["type"] == "program_cost" and e["name"] == "train_iter"]
+    return rec
+
+
+def profile_counts(M) -> dict:
+    """(e): the card's program costs equal the CPU's for one config, at
+    256 x 32: PPO at 'xla' and 'assoc', IMPALA (NatureCNN on jax:pong),
+    prioritized DDPG (its second iteration, the first to update)."""
+    def ppo(gae_impl):
+        return lambda: M.Config(
+            learner_config=M.Config(algo=M.Config(name="ppo", horizon=COUNT_T, epochs=4, num_minibatches=4,
+                                                  precision="mixed", gae_impl=gae_impl)),
+            env_config=M.Config(name="jax:lift", num_envs=COUNT_B),
+            session_config=timed_session(M.Config),
+        ).extend(M.base_config())
+
+    configs = {
+        "ppo_xla": (ppo("xla"), 1),
+        "ppo_assoc": (ppo("assoc"), 1),
+        "impala": (lambda: pong_config(M.Config, M.base_config, COUNT_B, COUNT_T, "mixed", {}), 1),
+        "ddpg_prioritized": (lambda: ddpg_config(M.Config, M.base_config, COUNT_B, COUNT_T, DDPG_K, DDPG_BS,
+                                                 DDPG_CAPACITY, "prioritized", "mixed"), 2),
+    }
+    keys = ("flops", "bytes_accessed", "transcendentals", "kernels")
+    out = {}
+    for name, (make, iters) in configs.items():
+        card, cpu = counted_costs(M, make(), "cuda", iters), counted_costs(M, make(), "cpu", iters)
+        out[name] = {"card": {k: card[k] for k in keys}, "cpu_equal": {k: card[k] == cpu[k] for k in keys},
+                     "ops": [card["ops"], cpu["ops"]]}
+        if not all(out[name]["cpu_equal"].values()):
+            raise AssertionError(f"{name}: card and CPU counts differ: card {card} cpu {cpu}")
+    emit({"phase": "profile", "step": "counts_card_vs_cpu", "shape": [COUNT_T, COUNT_B], "programs": out})
+    return out
+
+
+def profile_trace(M, env_source: dict) -> dict:
+    """(f): ``train impala gym:CartPole-v1 --workers 2`` with every worker
+    step head-sampled, then ``trace <folder>``: span trees, none torn."""
+    folder = scratch_dir("trace")
+    T, width = 64, 32  # seed_cli's chunks: 64 envs over 2 pipelined workers, the impala horizon
+    argv = ["train", "impala", "gym:CartPole-v1", "--folder", folder, "--workers", "2",
+            "--total-steps", str(2 * T * width), "--set", "session_config.telemetry.trace.sample_n=1",
+            "session_config.metrics.every_n_iters=1", "session_config.metrics.console=false",
+            "session_config.metrics.tensorboard=false"]
+    run_cli(M, argv)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = M.launch.main(["trace", folder])
+    report = out.getvalue()
+    trees = sum(1 for line in report.splitlines() if line.startswith("exemplar "))
+    events = session_events(folder, M.iter_jsonl)
+    programs = sorted(e["name"] for e in events if e["type"] == "program_cost")
+    result = {"phase": "profile", "step": "trace", "env_source": env_source.get("gym:CartPole-v1", "fixture"),
+              "trace_rc": rc, "exemplar_trees": trees, "missing_parents": report.count("MISSING"),
+              "programs": programs, "first_tree": report.split("\n\n")[1].splitlines()[:6] if trees else []}
+    emit(result)
+    if rc != 0 or trees < 1 or "MISSING" in report or programs != ["act", "learn"]:
+        raise AssertionError(f"trace checks failed: rc {rc}, {trees} trees, programs {programs}:\n{report[:2000]}")
+    return result
+
+
+def phase_profile(M, gae, env_source: dict) -> dict:
+    """Profiling and cost accounting: (a)-(d) on the north-star sessions,
+    (e) the counts on the card against the CPU, (f) a SEED trace. The
+    session phase's set_sync_debug_mode("error") iteration ran with perf
+    and the profile trigger on, their defaults (g)."""
+    sessions = profile_sessions(M, gae)
+    counts = profile_counts(M)
+    trace = profile_trace(M, env_source)
+    return {"gae_launches": sessions["gae_launches"], "sessions": sessions, "counts": counts, "trace": trace}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -2709,11 +2975,12 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     phase_session_trajectory(M, gae_xla, vtrace_xla)
     host = phase_host(M, ops_gae, ops_vtrace, RS, RR)
     seed = phase_seed(M, ops_gae, ops_vtrace, RS, host["env_source"])
+    profile = phase_profile(M, ops_gae.gae_advantages_masked, host["env_source"])
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
     gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
-                               **host["gae"], **seed["gae"]}
+                               **host["gae"], **seed["gae"], "profile_ppo_lift": profile["gae_launches"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
                                   "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
                                   **seed["vtrace"]}

@@ -17,12 +17,19 @@ window's device scalars and copies them back once, at the metrics
 cadence only. Between cadences neither the hooks nor the engine read
 anything from the card.
 
+Cost accounting and profiling, as the reference's: the trainers route
+their hot programs through :meth:`SessionHooks.count_program` (the first
+call is counted, ``session/costs.py``), and the ``perf/*`` gauges ride
+the metrics cadence, pure host arithmetic over the window's phases;
+``session/profile.py``'s ``ProfileManager`` (the ``session.profiler``
+window, the trigger file of the ``profile`` subcommand, the
+slow-iteration trigger) ticks at every iteration boundary.
+
 The session options the port does not carry raise ``NotImplementedError``
 naming the key (see :func:`check_session_options`). The subsystems the
 reference builds by default and the port does not have yet (the ops
-plane with its SLOs, the watchdog with incidents and remediation, the
-``perf`` cost gauges, the profile trigger file) are not built:
-``begin_run`` lists those the config turns on in one ``unported``
+plane with its SLOs, the watchdog with incidents and remediation) are not
+built: ``begin_run`` lists those the config turns on in one ``unported``
 telemetry event, and the log says so once.
 """
 
@@ -36,8 +43,10 @@ import torch
 from surreal_tpu_torch.launch.recovery import RecoveryManager
 from surreal_tpu_torch.session.checkpoint import CheckpointManager, make_checkpoint_manager
 from surreal_tpu_torch.session.config import Config
+from surreal_tpu_torch.session.costs import CostAccountant
 from surreal_tpu_torch.session.interrupt import InterruptSentinel
 from surreal_tpu_torch.session.metrics import get_logger, make_metrics_writer
+from surreal_tpu_torch.session.profile import ProfileManager
 from surreal_tpu_torch.session.telemetry import Tracer
 from surreal_tpu_torch.session.tracker import PeriodicTracker
 from surreal_tpu_torch.utils import faults
@@ -53,8 +62,6 @@ UNPORTED_SUBSYSTEMS = {
                  "event_types": ["incident_open", "incident_update", "incident_close"]},
     "remediate": {"switch": "remediate.enabled", "metric_prefixes": ["remediation/"],
                   "event_types": ["remediation", "remediation_verdict"]},
-    "perf": {"switch": "perf.enabled", "metric_prefixes": ["perf/"], "event_types": ["program_cost"]},
-    "profile.trigger_file": {"switch": "profile.trigger_file", "metric_prefixes": [], "event_types": ["profile"]},
 }
 
 
@@ -81,10 +88,6 @@ def check_session_options(config, learner=None) -> None:
 
     if _switch_on(cfg, "publish.enabled"):
         refuse("session_config.publish.enabled", "live parameter publishing")
-    if _switch_on(cfg, "profiler.enabled"):
-        refuse("session_config.profiler.enabled", "the profiler window")
-    if cfg.get("profile", None) is not None and cfg.profile.get("slow_iter_factor", None) is not None:
-        refuse("session_config.profile.slow_iter_factor", "the slow-iteration profile trigger")
     if cfg.get("compile_cache_dir", None):
         refuse("session_config.compile_cache_dir", "the persistent compile cache")
     topo = cfg.get("topology", None)
@@ -141,8 +144,14 @@ class SessionHooks:
         # the run-scoped trace id every event carries; spawned env workers
         # and the inference server inherit it
         self.trace_id = self.tracer.trace_id
-        self.ckpt: CheckpointManager | None = make_checkpoint_manager(cfg, on_event=self.tracer.event)
+        # cost accounting (session/costs.py): trainers route their hot
+        # programs through count_program; the perf/* gauges ride the
+        # metrics cadence in end_iteration. The precision policy stamps
+        # every program_cost record.
+        device = getattr(learner, "device", None)
         pol = getattr(learner, "policy", None)
+        self.costs = CostAccountant(cfg, on_event=self.tracer.event, log=self.log, policy=pol, device=device)
+        self.ckpt: CheckpointManager | None = make_checkpoint_manager(cfg, on_event=self.tracer.event)
         self.precision = pol
         self._precision_meta = pol.meta() if pol is not None else None
         self._ckpt_every = PeriodicTracker(max(1, cfg.checkpoint.every_n_iters))
@@ -163,6 +172,10 @@ class SessionHooks:
             self._eval_every = PeriodicTracker(ev.every_n_iters)
         if self.ckpt is not None:
             self.ckpt.best_key = "eval/return" if self.evaluator else "episode/return"
+        # on-demand profiling (session/profile.py): the profiler window,
+        # trigger-file captures and the slow-iteration trigger, all behind
+        # one boundary tick
+        self.profile = ProfileManager(cfg, cfg.folder, self.tracer, self.log, device=device)
         self._unported = unported_subsystems(cfg)
         self._last_eval: dict[str, float] = {}
         self._last_train: dict[str, float] = {}
@@ -297,6 +310,9 @@ class SessionHooks:
             # the window's spans as time/* scalars, after eval so its span
             # lands in this row
             m.update(self.tracer.flush_phases(env_steps))
+            # perf/* over the same window: host arithmetic on the flushed
+            # phase times and the counted programs, no device read
+            m.update(self.costs.gauges(self.tracer.last_window))
             self._last_train = m
         if m or evaled:
             self.writer.write(env_steps, {**(m or {}), **evaled})
@@ -311,6 +327,7 @@ class SessionHooks:
                     self.ckpt.save(iteration, resolve_state(), env_steps=env_steps, metrics=self.last_metrics)
                     if self.extra_state_fn is not None:
                         self.ckpt.save_extra(iteration, self.extra_state_fn())
+        self.profile.tick(iteration)
         for ev in faults.drain_fired():
             self.tracer.event("fault", **ev)
         stop = m is not None and on_metrics is not None and bool(on_metrics(iteration, m))
@@ -329,6 +346,16 @@ class SessionHooks:
                 )
             stop = True
         return m, stop
+
+    def count_program(self, name: str, fn, *args, phase: str | None = None, calls_per_phase: int = 1, **kwargs):
+        """``fn(*args, **kwargs)``, its first call under ``name`` counted by
+        the cost accountant (one ``program_cost`` event; the port's
+        counterpart of the reference's ``record_program_costs``, which
+        lowers the program instead of running it). ``phase`` names the
+        tracer phase whose window times the program (None: recorded for
+        diag, kept out of the gauges); ``calls_per_phase`` how often it runs
+        in one span of that phase."""
+        return self.costs.count_program(name, fn, *args, phase=phase, calls_per_phase=calls_per_phase, **kwargs)
 
     def data_plane_event(self, **info) -> None:
         """Record the SEED data plane's negotiated shape (transport mix,
@@ -367,6 +394,7 @@ class SessionHooks:
             self.evaluator.close()  # a host evaluator's own env instance
         for ev in faults.drain_fired():  # faults since the last boundary
             self.tracer.event("fault", **ev)
+        self.profile.close()  # stop and record a capture cut short by the end
         self.writer.close()
         self.tracer.close()
         # detach this session's file log handler, so its fd into

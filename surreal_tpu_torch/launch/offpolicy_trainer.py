@@ -50,6 +50,7 @@ the dp mesh and the autotuner.
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 from typing import Any, Callable, NamedTuple
 
@@ -399,11 +400,18 @@ class OffPolicyTrainer:
                 hooks.extra_state_fn = lambda: {"replay": ls.extras["replay"]}
 
             def step(ls):
+                # the counted call is the first that runs the update loop
+                # (one the replay can already sample from, past warm-up):
+                # the steady-state iteration the gauges stand for
+                warmup = ls.env_steps < self.algo.exploration.warmup_steps
+                train_iter = self._device_train_iter
+                if not warmup and self.replay.can_sample(ls.extras["replay"]):
+                    train_iter = functools.partial(hooks.count_program, "train_iter", train_iter, phase="train_iter")
                 with hooks.tracer.span("train_iter"):
-                    ls.state, ls.extras["replay"], ls.extras["carry"], metrics = self._device_train_iter(
+                    ls.state, ls.extras["replay"], ls.extras["carry"], metrics = train_iter(
                         ls.state, ls.extras["replay"], ls.extras["carry"],
                         beta=self._beta(ls.env_steps, total),
-                        warmup=ls.env_steps < self.algo.exploration.warmup_steps,
+                        warmup=warmup,
                         first=ls.extras["first_call"],
                         generator=ls.key,
                     )
@@ -569,14 +577,19 @@ class OffPolicyTrainer:
         generator: torch.Generator | None = None,
         sample_draws: torch.Tensor | None = None,
         tracer=None,
+        hooks=None,
     ):
         """The host path's learner side of one iteration, on a trajectory
         already on the card: ``_fold_insert``, then, once the replay can sample,
         ``updates_per_iter`` sample -> learn -> priority-refresh steps
         (``sample_draws`` [K, bs]: uniform indices or prioritized
         uniforms). Metrics are the last update's, as in the reference.
+        With ``hooks``, the learn goes through its cost counting.
         Returns (state, replay_state, tail, metrics)."""
         span = (tracer or Tracer(None)).span  # a disabled tracer is a no-op
+        learn = self.learner.learn
+        if hooks is not None:
+            learn = functools.partial(hooks.count_program, "learn", learn, phase="learn")
         with span("replay-insert"):
             state, replay_state, tail = self._fold_insert(state, replay_state, tail, traj, first)
         metrics: dict = {}
@@ -592,7 +605,7 @@ class OffPolicyTrainer:
                     else:
                         replay_state, batch, info = self.replay.sample(replay_state, generator, idx=draws)
                 with span("learn"):
-                    state, metrics = self.learner.learn(state, batch)
+                    state, metrics = learn(state, batch)
                 td_abs = metrics.pop("priority/td_abs")
                 if self.prioritized:
                     replay_state = self.replay.update_priorities(replay_state, info["idx"], td_abs)
@@ -660,7 +673,7 @@ class OffPolicyTrainer:
             recent_returns.extend(ep_returns)
             ls.state, ls.extras["replay"], ls.extras["tail"], metrics = self._host_update(
                 ls.state, ls.extras["replay"], ls.extras["tail"], traj, ls.extras["first_chunk"],
-                self._beta(ls.env_steps, total), ls.key, tracer=hooks.tracer,
+                self._beta(ls.env_steps, total), ls.key, tracer=hooks.tracer, hooks=hooks,
             )
             ls.extras["first_chunk"] = False
             # publish the acting state and the consumed-step count to the

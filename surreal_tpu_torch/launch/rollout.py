@@ -142,22 +142,26 @@ def host_rollout(
     horizon: int,
     generator: torch.Generator | None = None,
     action_noise: torch.Tensor | None = None,
+    act=None,
 ):
     """Collect ``horizon`` steps from a batched host env through
     ``learner.act`` on the learner's device (one inference per step for
-    ALL envs). ``action_noise`` [T, B, ...] replaces the action draws.
+    ALL envs). ``action_noise`` [T, B, ...] replaces the action draws;
+    ``act``, where given, is called in place of ``learner.act`` (the
+    session's cost counting wraps it).
 
     Returns (last_obs, batch on the learner's device, episode stats): the
     batch has the learner batch contract, every leaf [T, B, ...]; the
     stats hold the returns and lengths of the episodes that finished.
     """
     device = learner.device
+    act = act or learner.act
     steps = []
     ep_returns: list[float] = []
     ep_lengths: list[int] = []
     for t in range(horizon):
         obs_t = torch.from_numpy(np.ascontiguousarray(obs)).to(device, non_blocking=True)
-        action, info = learner.act(
+        action, info = act(
             state, obs_t, TRAINING, generator, noise=None if action_noise is None else action_noise[t]
         )
         action_np = action.cpu().numpy()  # the step's one device->host read

@@ -41,6 +41,7 @@ with the reference's messages.
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -348,17 +349,23 @@ class SEEDTrainer:
             respawn_backoff_cap_s=float(topo.get("respawn_backoff_cap_s", 30.0)),
         )
 
-    def _make_act_fn(self, actor, state, generator: torch.Generator):
+    def _make_act_fn(self, actor, state, generator: torch.Generator, hooks=None):
         """The server's act function over ``state`` (a snapshot: the
         learns are out of place). The reference pads each micro-batch to a
         power of two only to bound XLA compiles; the port compiles nothing
-        and acts on the ``n`` rows it has."""
+        and acts on the ``n`` rows it has. With ``hooks``, the act goes
+        through its cost counting as the 'act' program with no phase (it
+        serves on its own thread: recorded for diag, kept out of the
+        gauges)."""
         device = self.device
+        act = actor.act
+        if hooks is not None:
+            act = functools.partial(hooks.count_program, "act", act, phase=None)
 
         @torch.no_grad()
         def act_fn(obs_np: np.ndarray):
             obs = torch.from_numpy(np.ascontiguousarray(obs_np)).to(device, non_blocking=True)
-            action, info = actor.act(state, obs, TRAINING, generator)
+            action, info = act(state, obs, TRAINING, generator)
             return read_back(action, info)
 
         return act_fn
@@ -404,7 +411,9 @@ class SEEDTrainer:
             act_gen = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, 1))
             # the first chunk waits out a full unroll of round trips and the
             # first forwards; workers keep their own per-step liveness budget
-            plane = self._start_data_plane(self._make_act_fn(actor, state, act_gen), stop, first_chunk_timeout=600.0)
+            plane = self._start_data_plane(
+                self._make_act_fn(actor, state, act_gen, hooks), stop, first_chunk_timeout=600.0
+            )
             server = self._server = plane.server
             self._workers = plane.workers  # exposed for tests and fault injection
             prefetch = Prefetcher(lambda: self._stage(plane.next_chunk(), hooks.tracer), name="seed-stage")
@@ -465,7 +474,7 @@ class SEEDTrainer:
                     return Outcome(metrics=None, hook_key=None, steps=n_steps, skip_boundary=True)
                 t_learn0 = time.perf_counter()
                 with hooks.tracer.span("learn"):
-                    ls.state, metrics = self._learn(ls.state, batch, ls.key)
+                    ls.state, metrics = hooks.count_program("learn", self._learn, ls.state, batch, ls.key, phase="learn")
                 learn_ms.append((time.perf_counter() - t_learn0) * 1e3)
                 if exemplar is not None:
                     # the adopted exemplar's last hop: this learn consumed
@@ -476,7 +485,7 @@ class SEEDTrainer:
                         tier="learner", dur_ms=learn_ms[-1], version=int(server.version),
                     )
                 with hooks.tracer.span("param-publish"):
-                    server.set_act_fn(self._make_act_fn(actor, ls.state, act_gen))
+                    server.set_act_fn(self._make_act_fn(actor, ls.state, act_gen, hooks))
                 plane.supervise()
                 if not dp_event_emitted:
                     # the negotiated data-plane shape, once the fleet settled
@@ -512,7 +521,7 @@ class SEEDTrainer:
                 # the live act function acts on the poisoned state: re-arm
                 # it from the restored one now, and drop what the versions
                 # before this one acted
-                server.set_act_fn(self._make_act_fn(actor, ls.state, act_gen))
+                server.set_act_fn(self._make_act_fn(actor, ls.state, act_gen, hooks))
                 acting_floor = server.version
 
             engine = LoopEngine(

@@ -35,6 +35,7 @@ yet: the dp/sp meshes (an sp mesh over a trajectory policy raises at
 
 from __future__ import annotations
 
+import functools
 import queue as queue_mod
 import threading
 from collections import deque
@@ -179,8 +180,9 @@ class Trainer:
         def step(ls):
             # unfenced span: the time to issue the iteration
             with hooks.tracer.span("train_iter"):
-                ls.state, ls.extras["carry"], metrics = self._device_train_iter(
-                    ls.state, ls.extras["carry"], ls.key
+                ls.state, ls.extras["carry"], metrics = hooks.count_program(
+                    "train_iter", self._device_train_iter, ls.state, ls.extras["carry"], ls.key,
+                    phase="train_iter",
                 )
             return Outcome(metrics=metrics, steps=self.steps_per_iter, hook_key=self._hook_key(ls))
 
@@ -224,20 +226,36 @@ class Trainer:
         action_noise: torch.Tensor | None = None,
         perms: torch.Tensor | None = None,
         tracer=None,
+        hooks=None,
     ):
         """One host iteration: ``host_rollout`` then ``learn`` on the
         learner's device, each in its ``tracer`` span when one is given.
         The optional tensors replace the draws from ``generator``; ``perms``
-        is PPO's. Returns (state, last obs, metrics, episode stats)."""
+        is PPO's. With ``hooks``, the act and the learn go through its
+        cost counting. Returns (state, last obs, metrics, episode stats)."""
         span = (tracer or Tracer(None)).span  # a disabled tracer is a no-op
         with span("rollout"):
             obs, batch, ep_stats = host_rollout(
-                self.env, self.learner, state, obs, self.horizon, generator, action_noise
+                self.env, self.learner, state, obs, self.horizon, generator, action_noise,
+                act=self._counted_act(hooks, self.learner),
             )
         learn_draws = {} if perms is None else {"perms": perms}
+        learn = self.learner.learn
+        if hooks is not None:
+            learn = functools.partial(hooks.count_program, "learn", learn, phase="learn")
         with span("learn"):
-            state, metrics = self.learner.learn(state, batch, generator, **learn_draws)
+            state, metrics = learn(state, batch, generator, **learn_draws)
         return state, obs, metrics, ep_stats
+
+    def _counted_act(self, hooks, actor):
+        """``actor.act`` through ``hooks``' cost counting (the 'act'
+        program, ``horizon`` calls a 'rollout' span), or None without
+        hooks."""
+        if hooks is None:
+            return None
+        return functools.partial(
+            hooks.count_program, "act", actor.act, phase="rollout", calls_per_phase=self.horizon
+        )
 
     def _host_stages(self, overlap: bool):
         # nothing is updated in place on the host path (the collector acts
@@ -256,7 +274,7 @@ class Trainer:
 
         def step(ls):
             ls.state, obs_holder[0], metrics, ep_stats = self._host_train_iter(
-                ls.state, obs_holder[0], ls.key, tracer=hooks.tracer
+                ls.state, obs_holder[0], ls.key, tracer=hooks.tracer, hooks=hooks
             )
             recent_returns.extend(ep_stats["returns"])
             return Outcome(
@@ -296,6 +314,7 @@ class Trainer:
         tracer = hooks.tracer  # thread-safe; the collector spans "rollout"
         collect_gen = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, 1))
         actor = self.learner.acting_copy()  # the collector's own modules, made before it starts
+        act = self._counted_act(hooks, actor)
 
         def collect():
             obs = self.env.reset(seed=self.config.env_config.seed)
@@ -304,7 +323,7 @@ class Trainer:
                     a_state, gen = act_holder[0]
                     with tracer.span("rollout"):
                         obs, batch, ep_stats = host_rollout(
-                            self.env, actor, a_state, obs, self.horizon, collect_gen
+                            self.env, actor, a_state, obs, self.horizon, collect_gen, act=act
                         )
                     while not stop_evt.is_set():
                         try:
@@ -329,7 +348,9 @@ class Trainer:
                     if gen == generation[0]:
                         break
             with tracer.span("learn"):
-                ls.state, metrics = self.learner.learn(ls.state, batch, ls.key)
+                ls.state, metrics = hooks.count_program(
+                    "learn", self.learner.learn, ls.state, batch, ls.key, phase="learn"
+                )
             act_holder[0] = (ls.state, generation[0])
             recent_returns.extend(ep_stats["returns"])
             return Outcome(

@@ -18,10 +18,18 @@ workers, else ``Trainer``), runs it with the session services of
 default, "the accelerator") runs on the CUDA card and raises without
 one; 'cpu' runs on the CPU (``--set session_config.backend=cpu``).
 
+The offline subcommands, with the reference's arguments, messages and
+exit codes (pure file work, so they run on any machine, also beside a
+live session on the card):
+
+    python -m surreal_tpu_torch profile /tmp/exp1 --iters 2   # ask a live session for a capture
+    python -m surreal_tpu_torch diag /tmp/exp1                # phases, health, perf, captures
+    python -m surreal_tpu_torch trace /tmp/exp4               # SEED causal span trees
+
 Refused with exit code 2: ``--workers`` with ddpg or a ``jax:`` env (the
 reference's rule and message), and, not ported yet, ``--local-procs``
 (process groups, with the multi-host SEED trainer) and the other
-subcommands (eval, actor, tune, profile, diag, top, trace, why, chaos).
+subcommands (eval, actor, tune, top, why, chaos).
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ import torch
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.session.default_configs import base_config
 
+PROG = "surreal_tpu_torch"
 ALGOS = ("ppo", "ddpg", "impala")
-UNPORTED_COMMANDS = ("eval", "actor", "tune", "profile", "diag", "top", "trace", "why", "chaos")
+UNPORTED_COMMANDS = ("eval", "actor", "tune", "top", "why", "chaos")
 BACKENDS = {"tpu": "cuda", "cpu": "cpu"}
 
 
@@ -135,6 +144,72 @@ def run_train(args) -> int:
     return 0
 
 
+def run_profile(args) -> int:
+    """Request an on-demand profiler capture from a live training session:
+    drops ``<folder>/profile.trigger``, which the session's
+    ``ProfileManager`` (``session/profile.py``) polls at iteration
+    boundaries; the Chrome trace lands under
+    ``<folder>/telemetry/profiles/`` and is announced as a ``profile``
+    telemetry event (``diag`` lists it). Pure file writing."""
+    if not os.path.isdir(args.folder):
+        print(f"no session folder {args.folder!r}", file=sys.stderr)
+        return 2
+    from surreal_tpu_torch.session.profile import write_trigger
+
+    path = write_trigger(args.folder, num_iters=args.iters)
+    print(
+        f"profile trigger written: {path}\n"
+        "a live session (session_config.profile.trigger_file=true, the "
+        "default) will capture at its next iteration boundary; check "
+        f"`{PROG} diag {args.folder}` for the capture."
+    )
+    return 0
+
+
+def run_diag(args) -> int:
+    """Offline session diagnosis from the telemetry JSONL logs
+    (``session/telemetry.py``): phase-time breakdown, training-health
+    summary, performance, heartbeats. Pure file reading, so it runs off
+    the card and against live sessions."""
+    from surreal_tpu_torch.session.telemetry import diag_report, diag_summary
+
+    if args.json:
+        summary = diag_summary(args.folder)
+        if summary is None:
+            print(f"no telemetry under {args.folder!r} "
+                  "(session_config.telemetry.enabled=false, or not a "
+                  "session folder?)", file=sys.stderr)
+            return 2
+        print(json.dumps(summary, default=float))
+        return 0
+    report = diag_report(args.folder)
+    if report is None:
+        print(f"no telemetry under {args.folder!r} "
+              "(session_config.telemetry.enabled=false, or not a "
+              "session folder?)", file=sys.stderr)
+        return 2
+    print(report)
+    return 0
+
+
+def run_trace(args) -> int:
+    """Causal span-tree timelines for the head-sampled exemplars
+    (``session/telemetry.py::trace_report``): one tree per exemplar, torn
+    hops marked. Pure file reading over the telemetry event log."""
+    from surreal_tpu_torch.session.telemetry import trace_report
+
+    if not os.path.isdir(args.folder):
+        print(f"no session folder {args.folder!r}", file=sys.stderr)
+        return 2
+    report = trace_report(args.folder, limit=args.limit)
+    if report is None:
+        print(f"no telemetry under {args.folder!r} (is this a "
+              "session folder?)", file=sys.stderr)
+        return 2
+    print(report)
+    return 0
+
+
 def _not_ported(args) -> int:
     print(f"surreal_tpu_torch: the {args.cmd!r} subcommand is not ported to PyTorch yet; "
           "use python -m surreal_tpu for it", file=sys.stderr)
@@ -142,7 +217,7 @@ def _not_ported(args) -> int:
 
 
 def make_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="surreal_tpu_torch")
+    parser = argparse.ArgumentParser(prog=PROG)
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("train", help="launch a training experiment")
     t.add_argument("algo", choices=ALGOS)
@@ -156,6 +231,34 @@ def make_parser() -> argparse.ArgumentParser:
     t.add_argument("--set", nargs="*", metavar="KEY=VAL", default=[],
                    help="dotlist overrides, e.g. learner_config.algo.horizon=64")
     t.set_defaults(fn=run_train)
+
+    p = sub.add_parser("profile", help="ask a LIVE session for an "
+                       "on-demand torch.profiler capture (writes "
+                       "<folder>/profile.trigger; the capture lands under "
+                       "<folder>/telemetry/profiles/)")
+    p.add_argument("folder", help="the live session's folder")
+    p.add_argument("--iters", type=int, default=None,
+                   help="capture window length in iterations (default: "
+                        "the session's session_config.profile.num_iters)")
+    p.set_defaults(fn=run_profile)
+
+    d = sub.add_parser("diag", help="offline session diagnosis from the "
+                       "telemetry JSONL log: phase times, health summary, "
+                       "heartbeats (works off the card and on live sessions)")
+    d.add_argument("folder", help="session folder (holds telemetry/)")
+    d.add_argument("--json", action="store_true",
+                   help="print the aggregated summary as one JSON object "
+                        "instead of the human-readable report")
+    d.set_defaults(fn=run_diag)
+
+    tr = sub.add_parser("trace", help="causal span-tree timelines for "
+                        "the head-sampled exemplars (worker step -> "
+                        "server forward -> learner dispatch), from the "
+                        "telemetry event log; torn hops marked")
+    tr.add_argument("folder", help="session folder (holds telemetry/)")
+    tr.add_argument("--limit", type=int, default=16,
+                    help="newest exemplars to render (default 16)")
+    tr.set_defaults(fn=run_trace)
     for name in UNPORTED_COMMANDS:
         u = sub.add_parser(name, help="not ported to PyTorch yet")
         u.add_argument("rest", nargs=argparse.REMAINDER)

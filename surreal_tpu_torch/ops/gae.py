@@ -26,6 +26,9 @@ for the shape and the card.
 
 ``gae_advantages_masked.launches`` counts kernel launches (and nothing
 else), so a run can show that its main path went through the kernel.
+Under a cost counter (``session/costs.py``) the wrapper reports one
+entry on either device, the kernel's bound: 5 float32 inputs read and 2
+outputs written once each, 6 operations an element.
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ import functools
 import torch
 
 from surreal_tpu_torch.ops.scan_tiles import ScanPlan, multiprocessors, scan_plan
+from surreal_tpu_torch.session.costs import kernel_cost
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 _INT32_MAX = 2**31 - 1
+GAE_OPS = 6  # float32 operations an element: mul, add, sub, mul, add, add
 
 
 def gae_masked_plain(
@@ -113,10 +118,12 @@ def gae_advantages_masked(
             raise ValueError(f"GAE inputs on different devices: {x.device} vs {rewards.device}")
         if x.is_complex() or x.dtype == torch.bool:
             raise TypeError(f"GAE inputs must be real numbers; got {x.dtype}")
-    if rewards.device.type == "cuda":
-        return _launch(inputs)
-    if rewards.device.type == "cpu":
-        return gae_masked_plain(*inputs)
+    T, B = shape
+    with kernel_cost("gae", GAE_OPS * T * B, 7 * 4 * T * B):
+        if rewards.device.type == "cuda":
+            return _launch(inputs)
+        if rewards.device.type == "cpu":
+            return gae_masked_plain(*inputs)
     raise ValueError(f"GAE has no path for device {rewards.device}")
 
 

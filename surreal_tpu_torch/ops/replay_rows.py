@@ -32,7 +32,10 @@ gather writes zeros for it, the scatter skips it).
 
 ``gather_rows.launches`` and ``scatter_rows.launches`` count kernel
 launches (and nothing else), so a run can show that its main path went
-through the kernels.
+through the kernels. Under a cost counter (``session/costs.py``) each
+wrapper reports one entry on either device, the kernel's bound: no
+float operations, and the rows read and written once with the int32
+indices read (the scatter reads its updates in ``dest``'s dtype).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from surreal_tpu_torch.session.costs import kernel_cost
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 MAX_LEAVES = 8  # leaves one gather launch carries (csrc/replay_rows.cu)
@@ -179,11 +183,14 @@ def gather_rows(leaves: Mapping[str, torch.Tensor], idx: torch.Tensor) -> dict[s
             raise ValueError(f"leaf {k!r} on {x.device}, others on {device}")
         if not x.is_contiguous():
             raise ValueError(f"leaf {k!r} is not contiguous")
-    _check_idx(idx, device, capacity)
-    if device.type == "cuda":
-        return _launch_gather(leaves, idx, capacity)
-    if device.type == "cpu":
-        return gather_rows_plain(leaves, idx)
+    n = idx.numel()
+    # the bound: the rows read and written once, the int32 indices read
+    with kernel_cost("replay_gather", 0, 2 * n * sum(_row_bytes(x) for x in leaves.values()) + 4 * n):
+        _check_idx(idx, device, capacity)
+        if device.type == "cuda":
+            return _launch_gather(leaves, idx, capacity)
+        if device.type == "cpu":
+            return gather_rows_plain(leaves, idx)
     raise ValueError(f"gather_rows has no path for device {device}")
 
 
@@ -258,15 +265,18 @@ def scatter_rows(dest: torch.Tensor, idx: torch.Tensor, updates: torch.Tensor) -
         raise ValueError("scatter_rows needs a [capacity, ...] destination")
     if not dest.is_contiguous():
         raise ValueError("dest is not contiguous")
-    _check_idx(idx, dest.device, dest.shape[0])
-    if tuple(updates.shape) != (idx.shape[0], *dest.shape[1:]):
-        raise ValueError(f"updates {tuple(updates.shape)} are not [{idx.shape[0]}, *{tuple(dest.shape[1:])}]")
-    if updates.device != dest.device:
-        raise ValueError(f"updates on {updates.device}, dest on {dest.device}")
-    if dest.device.type == "cuda":
-        return _launch_scatter(dest, idx, updates)
-    if dest.device.type == "cpu":
-        return scatter_rows_plain(dest, idx, updates)
+    n = idx.numel()
+    # the bound: the int32 indices and the updates read, the rows written
+    with kernel_cost("replay_scatter", 0, 4 * n + 2 * n * _row_bytes(dest)):
+        _check_idx(idx, dest.device, dest.shape[0])
+        if tuple(updates.shape) != (idx.shape[0], *dest.shape[1:]):
+            raise ValueError(f"updates {tuple(updates.shape)} are not [{idx.shape[0]}, *{tuple(dest.shape[1:])}]")
+        if updates.device != dest.device:
+            raise ValueError(f"updates on {updates.device}, dest on {dest.device}")
+        if dest.device.type == "cuda":
+            return _launch_scatter(dest, idx, updates)
+        if dest.device.type == "cpu":
+            return scatter_rows_plain(dest, idx, updates)
     raise ValueError(f"scatter_rows has no path for device {dest.device}")
 
 

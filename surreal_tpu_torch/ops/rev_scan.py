@@ -20,7 +20,10 @@ for the shape and the card, with the scan's own stage budget
 (``REV_SCAN_STAGE_BYTES``).
 
 ``reverse_linear_scan.launches`` counts kernel launches (and nothing
-else).
+else). Under a cost counter (``session/costs.py``) the wrapper reports
+one entry on either device, the kernel's bound: coeffs and deltas read,
+the output written, init read, once each (float32), 2 operations an
+element.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import functools
 import torch
 
 from surreal_tpu_torch.ops.scan_tiles import REV_SCAN_STAGE_BYTES, ScanPlan, multiprocessors, scan_plan
+from surreal_tpu_torch.session.costs import kernel_cost
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 _INT32_MAX = 2**31 - 1
@@ -90,6 +94,13 @@ def reverse_linear_scan(
     shape = deltas.shape
     if len(shape) != 2 or 0 in shape:
         raise ValueError(f"scan inputs must be non-empty [T, B]; got {tuple(shape)}")
+    T, B = shape
+    with kernel_cost("rev_scan", 2 * T * B, 3 * 4 * T * B + 4 * B):
+        return _dispatch(coeffs, deltas, init)
+
+
+def _dispatch(coeffs: torch.Tensor, deltas: torch.Tensor, init: torch.Tensor | None) -> torch.Tensor:
+    shape = deltas.shape
     if init is None:
         init = torch.zeros(shape[1], dtype=torch.float32, device=deltas.device)
     if coeffs.shape != shape or tuple(init.shape) != (shape[1],):

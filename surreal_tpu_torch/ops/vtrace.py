@@ -40,7 +40,10 @@ passes it :func:`~surreal_tpu_torch.ops.scan_tiles.scan_plan`'s choice
 for the shape and the card.
 
 ``vtrace_fused.launches`` counts kernel launches (and nothing else), so a
-run can show that its main path went through the kernel.
+run can show that its main path went through the kernel. Under a cost
+counter (``session/costs.py``) :func:`vtrace_fused` reports one entry on
+either device, the kernel's bound: 8 float32 inputs read and 2 outputs
+written once each, :data:`VTRACE_OPS` operations an element.
 """
 
 from __future__ import annotations
@@ -59,9 +62,13 @@ from surreal_tpu_torch.ops.returns import (
     reverse_linear_scan_assoc,
 )
 from surreal_tpu_torch.ops.scan_tiles import ScanPlan, multiprocessors, scan_plan
+from surreal_tpu_torch.session.costs import kernel_cost
 from surreal_tpu_torch.utils.kernel_build import load_kernel_library
 
 _INT32_MAX = 2**31 - 1
+# float32 operations an element (csrc/vtrace.cu): rho 2 (sub, exp), delta
+# 5, recursion 4, vs 1, successor 4, pg advantage 5
+VTRACE_OPS = 21
 
 
 class VTraceOutput(NamedTuple):
@@ -170,10 +177,12 @@ def vtrace_fused(
         if x.is_complex():
             raise TypeError(f"V-trace inputs must be real numbers; got {x.dtype}")
     clips = (float(clip_rho), float(clip_c), float(clip_pg_rho))
-    if rewards.device.type == "cuda":
-        return _launch(inputs, clips)
-    if rewards.device.type == "cpu":
-        return vtrace_fused_plain(*inputs, *clips)
+    T, B = shape
+    with kernel_cost("vtrace", VTRACE_OPS * T * B, 10 * 4 * T * B):
+        if rewards.device.type == "cuda":
+            return _launch(inputs, clips)
+        if rewards.device.type == "cpu":
+            return vtrace_fused_plain(*inputs, *clips)
     raise ValueError(f"V-trace has no path for device {rewards.device}")
 
 

@@ -10,13 +10,18 @@ and session runtime against the JAX package's.
   the same checkpoint steps, the same metric keys and the same telemetry
   event types, once the reference's keys and events of the subsystems
   the port lists as unported (``launch/hooks.py::UNPORTED_SUBSYSTEMS``:
-  the ops plane, SLOs, watchdog, remediation, ``perf`` cost gauges, the
-  profile trigger file) are taken out. Exact.
+  the ops plane, SLOs, watchdog, remediation) are taken out; the
+  ``perf/*`` gauges and the ``program_cost`` and ``profile`` events are
+  compared with the reference's. Exact.
+- The profiler window (``session.profiler``) and the slow-iteration
+  trigger (``session.profile.slow_iter_factor``) of a port session give
+  the reference ``ProfileManager``'s capture windows.
 - What the port does not carry raises or exits 2, by name."""
 
 import json
 import os
 
+import jax
 import pytest
 import torch
 
@@ -24,6 +29,7 @@ import surreal_tpu.main.launch as jax_launch
 import surreal_tpu_torch.main.launch as torch_launch
 from surreal_tpu.launch.trainer import Trainer as JaxTrainer
 from surreal_tpu.session.config import Config as JaxConfig
+from surreal_tpu.session import profile as jax_profile
 from surreal_tpu.session.default_configs import base_config as jax_base_config
 from surreal_tpu.session.telemetry import _iter_jsonl as jax_iter_jsonl
 from surreal_tpu_torch.launch.hooks import UNPORTED_SUBSYSTEMS
@@ -93,8 +99,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
 
 UNPORTED_OPTIONS = {
     "session_config.publish.enabled": {"session_config": {"publish": {"enabled": True}}},
-    "session_config.profiler.enabled": {"session_config": {"profiler": {"enabled": True}}},
-    "session_config.profile.slow_iter_factor": {"session_config": {"profile": {"slow_iter_factor": 3.0}}},
     "session_config.compile_cache_dir": {"session_config": {"compile_cache_dir": "xla_cache"}},
     "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
     "session_config.topology.mesh": {"session_config": {"topology": {"mesh": {"dp": 2}}}},
@@ -120,6 +124,71 @@ def test_every_unported_session_option_raises(key, tmp_path):
             Trainer(Config(tree).extend(base_config()), device="cpu").run(max_env_steps=8)
     finally:
         faults.configure(None)
+
+
+PROFILE_OPTIONS = {
+    # the window: iterations 2-4 of 6
+    "session_config.profiler.enabled": {"profiler": {"enabled": True, "start_iter": 2, "num_iters": 2}},
+    # a 1.5 s iteration (a delay fault) after 13 of a few tens of ms
+    "session_config.profile.slow_iter_factor": {
+        "profile": {"slow_iter_factor": 3.0, "num_iters": 1, "max_auto_captures": 1, "trigger_file": False},
+        "faults": {"plan": [{"site": "trainer.iteration", "kind": "delay", "at": 13, "ms": 1500}]},
+    },
+}
+
+
+class _Sink:
+    def __init__(self):
+        self.events = []
+
+    def event(self, type_, **kw):
+        self.events.append((type_, kw))
+
+
+class _Log:
+    def info(self, *a):
+        pass
+
+    warning = info
+
+
+@pytest.mark.parametrize("key", sorted(PROFILE_OPTIONS))
+def test_profile_options_match_the_reference(key, tmp_path, monkeypatch):
+    """What was refused before this slice: a port session with the
+    option on captures the windows the reference's ProfileManager opens
+    on the same boundary ticks (the reference's jax.profiler calls
+    stubbed), each with its Chrome trace on disk."""
+    session = PROFILE_OPTIONS[key]
+    iters = 6 if "profiler" in session else 16
+    tree = {
+        "learner_config": {"algo": {"name": "ppo", "horizon": 4, "epochs": 1, "num_minibatches": 1}},
+        "env_config": {"name": "jax:lift", "num_envs": 4},
+        "session_config": {"folder": str(tmp_path), "metrics": {"tensorboard": False, "console": False},
+                           "checkpoint": {"every_n_iters": 0}, **session},
+    }
+    try:
+        Trainer(Config(tree).extend(base_config()), device="cpu").run(max_env_steps=iters * 16)
+    finally:
+        faults.configure(None)
+    events = [e for e in _iter_jsonl(os.path.join(tmp_path, "telemetry", "events.jsonl")) if e["type"] == "profile"]
+    got = [(e["reason"].split("(")[0], e["start_iter"], e["end_iter"]) for e in events]
+    assert len(got) == 1 and "error" not in events[0]
+    assert os.path.getsize(os.path.join(events[0]["dir"], "trace.json")) > 0
+
+    # the reference's manager on the same ticks: uniform 10 ms iterations,
+    # and the one at whose boundary the port's capture started slow
+    monkeypatch.setattr(jax.profiler, "start_trace", lambda d: None)
+    monkeypatch.setattr(jax.profiler, "stop_trace", lambda: None)
+    clock = [0.0]
+    monkeypatch.setattr(jax_profile.time, "monotonic", lambda: clock[0])
+    sink = _Sink()
+    pm = jax_profile.ProfileManager(JaxConfig(tree["session_config"]), str(tmp_path / "ref"), sink, _Log())
+    for i in range(1, iters + 1):
+        clock[0] += 1.5 if i == got[0][1] and "profile" in session else 0.01
+        pm.tick(i)
+    pm.close()
+    want = [(kw["reason"].split("(")[0], kw["start_iter"], kw["end_iter"]) for t, kw in sink.events if t == "profile"]
+    assert got == want
 
 
 def _session(folder):
@@ -162,8 +231,7 @@ def test_short_run_matches_the_reference_session(tmp_path):
     )
     # what the port lists as not built, and what the reference builds of it
     (unported,) = got.pop("unported")
-    assert unported["subsystems"] == list(UNPORTED_SUBSYSTEMS) == [
-        "ops", "slo", "watchdog", "remediate", "perf", "profile.trigger_file"]
+    assert unported["subsystems"] == list(UNPORTED_SUBSYSTEMS) == ["ops", "slo", "watchdog", "remediate"]
     prefixes, types = tuple(unported["metric_prefixes"]), set(unported["event_types"]) | {"unported"}
     want.pop("unported")
     want["row_keys"] = [{k for k in keys if not k.startswith(prefixes)} for keys in want["row_keys"]]

@@ -1,9 +1,12 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX, of the JAX
-package or of zmq (its SEED wire is the standard library's sockets), and
-its entry points never fall back to the CPU on their own."""
+package or of zmq (its SEED wire is the standard library's sockets), its
+entry points never fall back to the CPU on their own, and every gauge
+literal it emits is documented in its ``GAUGE_REGISTRY`` with a unit (the
+reference's lint, ``tests/test_import_hygiene.py``)."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -50,7 +53,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "distributed/inference_server.py", "distributed/env_worker.py", "launch/seed_trainer.py",
         "utils/respawn.py",
     }
-    wanted = session_runtime | trajectory | host | seed
+    perf = {"session/costs.py", "session/profile.py"}
+    wanted = session_runtime | trajectory | host | seed | perf
     assert wanted <= scanned, f"not scanned: {sorted(wanted - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
@@ -75,3 +79,33 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
         Trainer(_tiny_config())
     # asking for the CPU explicitly is the only way onto it
     assert Trainer(_tiny_config(), device="cpu").device.type == "cpu"
+
+
+_GAUGE = re.compile(
+    r"[\"']((?:perf|replay|experience|fleet|param|gateway|ops|slo|lineage|trace|remediation|loadgen|lgroup|tier"
+    r"|engine|chaos)/[a-z0-9_]+)[\"']"
+)
+
+
+def test_every_gauge_literal_is_registered_with_a_unit():
+    """Every whole ``<family>/<name>`` literal in the port's source is a
+    ``GAUGE_REGISTRY`` entry whose unit is in ``GAUGE_UNITS``. A literal
+    that ends in ``_`` is a prefix (``launch/hooks.py``'s unported
+    subsystems), not a gauge."""
+    from surreal_tpu_torch.session.costs import GAUGE_REGISTRY, GAUGE_UNITS
+
+    bad = []
+    for path in sorted(_PKG.rglob("*.py")):
+        if path.name == "costs.py":
+            continue  # the registry itself defines the names
+        src = path.read_text()
+        for m in _GAUGE.finditer(src):
+            name = m.group(1)
+            if name.endswith("_"):
+                continue
+            if name not in GAUGE_REGISTRY:
+                bad.append(f"{path.relative_to(_REPO)}:{src.count(chr(10), 0, m.start()) + 1}: {name}")
+    assert not bad, "gauges emitted but not in session/costs.py::GAUGE_REGISTRY:\n" + "\n".join(bad)
+    assert any(k.startswith("perf/") for k in GAUGE_REGISTRY)
+    for name, rec in GAUGE_REGISTRY.items():
+        assert isinstance(rec, dict) and rec.get("unit") in GAUGE_UNITS and rec.get("desc"), name
