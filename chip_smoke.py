@@ -18,9 +18,11 @@ prioritized replay on gym:Pendulum-v1 through its host loop), PPO with
 the NatureCNN on the NutAssembly pixel env jax:nut_pixels, and the SEED
 topology (env workers, threads or spawned processes, feeding one batched
 inference server: PPO on cheetah-run, IMPALA on CartPole and on 256
-pixel envs), and the profiling and cost accounting of a session (the
-profiler captures, the perf gauges, the diag and trace readers). Five
-kernels are built and checked. Phases, each printing one JSON line:
+pixel envs), the profiling and cost accounting of a session (the
+profiler captures, the perf gauges, the diag and trace readers), and
+the 'bf16' and 'bf16_fp8' precision policies (dynamic loss scaling, bf16
+staging and replay storage, the fp8 Dense path). Five kernels are built
+and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
 2. build   - every CUDA kernel, compiled from csrc/, one nvcc per source,
@@ -152,6 +154,28 @@ kernels are built and checked. Phases, each printing one JSON line:
              trees, none torn. (The session phase's set_sync_debug_mode
              iteration runs with the cost counting and the profile
              trigger on, their defaults.)
+10. precision - the 'bf16' and 'bf16_fp8' policies at the widths of the
+             north-star, pong and ddpg cells: (a) one north-star
+             iteration at 'mixed' and one at 'bf16' from the same state
+             and draws, parameters within 1e-5 (the reference's
+             'mixed'-vs-'bf16' rule), loss scale 32768, no overflow, GAE
+             once each; the north-star through ``Trainer.run`` at
+             'mixed', 'bf16' and 'bf16_fp8' (2 + 4 iterations each, in
+             turns), with the aten ops counted in an iteration and the
+             rollout and the learn each fenced and one learn profiled
+             (its launches and device busy time); (b) IMPALA on pong at
+             'mixed', 'bf16' and 'bf16_fp8' in turns, V-trace once a
+             learn, one learn of each profiled; (c) prioritized DDPG at 'bf16':
+             obs storage half of 'mixed''s, gather and scatter 64 each an
+             iteration, the gather kernel bit-exact at the bf16 rows and
+             timed there; (d) an inf reward in a north-star 'bf16'
+             iteration under set_sync_debug_mode("error"): every
+             parameter bit-unchanged, ``health/nonfinite`` 1, 16
+             overflows, the scale at its floor of 1.0; (e) ``train ppo
+             jax:lift`` at 'bf16' for 2 iterations and a resume, the
+             restored state (its loss-scale state included) bit-equal to
+             the saved one, then a relaunch at 'mixed' stopped by
+             PrecisionMismatchError.
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -724,6 +748,9 @@ def fenced_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+LEARN_KEYS = ("obs", "next_obs", "action", "reward", "done", "terminated", "behavior_logp", "behavior")
+
+
 def breakdown(trainer, state, reps: int = 2) -> dict:
     """Where an iteration's time goes: the rollout and the learn, each
     fenced by synchronize, after the counted run (these launches are not
@@ -738,8 +765,7 @@ def breakdown(trainer, state, reps: int = 2) -> dict:
         (carry, batch), ms = fenced_ms(lambda: device_rollout(
             trainer.env, trainer.learner, state, carry, trainer.horizon, generator))
         rollout_ms.append(ms)
-        batch = {k: batch[k] for k in (
-            "obs", "next_obs", "action", "reward", "done", "terminated", "behavior_logp", "behavior")}
+        batch = {k: batch[k] for k in LEARN_KEYS}
         (state, _), ms = fenced_ms(lambda: trainer.learner.learn(state, batch, generator))
         learn_ms.append(ms)
     return {"rollout_ms": rollout_ms, "learn_ms": learn_ms}
@@ -2034,7 +2060,7 @@ def phase_train_host(M, path: str, algo: dict, env: str, B: int, T: int, counter
     return result
 
 
-def check_host_ddpg_gather(RR, example: dict) -> dict:
+def check_host_ddpg_gather(RR, example: dict, path: str = "host_ddpg_pendulum") -> dict:
     """The replay gather kernel against its plain version, bit for bit, at
     the host DDPG path's rows: the leaves of ``example`` (the trainer's
     ``_replay_example()``) in a 200,000-row ring, 256 indices with and
@@ -2047,7 +2073,7 @@ def check_host_ddpg_gather(RR, example: dict) -> dict:
     repeated = idx.clone()
     repeated[DDPG_BS // 2:] = idx[: DDPG_BS - DDPG_BS // 2].flip(0)
     checks, max_abs = [], 0.0
-    for label, ix in (("host_ddpg_pendulum", idx), ("host_ddpg_pendulum_duplicates", repeated)):
+    for label, ix in ((path, idx), (f"{path}_duplicates", repeated)):
         got, want = RR.gather_rows(leaves, ix), RR.gather_rows_plain(leaves, ix)
         torch.cuda.synchronize()
         for k in leaves:
@@ -2062,7 +2088,7 @@ def check_host_ddpg_gather(RR, example: dict) -> dict:
     row_bytes = sum(x[0].numel() * x.element_size() for x in leaves.values())
     nbytes = 2 * DDPG_BS * row_bytes + idx.numel() * idx.element_size()
     result = {
-        "phase": "kernels", "kernel": "replay_gather", "path": "host_ddpg_pendulum", "checks": checks,
+        "phase": "kernels", "kernel": "replay_gather", "path": path, "checks": checks,
         "tolerance": "exact (0)", "max_abs_err": max_abs, "row_bytes": row_bytes,
         "ms": time_cuda_ms(lambda: RR.gather_rows(leaves, idx), runs=30, flush=flush, spin=True),
         "plain_ms": time_cuda_ms(lambda: RR.gather_rows_plain(leaves, idx), runs=30, flush=flush, spin=False),
@@ -2890,6 +2916,302 @@ def phase_profile(M, gae, env_source: dict) -> dict:
     return {"gae_launches": sessions["gae_launches"], "sessions": sessions, "counts": counts, "trace": trace}
 
 
+# -- precision: the 'bf16' and 'bf16_fp8' policies -----------------------------
+
+PRECISION_POLICIES = ("mixed", "bf16", "bf16_fp8")
+PRECISION_WARMUP_ITERS, PRECISION_TIMED_ITERS = 2, 4
+# the reference's own 'mixed'-vs-'bf16' rule (tests/test_precision.py:289-294)
+PRECISION_PARAM_ATOL = 1e-5
+LS_INIT, LS_MIN = 2.0**15, 1.0  # the loss-scale schedule's defaults
+
+
+def north_star_policy_config(M, precision: str):
+    cfg = north_star_config(M, scratch_dir("precision"))
+    cfg.learner_config.algo.precision = precision
+    return cfg
+
+
+def program_ops(folder: str, iter_jsonl, name: str = "train_iter"):
+    """The aten ops the cost counter counted in one call of a session's
+    program (its ``program_cost`` event), or None."""
+    for e in session_events(folder, iter_jsonl):
+        if e.get("type") == "program_cost" and e.get("name") == name:
+            return e.get("ops")
+    return None
+
+
+def precision_parity(M, gae) -> dict:
+    """(a) One north-star iteration at 'mixed' and one at 'bf16' on the card
+    from the same state, reset draws, action noise and epoch permutations:
+    parameters within PRECISION_PARAM_ATOL, the loss scale at its initial
+    value with no overflow, one GAE launch each."""
+    from surreal_tpu_torch.envs.device.lift import RESET_HIGH, RESET_LOW
+    from surreal_tpu_torch.learners.ppo import _block_layout
+
+    gen = torch.Generator().manual_seed(3)
+    lo, hi = torch.tensor(RESET_LOW), torch.tensor(RESET_HIGH)
+    draws_init = (lo + torch.rand((MAIN_B, 5), generator=gen) * (hi - lo)).cuda()
+    draws = (lo + torch.rand((MAIN_T, MAIN_B, 5), generator=gen) * (hi - lo)).cuda()
+    noise = torch.randn((MAIN_T, MAIN_B, 4), generator=gen).cuda()
+    domain = 4 * _block_layout(MAIN_T * MAIN_B, 4, 17 * 4)
+    perms = torch.stack([torch.randperm(domain, generator=gen) for _ in range(4)]).cuda()
+    out = {}
+    for precision in ("mixed", "bf16"):
+        tr = M.Trainer(north_star_policy_config(M, precision))
+        state = tr.learner.init(torch.Generator().manual_seed(0))
+        carry = tr.init_loop_state(reset_draws=draws_init)
+        (new, _, metrics), launches = count_launches({"gae": (gae, 1)}, lambda: tr._device_train_iter(
+            state, carry, action_noise=noise, reset_draws=draws, perms=perms))
+        out[precision] = (new.params, {k: float(v) for k, v in metrics.items()}, launches["gae"])
+    (pm, mm, _), (p16, m16, _) = out["mixed"], out["bf16"]
+    err = max(float((p16[k] - v).abs().max()) for k, v in pm.items())
+    checks = {
+        "params_within_1e-5": err <= PRECISION_PARAM_ATOL,
+        "loss_scale": m16["precision/loss_scale"] == LS_INIT,
+        "no_overflow": m16["precision/overflows"] == 0.0,
+        "gae_once_a_learn": out["mixed"][2] == out["bf16"][2] == 1,
+        "mixed_has_no_scale": "precision/loss_scale" not in mm,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"precision parity checks failed: {checks}, params max abs err {err}")
+    result = {"phase": "precision", "step": "bf16_vs_mixed", "num_envs": MAIN_B, "horizon": MAIN_T,
+              "checks": checks, "params_max_abs_err": err, "tolerance": PRECISION_PARAM_ATOL,
+              "metric_abs_err": {k: abs(m16[k] - v) for k, v in mm.items()}}
+    emit(result)
+    return result
+
+
+def profiled_learn(trainer, state, kernel_name: str) -> dict:
+    """One learn on a fresh rollout's batch under ``torch.profiler``, after
+    the counted run (not counted): its CUDA kernel launches, the device's
+    busy time (the union of the kernel intervals) and the kernels with the
+    most time, from the Chrome trace (``capture_summary``)."""
+    from surreal_tpu_torch.launch.rollout import device_rollout
+
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    carry = trainer.init_loop_state(generator)
+    _, batch = device_rollout(trainer.env, trainer.learner, state, carry, trainer.horizon, generator)
+    batch = {k: batch[k] for k in LEARN_KEYS}
+    path = os.path.join(scratch_dir("learn_trace"), "trace.json")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer.learner.learn(state, batch, generator)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    summary = capture_summary(path, kernel_name)
+    return {k: summary[k] for k in ("wall_ms", "kernel_busy_ms", "kernel_launches", f"{kernel_name}_launches")} | {
+        "top_kernels": summary["top_kernels"][:3]}
+
+
+def precision_timed(M, gae) -> dict:
+    """North-star at each policy through ``Trainer.run`` (2 warm-up, 4 timed
+    iterations, one GAE launch each), in turns ('mixed', 'bf16',
+    'bf16_fp8', then back), with the aten ops the cost counter counted in
+    its first iteration and, after the first turn, the rollout and the
+    learn each fenced (three of each) and one learn profiled. A policy's
+    figure is the mean of its two medians."""
+    rows = {p: {"iter_ms_medians": [], "iter_ms": [], "gae_launches": 0} for p in PRECISION_POLICIES}
+    for turn, precision in enumerate((*PRECISION_POLICIES, *reversed(PRECISION_POLICIES))):
+        cfg = north_star_policy_config(M, precision)
+        trainer = M.Trainer(cfg)
+        state, timing = timed_run(trainer, {"gae": (gae, 1)}, PRECISION_WARMUP_ITERS, PRECISION_TIMED_ITERS)
+        last, row = timing["metrics"], rows[precision]
+        if turn < len(PRECISION_POLICIES):
+            row.update(breakdown(trainer, state, reps=3))
+            row["profiled_learn"] = profiled_learn(trainer, state, "gae")
+        row["iter_ms_medians"].append(timing["iter_ms_median"])
+        row["iter_ms"].append(timing["iter_ms"])
+        row["gae_launches"] += timing["gae_launches"]
+        row["peak_mem_gb"] = timing["peak_mem_gb"]
+        row["counted_ops_per_iter"] = program_ops(cfg.session_config.folder, M.iter_jsonl)
+        row["loss_scale"], row["overflows"] = last.get("precision/loss_scale"), last.get("precision/overflows")
+        if precision != "mixed" and row["loss_scale"] != LS_INIT:
+            raise AssertionError(f"{precision}: loss scale {row['loss_scale']} after the run")
+    for row in rows.values():
+        row["iter_ms_median"] = statistics.mean(row["iter_ms_medians"])
+        row["env_steps_per_s"] = MAIN_B * MAIN_T / (row["iter_ms_median"] / 1e3)
+    base = rows["mixed"]
+    result = {"phase": "precision", "step": "north_star_timed", "num_envs": MAIN_B, "horizon": MAIN_T,
+              "warmup_iters": PRECISION_WARMUP_ITERS, "timed_iters": PRECISION_TIMED_ITERS, "policies": rows,
+              "iter_ms_vs_mixed": {k: v["iter_ms_median"] / base["iter_ms_median"] for k, v in rows.items()},
+              "ops_vs_mixed": {k: v["counted_ops_per_iter"] / base["counted_ops_per_iter"] for k, v in rows.items()
+                               if v["counted_ops_per_iter"] and base["counted_ops_per_iter"]},
+              "learn_launches_vs_mixed": {k: v["profiled_learn"]["kernel_launches"]
+                                          / base["profiled_learn"]["kernel_launches"] for k, v in rows.items()}}
+    emit(result)
+    return result
+
+
+def precision_pong(M, vtrace) -> dict:
+    """(b) IMPALA at the pong geometry at each policy in turns ('mixed',
+    'bf16', 'bf16_fp8'; 2 warm-up, 4 timed iterations each): V-trace once
+    a learn, every metric finite (timed_run), the loss scale in the rows
+    of the loss-scaled policies, and one learn profiled."""
+    rows = {}
+    for precision in PRECISION_POLICIES:
+        trainer = M.Trainer(pong_config(M.Config, M.base_config, PONG_B, PONG_T, precision, {}))
+        state, timing = timed_run(trainer, {"vtrace": (vtrace, 1)}, PRECISION_WARMUP_ITERS, PRECISION_TIMED_ITERS)
+        scale = timing["metrics"].get("precision/loss_scale")
+        if scale != (None if precision == "mixed" else LS_INIT):
+            raise AssertionError(f"pong {precision}: loss scale {scale}")
+        rows[precision] = {**{k: timing[k] for k in ("iter_ms_median", "iter_ms", "env_steps_per_s",
+                                                     "vtrace_launches", "peak_mem_gb")},
+                           "loss_scale": scale, "overflows": timing["metrics"].get("precision/overflows"),
+                           "profiled_learn": profiled_learn(trainer, state, "vtrace")}
+    base = rows["mixed"]
+    result = {"phase": "precision", "step": "pong_timed", "num_envs": PONG_B, "horizon": PONG_T, "policies": rows,
+              "vtrace_launches": sum(r["vtrace_launches"] for r in rows.values()),
+              "iter_ms_vs_mixed": {k: v["iter_ms_median"] / base["iter_ms_median"] for k, v in rows.items()},
+              "learn_launches_vs_mixed": {k: v["profiled_learn"]["kernel_launches"]
+                                          / base["profiled_learn"]["kernel_launches"] for k, v in rows.items()}}
+    emit(result)
+    return result
+
+
+def precision_ddpg(M, RR) -> dict:
+    """(c) DDPG with prioritized replay at the headline geometry under
+    'bf16': obs and next_obs stored in bf16 (half of 'mixed''s bytes,
+    reward and discount still float32), gather and scatter 64 launches an
+    iteration, and the gather kernel bit-exact at the bf16 rows."""
+    def obs_bytes(trainer):
+        ex = trainer._replay_example()
+        return {k: DDPG_CAPACITY * x.numel() * x.element_size() for k, x in ex.items()}
+
+    mixed = M.OffPolicyTrainer(ddpg_config(M.Config, M.base_config, DDPG_B, DDPG_H, DDPG_K, DDPG_BS, DDPG_CAPACITY,
+                                           "prioritized", "mixed"))
+    trainer = M.OffPolicyTrainer(ddpg_config(M.Config, M.base_config, DDPG_B, DDPG_H, DDPG_K, DDPG_BS,
+                                             DDPG_CAPACITY, "prioritized", "bf16"))
+    b16, b32 = obs_bytes(trainer), obs_bytes(mixed)
+    storage = trainer.replay.init(trainer._replay_example()).ring.storage
+    checks = {
+        "obs_half": b16["obs"] + b16["next_obs"] == (b32["obs"] + b32["next_obs"]) // 2,
+        "obs_bf16": storage["obs"].dtype == storage["next_obs"].dtype == torch.bfloat16,
+        "reward_f32": storage["reward"].dtype == storage["discount"].dtype == torch.float32,
+    }
+    del storage
+    _, timing = timed_run(trainer, {"replay_gather": (RR.gather_rows, DDPG_K),
+                                    "replay_scatter": (RR.scatter_rows, DDPG_K)},
+                          PRECISION_WARMUP_ITERS, PRECISION_TIMED_ITERS)
+    checks["loss_scale"] = timing["metrics"].get("precision/loss_scale") == LS_INIT
+    if not all(checks.values()):
+        raise AssertionError(f"ddpg bf16 checks failed: {checks}")
+    gather = check_host_ddpg_gather(RR, trainer._replay_example(), path="ddpg_lift_bf16")
+    result = {"phase": "precision", "step": "ddpg_bf16", "checks": checks,
+              "obs_storage_bytes": {"bf16": b16["obs"] + b16["next_obs"], "mixed": b32["obs"] + b32["next_obs"]},
+              "storage_bytes": {"bf16": sum(b16.values()), "mixed": sum(b32.values())},
+              **{k: timing[k] for k in ("iter_ms_median", "iter_ms", "env_steps_per_s", "replay_gather_launches",
+                                        "replay_scatter_launches", "peak_mem_gb")},
+              "gather_check": {k: gather[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "row_bytes")}}
+    emit(result)
+    return {**result, "gather": gather}
+
+
+def precision_poisoned(M) -> dict:
+    """(d) An inf reward in the batch of a north-star 'bf16' iteration run
+    under set_sync_debug_mode("error") (after one clean iteration): every
+    minibatch step is skipped, so each parameter is bit-unchanged,
+    ``health/nonfinite`` is 1, the overflows rise by the 16 minibatches
+    and the scale backs off to ls_min."""
+    tr = M.Trainer(north_star_policy_config(M, "bf16"))
+    state = tr.learner.init(torch.Generator().manual_seed(0))
+    carry = tr.init_loop_state()
+    state, carry, _ = tr._device_train_iter(state, carry)
+    torch.cuda.synchronize()
+    learn = tr.learner.learn
+
+    def poisoned(st, batch, *a, **kw):
+        reward = batch["reward"].clone()
+        reward[0, 0].fill_(float("inf"))  # a fill: item assignment copies from the host
+        return learn(st, {**batch, "reward": reward}, *a, **kw)
+
+    before = {k: v.clone() for k, v in state.params.items()}
+    overflows_before = state.opt_state.overflows.clone()
+    tr.learner.learn = poisoned
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, _, metrics = tr._device_train_iter(state, carry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        tr.learner.learn = learn
+    m = {k: float(v) for k, v in metrics.items()}
+    minibatches = 4 * 4
+    checks = {
+        "params_bit_unchanged": all(torch.equal(new.params[k], v) for k, v in before.items()),
+        "nonfinite": m["health/nonfinite"] == 1.0,
+        "overflows": int(new.opt_state.overflows - overflows_before) == minibatches,
+        "scale_at_floor": m["precision/loss_scale"] == LS_MIN,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"poisoned-batch checks failed: {checks}")
+    result = {"phase": "precision", "step": "poisoned_batch", "checks": checks, "sync_debug_mode": "error",
+              "overflows": m["precision/overflows"], "loss_scale": m["precision/loss_scale"]}
+    emit(result)
+    return result
+
+
+def precision_checkpoint(M) -> dict:
+    """(e) ``train ppo jax:lift`` under 'bf16' for 2 iterations (the run-end
+    checkpoint), resumed for a third: the restored state, its loss-scale
+    state included, bit-equal to the saved one; then a relaunch under
+    'mixed' in the same folder stops with PrecisionMismatchError."""
+    from surreal_tpu_torch.session.checkpoint import PrecisionMismatchError
+
+    folder = scratch_dir("precision_ckpt")
+    run_cli(M, north_star_argv(folder, 2, "learner_config.algo.precision=bf16"))
+    template = M.Trainer(north_star_policy_config(M, "bf16")).learner.init()
+    saved, _ = M.CheckpointManager(folder).restore(template)
+    restored = {}
+
+    def capture(orig):
+        def restore(self, init_state):
+            restored["out"] = orig(self, init_state)
+            return restored["out"]
+        return restore
+
+    with Patched(M.SessionHooks, "restore", capture):
+        run_cli(M, north_star_argv(folder, 3, "learner_config.algo.precision=bf16"))
+    state, iteration, _ = restored["out"]
+    mismatch = None
+    try:
+        run_cli(M, north_star_argv(folder, 4, "learner_config.algo.precision=mixed"))
+    except PrecisionMismatchError as e:
+        mismatch = str(e)
+    ls = state.opt_state
+    checks = {
+        "resumed_at": iteration == 2,
+        "loss_scale_state_bit_equal": all(
+            torch.equal(getattr(ls, f), getattr(saved.opt_state, f)) for f in ("scale", "good_steps", "overflows")),
+        "state_bit_equal": tensors_equal(state, saved, M.tree_flatten),
+        "good_steps": int(ls.good_steps) == 2 * 16,
+        "mismatch_raised": mismatch is not None and "algo.precision" in mismatch,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"precision checkpoint checks failed: {checks}")
+    result = {"phase": "precision", "step": "checkpoint", "checks": checks, "mismatch_error": mismatch[:200]}
+    emit(result)
+    return result
+
+
+def phase_precision(M, gae, vtrace, RR) -> dict:
+    """The 'bf16' and 'bf16_fp8' policies at the widths of the north-star,
+    pong and ddpg cells: (a)-(e), see each step."""
+    parity = precision_parity(M, gae)
+    timed = precision_timed(M, gae)
+    pong = precision_pong(M, vtrace)
+    ddpg = precision_ddpg(M, RR)
+    poisoned = precision_poisoned(M)
+    ckpt = precision_checkpoint(M)
+    return {
+        "gae_launches": sum(r["gae_launches"] for r in timed["policies"].values()),
+        "vtrace_launches": pong["vtrace_launches"],
+        "replay_gather_launches": ddpg["replay_gather_launches"],
+        "replay_scatter_launches": ddpg["replay_scatter_launches"],
+        "gather": ddpg["gather"], "parity": parity, "poisoned": poisoned, "checkpoint": ckpt,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -2976,17 +3298,23 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     host = phase_host(M, ops_gae, ops_vtrace, RS, RR)
     seed = phase_seed(M, ops_gae, ops_vtrace, RS, host["env_source"])
     profile = phase_profile(M, ops_gae.gae_advantages_masked, host["env_source"])
+    precision = phase_precision(M, ops_gae.gae_advantages_masked, ops_vtrace.vtrace_fused, RR)
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
     gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
-                               **host["gae"], **seed["gae"], "profile_ppo_lift": profile["gae_launches"]}
+                               **host["gae"], **seed["gae"], "profile_ppo_lift": profile["gae_launches"],
+                               "precision_ppo_lift": precision["gae_launches"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
                                   "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
-                                  **seed["vtrace"]}
-    gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"]}
-    gather["max_abs_err"] = max(gather["max_abs_err"], host["replay_gather_check"]["max_abs_err"])
-    scatter["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_scatter_launches"], **host["replay_scatter"]}
+                                  **seed["vtrace"], "precision_impala_pong": precision["vtrace_launches"]}
+    gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"],
+                                  "precision_ddpg_lift": precision["replay_gather_launches"]}
+    gather["max_abs_err"] = max(gather["max_abs_err"], host["replay_gather_check"]["max_abs_err"],
+                                precision["gather"]["max_abs_err"])
+    gather["bf16_rows"] = {k: precision["gather"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "row_bytes")}
+    scatter["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_scatter_launches"], **host["replay_scatter"],
+                                   "precision_ddpg_lift": precision["replay_scatter_launches"]}
     rev_scan["launches_by_path"] = {"ppo_lift_assoc": train_assoc["rev_scan_launches"],
                                     "impala_pong_assoc": train_impala_assoc["rev_scan_launches"], **host["rev_scan"],
                                     **seed["rev_scan"]}

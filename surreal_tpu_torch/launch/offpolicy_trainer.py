@@ -69,7 +69,7 @@ from surreal_tpu_torch.learners.aggregator import nstep_transitions, to_device
 from surreal_tpu_torch.learners.base import check_scan_unroll
 from surreal_tpu_torch.learners.ddpg import LEARN_METRIC_KEYS, ou_noise_step
 from surreal_tpu_torch.learners.prefetch import Prefetcher
-from surreal_tpu_torch.ops.precision import torch_dtype
+from surreal_tpu_torch.ops.precision import LOSS_SCALE_KEYS, torch_dtype
 from surreal_tpu_torch.replay import build_replay
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.session.telemetry import Tracer
@@ -327,9 +327,12 @@ class OffPolicyTrainer:
                 state, replay_state, beta, generator, sample_draws
             )
         else:
+            # zeros under the keys an update reports, as the reference's
+            # skip branch gives them (the loss-scale keys with loss scaling)
+            loss_scale_keys = LOSS_SCALE_KEYS if self.learner.policy.loss_scaling else ()
             metrics = {
                 k: torch.zeros((), dtype=torch.float32, device=self.device)
-                for k in (*LEARN_METRIC_KEYS, "replay/sample_age_frac")
+                for k in (*LEARN_METRIC_KEYS, "replay/sample_age_frac", *loss_scale_keys)
             }
         metrics.update(self.replay.gauges(replay_state))
         n_done = traj["ep_done"].sum()

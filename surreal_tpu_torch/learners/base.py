@@ -1,7 +1,7 @@
 """Learner base, the port of ``surreal_tpu/learners/base.py``
 (``training_health``, ``recovery_scale``, ``make_optimizer_chain``,
-``set_recovery_lr_scale``, ``Learner``), plus optax's
-``incremental_update``.
+``set_recovery_lr_scale``, ``get_recovery_lr_scale``, ``Learner``), plus
+optax's ``incremental_update``.
 
 A learner is a set of functions over an explicit state (a NamedTuple of
 tensors and dicts of tensors), as in the reference:
@@ -14,19 +14,22 @@ tensors and dicts of tensors), as in the reference:
 The optimizer is functional too: optax's ``clip_by_global_norm -> adam ->
 recovery_scale`` written out over dicts of tensors, so that its state
 (Adam moments, step count, the recovery LR scale) rides the learner state
-like the reference's optax state does.
+like the reference's optax state does. Under loss scaling the chain is
+wrapped in ``ops/precision.py::DynamicLossScaling``, whose
+``LossScaleState`` holds the chain's state as ``inner``.
 """
 
 from __future__ import annotations
 
 import abc
 import copy
+import functools
 from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
 
 from surreal_tpu_torch.envs.base import EnvSpecs
-from surreal_tpu_torch.ops.precision import resolve_policy
+from surreal_tpu_torch.ops.precision import dynamic_loss_scaling, find_instances, global_norm, resolve_policy
 from surreal_tpu_torch.utils.device import resolve_device
 
 # Agent modes (parity: the reference's agent modes)
@@ -47,11 +50,6 @@ def check_scan_unroll(algo, name: str) -> None:
     reference accepts is accepted and changes nothing, and a value the
     reference refuses raises here too."""
     int(algo.get(name, 1))
-
-
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: sqrt of the sum of squares of every leaf."""
-    return torch.sqrt(sum(torch.sum(x * x) for x in tree.values()))
 
 
 def training_health(old_params: Params, new_params: Params, grad_norm: torch.Tensor) -> dict:
@@ -91,6 +89,19 @@ def linear_schedule(init: float, end: float, transition_steps: int) -> Callable[
     return schedule
 
 
+@functools.lru_cache(maxsize=None)
+def _round_scalar(x: float, dtype: torch.dtype) -> float:
+    return torch.tensor(x, dtype=dtype).item()
+
+
+def _weak(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX applies it to an array of ``dtype``: weakly
+    typed, so rounded to the array's dtype first (0.999 is 1.0 in
+    bfloat16). torch keeps such a scalar in float32 for bfloat16
+    arithmetic, so it is rounded here; float32 needs nothing."""
+    return x if dtype == torch.float32 else _round_scalar(float(x), dtype)
+
+
 class OptimizerChain:
     """``optax.chain(clip_by_global_norm(max_norm), adam(lr), recovery_scale())``
     with optax's exact rules:
@@ -100,6 +111,12 @@ class OptimizerChain:
     - Adam uses b1 0.9, b2 0.999, eps 1e-8, eps inside the root 0, and
       bias correction by ``1 - b**count``;
     - the update is finally multiplied by the state's ``recovery_scale``.
+
+    A leaf of another dtype than float32 (``model.dtype='bfloat16'``)
+    follows JAX's promotion as optax meets it: moments in the leaf's
+    dtype, every Python constant and the bias corrections rounded to it,
+    and the float32 recovery scale promoting the update to float32 (the
+    parameter is rounded back when the update is applied).
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
@@ -117,30 +134,42 @@ class OptimizerChain:
             recovery_scale=torch.ones((), dtype=torch.float32, device=some.device),
         )
 
-    def update(self, grads: Params, state: OptState) -> tuple[Params, OptState]:
-        g_norm = global_norm(grads)
+    def update(self, grads: Params, state: OptState, g_norm: torch.Tensor | None = None) -> tuple[Params, OptState]:
+        """One step; ``g_norm`` is ``global_norm(grads)`` where the caller
+        has already computed it (the clip reads it)."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < self.max_grad_norm
-        grads = {
-            k: torch.where(keep, g, (g / g_norm) * self.max_grad_norm) for k, g in grads.items()
-        }
         b1, b2 = self.b1, self.b2
-        mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in grads.items()}
-        nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k] for k, g in grads.items()}
         count = torch.clamp_max(state.count + 1, _INT32_MAX)  # optax safe_increment
         bc1 = 1 - torch.pow(b1, count.to(torch.float32))
         bc2 = 1 - torch.pow(b2, count.to(torch.float32))
         step = -(self.lr(state.count) if callable(self.lr) else self.lr)
-        updates = {
-            k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps) * step * state.recovery_scale
-            for k in grads
-        }
-        return updates, OptState(count=count, mu=mu, nu=nu, recovery_scale=state.recovery_scale)
+        rs = state.recovery_scale
+        consts = {torch.float32: (g_norm, self.max_grad_norm, 1 - b1, b1, 1 - b2, b2, bc1, bc2, self.eps, step)}
+        mu, nu, updates = {}, {}, {}
+        for k, g in grads.items():
+            dt = g.dtype
+            if dt not in consts:  # the constants as JAX applies them to a leaf of this dtype
+                consts[dt] = (
+                    g_norm.to(dt), *(_weak(x, dt) for x in (self.max_grad_norm, 1 - b1, b1, 1 - b2, b2)),
+                    bc1.to(dt), bc2.to(dt), _weak(self.eps, dt),
+                    step.to(dt) if isinstance(step, torch.Tensor) else _weak(step, dt),
+                )
+            norm, max_norm, c1, d1, c2, d2, bc1_k, bc2_k, eps, step_k = consts[dt]
+            g = torch.where(keep, g, (g / norm) * max_norm)
+            mu[k] = c1 * g + d1 * state.mu[k]
+            nu[k] = c2 * (g * g) + d2 * state.nu[k]
+            u = (mu[k] / bc1_k) / (torch.sqrt(nu[k] / bc2_k) + eps) * step_k
+            updates[k] = (u if dt == rs.dtype else u.to(rs.dtype)) * rs
+        return updates, OptState(count=count, mu=mu, nu=nu, recovery_scale=rs)
 
 
 def set_recovery_lr_scale(tree: Any, scale: float) -> Any:
     """``tree`` (a learner state) with ``scale`` written into the
     ``recovery_scale`` leaf of every :class:`OptState` in it (DDPG has
-    two). Each leaf gets its own scalar tensor, on its old leaf's device.
+    two; under loss scaling each sits in its ``LossScaleState.inner``).
+    Each leaf gets its own scalar tensor, on its old leaf's device.
     Between iterations only: the divergence guard's LR backoff
     (``launch/recovery.py``)."""
     if isinstance(tree, OptState):
@@ -153,26 +182,57 @@ def set_recovery_lr_scale(tree: Any, scale: float) -> Any:
     return tree
 
 
+def get_recovery_lr_scale(tree: Any) -> float | None:
+    """The recovery LR scale of the first :class:`OptState` in ``tree``
+    (in ``jax.tree`` order), or None when it has none. One device-to-host
+    read; for telemetry and tests, not the hot loop."""
+    found = find_instances(tree, OptState)
+    return float(found[0].recovery_scale) if found else None
+
+
+def param_dtypes_of(module: torch.nn.Module, params: Mapping[str, torch.Tensor], device) -> Params:
+    """``params`` detached onto ``device``, each leaf in the dtype of the
+    module's parameter of its name: float32, or ``model.dtype`` for the
+    trunks (``models/encoders.py::make_trunk``). How converted reference
+    weights, which arrive as float32, enter a learner state."""
+    dtypes = {k: v.dtype for k, v in module.named_parameters()}
+    return {k: v.detach().to(device, dtypes[k]) for k, v in params.items()}
+
+
 def apply_updates(params: Params, updates: Params) -> Params:
     return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
 
 
 def incremental_update(new: Params, old: Params, tau: float) -> Params:
     """``optax.incremental_update``: Polyak averaging with optax's grouping,
-    ``tau * new + (1 - tau) * old``."""
-    return {k: tau * new[k] + (1.0 - tau) * old[k] for k in new}
+    ``tau * new + (1 - tau) * old``, the constants weakly typed."""
+    return {k: _weak(tau, x.dtype) * x + _weak(1.0 - tau, x.dtype) * old[k] for k, x in new.items()}
 
 
-def make_optimizer_chain(lr, max_grad_norm: float, policy) -> OptimizerChain:
-    """The optimizer-chain constructor every learner uses: clip -> adam ->
-    recovery_scale. Loss scaling is not ported (its policies raise at
-    ``resolve_policy``)."""
+def chain_step(tx, grads: Params, opt_state, scale) -> tuple[Params, Any, torch.Tensor]:
+    """``tx.update`` on the gradients of the loss times ``scale`` (from
+    ``current_loss_scale``), plus the true gradient norm for the health
+    metrics, the reference's ``global_norm(grads) / scale``. Without loss
+    scaling that norm is the chain's clip norm too, so it is computed once."""
+    norm = global_norm(grads)
+    if isinstance(scale, torch.Tensor):
+        updates, opt_state = tx.update(grads, opt_state)
+        return updates, opt_state, norm / scale
+    updates, opt_state = tx.update(grads, opt_state, g_norm=norm)
+    return updates, opt_state, norm
+
+
+def make_optimizer_chain(lr, max_grad_norm: float, policy):
+    """The optimizer-chain constructor every learner uses (PPO, IMPALA and
+    both DDPG chains): clip -> adam -> recovery_scale, wrapped in dynamic
+    loss scaling when the policy asks for it (``ops/precision.py``)."""
+    inner = OptimizerChain(lr, max_grad_norm)
     if policy.loss_scaling:
-        raise NotImplementedError("dynamic loss scaling is not ported yet")
-    return OptimizerChain(lr, max_grad_norm)
+        return dynamic_loss_scaling(inner, policy)
+    return inner
 
 
-def optimizer_from_config(opt_cfg, policy) -> OptimizerChain:
+def optimizer_from_config(opt_cfg, policy):
     """The chain from a ``learner_config.optimizer`` subtree: a constant lr,
     or one annealed linearly to 0 over ``anneal_steps`` Adam steps."""
     if opt_cfg.lr_schedule == "linear":

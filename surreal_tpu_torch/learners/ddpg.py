@@ -9,9 +9,10 @@ Functional as in the reference: one :class:`DDPGState` carries live and
 target params and both optimizers' states; ``learn`` returns a new state.
 Randomness is explicit: ``act`` and :func:`ou_noise_step` take their
 standard normals from a ``torch.Generator`` or as given (``noise``,
-``normals``), so tests can inject the ones JAX drew. The 'bf16' policies
-and dynamic loss scaling raise (``ops/precision.py``), so the loss-scale
-telemetry of the reference is always empty here.
+``normals``), so tests can inject the ones JAX drew. Under dynamic loss
+scaling each chain carries its own scale: each loss is multiplied by its
+chain's, and the telemetry reports the actor's scale and both chains'
+overflows, as the reference does.
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ from surreal_tpu_torch.learners.base import (
     global_norm,
     incremental_update,
     make_optimizer_chain,
+    param_dtypes_of,
     training_health,
 )
 from surreal_tpu_torch.models.ddpg_net import DDPGActor, DDPGCritic
+from surreal_tpu_torch.ops.precision import current_loss_scale, loss_scale_metrics, scale_loss
 from surreal_tpu_torch.ops.running_stats import RunningStats, init_stats, normalize, update_stats
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.utils.asserts import check_learn_batch
@@ -96,6 +99,10 @@ def _both(actor: Params, critic: Params) -> Params:
     return {**{f"actor/{k}": v for k, v in actor.items()}, **{f"critic/{k}": v for k, v in critic.items()}}
 
 
+def _unscaled(grads: Params, scale) -> Params:
+    return grads if not isinstance(scale, torch.Tensor) else {k: g / scale for k, g in grads.items()}
+
+
 class DDPGLearner(Learner):
     def __init__(self, learner_config, env_specs: EnvSpecs, device: str | torch.device = "cuda"):
         super().__init__(learner_config, env_specs, device)
@@ -141,8 +148,8 @@ class DDPGLearner(Learner):
         """A fresh state around ``actor_params`` and ``critic_params``
         (targets equal to them, new optimizer states and obs filter); how
         converted reference weights enter the port."""
-        actor_params = {k: v.detach().to(self.device, torch.float32) for k, v in actor_params.items()}
-        critic_params = {k: v.detach().to(self.device, torch.float32) for k, v in critic_params.items()}
+        actor_params = param_dtypes_of(self.actor, actor_params, self.device)
+        critic_params = param_dtypes_of(self.critic, critic_params, self.device)
         obs_shape = self.specs.obs.shape if self._use_obs_filter else (1,)
         return DDPGState(
             actor_params=actor_params,
@@ -227,16 +234,19 @@ class DDPGLearner(Learner):
             q_next = self.critic_apply(state.target_critic_params, next_obs, next_a)
             target = batch["reward"] + batch["discount"] * q_next
 
+        # each chain's own dynamic loss scale (1.0 without loss scaling)
+        c_scale = current_loss_scale(state.critic_opt)
+        a_scale = current_loss_scale(state.actor_opt)
         c_leaves = {k: v.detach().requires_grad_(True) for k, v in state.critic_params.items()}
         td = self.critic_apply(c_leaves, obs, batch["action"]) - target
         c_loss = (is_w * td**2).mean()
-        c_grads = dict(zip(c_leaves, torch.autograd.grad(c_loss, list(c_leaves.values()))))
+        c_grads = dict(zip(c_leaves, torch.autograd.grad(scale_loss(c_loss, c_scale), list(c_leaves.values()))))
 
         # actor: deterministic policy gradient through the live critic
         a_leaves = {k: v.detach().requires_grad_(True) for k, v in state.actor_params.items()}
         a = self.actor_apply(a_leaves, obs)
         a_loss = -(is_w * self.critic_apply(state.critic_params, obs, a)).mean()
-        a_grads = dict(zip(a_leaves, torch.autograd.grad(a_loss, list(a_leaves.values()))))
+        a_grads = dict(zip(a_leaves, torch.autograd.grad(scale_loss(a_loss, a_scale), list(a_leaves.values()))))
 
         with torch.no_grad():
             td = td.detach()
@@ -275,12 +285,14 @@ class DDPGLearner(Learner):
                 "loss/actor": a_loss.detach(),
                 "q/mean_target": target.mean(),
                 "q/mean_abs_td": torch.abs(td).mean(),
-                # one health set over BOTH networks
+                # one health set over BOTH networks, each tree's gradients
+                # unscaled by its own scale (inf and nan survive)
                 **training_health(
                     _both(state.actor_params, state.critic_params),
                     _both(actor_params, critic_params),
-                    global_norm(_both(a_grads, c_grads)),
+                    global_norm(_both(_unscaled(a_grads, a_scale), _unscaled(c_grads, c_scale))),
                 ),
+                **loss_scale_metrics({"actor": actor_opt, "critic": critic_opt}),
             }
             # per-sample |TD| for the prioritized-replay refresh; the
             # off-policy trainer pops it before treating metrics as scalars

@@ -13,9 +13,10 @@ launches its CUDA kernel for CUDA tensors and runs its plain version for
 CPU tensors. With ``model.encoder.kind='trajectory'`` the model is the
 trajectory transformer: acting goes through ``act_init``/``act_step``
 (``learners/seq_policy.py``) and the learn takes one extended [B, T+1]
-pass, whose shifted values are V-trace's bootstrap. Not ported yet: the
-'bf16' precision policies (dynamic loss scaling), which raise at
-construction.
+pass, whose shifted values are V-trace's bootstrap. Under dynamic loss
+scaling ('bf16', 'bf16_fp8') the differentiated loss is multiplied by
+the scale carried in the optimizer state, as in the reference; IMPALA
+stages nothing in bf16 (its learn reads the batch once).
 """
 
 from __future__ import annotations
@@ -33,14 +34,16 @@ from surreal_tpu_torch.learners.base import (
     OptState,
     Params,
     apply_updates,
+    chain_step,
     check_scan_unroll,
-    global_norm,
     optimizer_from_config,
+    param_dtypes_of,
     training_health,
 )
 from surreal_tpu_torch.learners.seq_policy import SequenceActingMixin, build_seq_model
 from surreal_tpu_torch.models.ppo_net import CategoricalPPOModel, PPOModel
 from surreal_tpu_torch.ops import distributions as D
+from surreal_tpu_torch.ops.precision import current_loss_scale, loss_scale_metrics, scale_loss
 from surreal_tpu_torch.ops.running_stats import RunningStats, init_stats, normalize, update_stats
 from surreal_tpu_torch.ops.vtrace import VTraceOutput, vtrace_nextobs, vtrace_nextobs_assoc
 from surreal_tpu_torch.session.config import Config
@@ -121,7 +124,7 @@ class IMPALALearner(SequenceActingMixin, Learner):
     def state_from_params(self, params: Params) -> IMPALAState:
         """A fresh state (new optimizer state and obs filter) around
         ``params``; how converted reference weights enter the port."""
-        params = {k: v.detach().to(self.device, torch.float32) for k, v in params.items()}
+        params = param_dtypes_of(self.model, params, self.device)
         obs_shape = self.specs.obs.shape if self._use_obs_filter else (1,)
         return IMPALAState(
             params=params,
@@ -210,10 +213,13 @@ class IMPALALearner(SequenceActingMixin, Learner):
         pg_loss = -(vt.pg_advantages * logp).mean()
         v_loss = 0.5 * ((values - vt.vs) ** 2).mean()
         total = pg_loss + algo.value_coeff * v_loss - algo.entropy_coeff * entropy
-        grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+        # the dynamic loss scale from the carried optimizer state (1.0
+        # without loss scaling); the chain unscales and skips overflows
+        scale = current_loss_scale(state.opt_state)
+        grads = dict(zip(leaves, torch.autograd.grad(scale_loss(total, scale), list(leaves.values()))))
 
         with torch.no_grad():
-            updates, opt_state = self.tx.update(grads, state.opt_state)
+            updates, opt_state, grad_norm = chain_step(self.tx, grads, state.opt_state, scale)
             params = apply_updates(state.params, updates)
             new_state = IMPALAState(
                 params=params,
@@ -226,7 +232,9 @@ class IMPALALearner(SequenceActingMixin, Learner):
                 "loss/value": v_loss.detach(),
                 "policy/entropy": entropy.detach(),
                 "policy/rho_mean": torch.exp(logp.detach() - batch["behavior_logp"]).mean(),
-                **training_health(state.params, params, global_norm(grads)),
+                # the true gradient's norm: inf and nan survive the division
+                **training_health(state.params, params, grad_norm),
+                **loss_scale_metrics(opt_state),
             }
         return new_state, metrics
 

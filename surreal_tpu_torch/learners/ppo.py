@@ -42,15 +42,17 @@ from surreal_tpu_torch.learners.base import (
     OptState,
     Params,
     apply_updates,
+    chain_step,
     check_scan_unroll,
-    global_norm,
     optimizer_from_config,
+    param_dtypes_of,
     training_health,
 )
 from surreal_tpu_torch.learners.seq_policy import SequenceActingMixin, build_seq_model
 from surreal_tpu_torch.models.ppo_net import CategoricalPPOModel, PPOModel
 from surreal_tpu_torch.ops import distributions as D
 from surreal_tpu_torch.ops.gae import gae_advantages_masked
+from surreal_tpu_torch.ops.precision import current_loss_scale, loss_scale_metrics, scale_loss
 from surreal_tpu_torch.ops.returns import reverse_linear_scan_assoc
 from surreal_tpu_torch.ops.running_stats import RunningStats, init_stats, normalize, update_stats
 from surreal_tpu_torch.session.config import Config
@@ -168,7 +170,7 @@ class PPOLearner(SequenceActingMixin, Learner):
     def state_from_params(self, params: Params) -> PPOState:
         """A fresh state (new optimizer state and obs filter) around
         ``params``; how converted reference weights enter the port."""
-        params = {k: v.detach().to(self.device, torch.float32) for k, v in params.items()}
+        params = param_dtypes_of(self.model, params, self.device)
         obs_shape = self.specs.obs.shape if self._use_obs_filter else (1,)
         return PPOState(
             params=params,
@@ -261,6 +263,10 @@ class PPOLearner(SequenceActingMixin, Learner):
             "value_old": values.reshape(N),
             **self._behavior(batch, lambda x: x.reshape(N, -1)),
         }
+        # the obs minibatch array in the policy's staging dtype (bf16 under
+        # 'bf16' and 'bf16_fp8'): the minibatch gathers move half the bytes,
+        # rounded where the model's compute-dtype cast would round them
+        flat = self.policy.cast_stage(flat, keys=("obs",))
         sgd_out = self._sgd_epochs(state, flat, N, algo.num_minibatches, generator, perms)
         return self._finalize(state, obs_stats, sgd_out, values, value_targets, advantages)
 
@@ -383,11 +389,15 @@ class PPOLearner(SequenceActingMixin, Learner):
                 policy_coeff = torch.where(stopped, 0.0, 1.0)
                 leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
                 total, aux = self._loss_fn(leaves, mb, state.kl_beta, policy_coeff)
-                grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+                # the dynamic loss scale, read from the carried optimizer
+                # state (a power of two; 1.0 without loss scaling): only the
+                # differentiated total is scaled, the chain unscales
+                scale = current_loss_scale(opt_state)
+                grads = dict(zip(leaves, torch.autograd.grad(scale_loss(total, scale), list(leaves.values()))))
                 with torch.no_grad():
                     aux = {k: v.detach() for k, v in aux.items()}
-                    aux["grad_norm"] = global_norm(grads)
-                    updates, opt_state = self.tx.update(grads, opt_state)
+                    # the true gradient's norm; inf and nan survive the division
+                    updates, opt_state, aux["grad_norm"] = chain_step(self.tx, grads, opt_state, scale)
                     params = apply_updates(params, updates)
                     stopped = stopped | (aux["kl"] > algo.kl_early_stop * algo.kl_target)
                 auxs.append(aux)
@@ -435,6 +445,8 @@ class PPOLearner(SequenceActingMixin, Learner):
             "adv/mean_abs": torch.abs(advantages).mean(),
         }
         metrics.update(training_health(state.params, params, auxs["grad_norm"].mean()))
+        # the loss-scale telemetry (device scalars; none without loss scaling)
+        metrics.update(loss_scale_metrics(opt_state))
         return new_state, metrics
 
     # -- sequence learning ---------------------------------------------------
@@ -487,5 +499,7 @@ class PPOLearner(SequenceActingMixin, Learner):
             "value_old": bt(values),
             **self._behavior(batch, bt),
         }
+        # the staging cast of the memoryless path (uint8 pixels pass through)
+        data = self.policy.cast_stage(data, keys=("obs",))
         sgd_out = self._sgd_epochs(state, data, B, algo.num_minibatches, generator, perms)
         return self._finalize(state, obs_stats, sgd_out, values, value_targets, advantages)

@@ -3,9 +3,14 @@
 that sees the action concatenated after its first obs layer, with a
 flax-exact LayerNorm after each hidden layer.
 
-Parameters are float32; layers compute in ``compute_dtype`` with explicit
-casts (see ``models/encoders.py``). Both heads start uniform in
-[0, 3e-3) with a zero bias, as flax's ``uniform(scale=3e-3)`` draws them.
+Parameters are float32, except the trunks' under ``model.dtype`` (the
+actor's trunk, and the critic's CNN stem for pixel obs): the reference
+pins every other layer to ``param_dtype=float32``, the actor's head
+included. Layers compute in ``compute_dtype`` with explicit casts (see
+``models/encoders.py``). Under 'bf16_fp8' the trunks' dense layers and
+the critic's hidden layers take the fp8 path; the heads do not. Both
+heads start uniform in [0, 3e-3) with a zero bias, as flax's
+``uniform(scale=3e-3)`` draws them.
 """
 
 from __future__ import annotations
@@ -63,10 +68,9 @@ class DDPGCritic(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if torch_dtype(model_cfg["dtype"]) != torch.float32:
-            raise NotImplementedError("the port keeps parameters in float32 only")
         cd = torch_dtype(model_cfg["compute_dtype"])
         self.compute_dtype = cd
+        self.use_fp8 = bool(model_cfg.get("fp8", False))
         self.act = ACTIVATIONS[model_cfg["activation"]]
         hidden = tuple(model_cfg["critic_hidden"])
         if model_cfg["cnn"]["enabled"]:
@@ -86,7 +90,7 @@ class DDPGCritic(nn.Module):
         self.q_head = uniform_init(nn.Linear(q_in, 1), HEAD_INIT_SCALE, generator)
 
     def _block(self, i: int, h: torch.Tensor) -> torch.Tensor:
-        h = dense(h, self.layers[i], self.compute_dtype)
+        h = dense(h, self.layers[i], self.compute_dtype, fp8=self.use_fp8)
         if self.norms is not None:
             h = self.norms[i](h)
         return self.act(h)

@@ -3,7 +3,9 @@
 ``make_trunk``), plus :class:`LayerNorm`, flax's ``nn.LayerNorm`` as it
 computes.
 
-Parameters are kept in float32; activations run in ``compute_dtype``.
+Parameters are kept in float32 unless ``model.dtype`` names another
+dtype (``make_trunk`` then casts the trunk's parameters; heads stay
+float32, as in the reference); activations run in ``compute_dtype``.
 Every layer casts its input AND its weight and bias to the compute dtype
 explicitly, as flax ``Dense(dtype=...)`` and ``Conv(dtype=...)`` do, rather
 than leaving it to ``torch.autocast``, whose op lists round at other places.
@@ -12,6 +14,10 @@ rounding to the compute dtype); with ``fused_bias=False`` it is added
 after the product is rounded, as flax does (two roundings, one more
 elementwise op). The trajectory transformer takes the latter: its
 LayerNorms amplify a bf16 rounding flip past the models' 2e-2 bar.
+Under the 'bf16_fp8' policy the trunks' dense layers (not the convolutions
+and not the heads) take the fp8 path of ``ops/precision.py::fp8_linear``,
+which is flax's Dense with the reference's ``fp8_dot_general``: the bias
+goes after the rounded product there too.
 
 Layout: pixel observations are NHWC ([..., H, W, C], what the envs emit and
 what the reference's convolutions take) at every public function. The CNN
@@ -29,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from surreal_tpu_torch.ops.precision import torch_dtype
+from surreal_tpu_torch.ops.precision import fp8_linear, torch_dtype
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
@@ -50,10 +56,15 @@ def orthogonal_init(
     return layer
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, fused_bias: bool = True) -> torch.Tensor:
+def dense(
+    x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, fused_bias: bool = True, fp8: bool = False
+) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype``: input, weight and bias cast;
     ``fused_bias=False`` adds the bias after the product is rounded to
-    ``dtype``, as flax's Dense does."""
+    ``dtype``, as flax's Dense does; ``fp8`` takes the product through
+    :func:`fp8_linear` (the bias after it)."""
+    if fp8:
+        return fp8_linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
     if fused_bias:
         return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
@@ -95,7 +106,8 @@ class LayerNorm(nn.Module):
 
 class MLP(nn.Module):
     """Plain MLP trunk with orthogonal init (gain sqrt(2)), optionally with
-    a :class:`LayerNorm` after each dense layer, before the activation."""
+    a :class:`LayerNorm` after each dense layer, before the activation;
+    ``use_fp8`` puts every dense layer on the fp8 path."""
 
     def __init__(
         self,
@@ -105,10 +117,12 @@ class MLP(nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
         generator: torch.Generator | None = None,
         use_layer_norm: bool = False,
+        use_fp8: bool = False,
     ):
         super().__init__()
         self.act = ACTIVATIONS[activation]
         self.compute_dtype = compute_dtype
+        self.use_fp8 = use_fp8
         widths = [in_dim, *hidden]
         self.layers = nn.ModuleList(
             orthogonal_init(nn.Linear(a, b), generator=generator)
@@ -122,7 +136,7 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         for i, layer in enumerate(self.layers):
-            x = dense(x, layer, self.compute_dtype)
+            x = dense(x, layer, self.compute_dtype, fp8=self.use_fp8)
             if self.norms is not None:
                 x = self.norms[i](x)
             x = self.act(x)
@@ -134,7 +148,8 @@ class NatureCNN(nn.Module):
     with ReLU, then one dense layer with ReLU. uint8 input is scaled to
     [0, 1] and cast to the compute dtype, rounding as the reference does.
     ``fused_bias=False`` adds each bias after the rounded product (see the
-    module doc)."""
+    module doc); ``use_fp8`` puts the dense layer (not the convolutions)
+    on the fp8 path, as the reference does."""
 
     def __init__(
         self,
@@ -146,11 +161,13 @@ class NatureCNN(nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
         generator: torch.Generator | None = None,
         fused_bias: bool = True,
+        use_fp8: bool = False,
     ):
         super().__init__()
         h, w, c = obs_shape
         self.compute_dtype = compute_dtype
         self.fused_bias = fused_bias
+        self.use_fp8 = use_fp8
         self.strides = tuple(strides)
         convs = []
         for ch, k, s in zip(channels, kernels, strides):
@@ -179,7 +196,7 @@ class NatureCNN(nn.Module):
                 x = F.conv2d(x, conv.weight.to(cd), stride=s) + conv.bias.to(cd)[:, None, None]
             x = F.relu(x)
         x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # flatten in (H, W, C) order
-        return F.relu(dense(x, self.dense, cd, self.fused_bias))
+        return F.relu(dense(x, self.dense, cd, self.fused_bias, self.use_fp8))
 
 
 def cnn_from_config(
@@ -188,6 +205,7 @@ def cnn_from_config(
     compute_dtype: torch.dtype,
     generator: torch.Generator | None = None,
     fused_bias: bool = True,
+    use_fp8: bool = False,
 ) -> NatureCNN:
     """NatureCNN from a ``model.cnn`` subtree."""
     return NatureCNN(
@@ -199,6 +217,7 @@ def cnn_from_config(
         compute_dtype=compute_dtype,
         generator=generator,
         fused_bias=fused_bias,
+        use_fp8=use_fp8,
     )
 
 
@@ -209,17 +228,21 @@ def make_trunk(
     generator: torch.Generator | None = None,
 ) -> MLP | NatureCNN:
     """Build the obs trunk from a materialized ``learner_config.model``
-    subtree (dtypes already resolved by the precision policy): the CNN stem
-    for pixel obs ([H, W, C]), an MLP for state obs otherwise."""
-    if torch_dtype(model_cfg["dtype"]) != torch.float32:
-        raise NotImplementedError("the port keeps parameters in float32 only")
+    subtree (dtypes and the fp8 flag already resolved by the precision
+    policy): the CNN stem for pixel obs ([H, W, C]), an MLP for state obs
+    otherwise. Its parameters are cast to ``model.dtype`` (flax's
+    ``param_dtype``), after a float32 draw."""
     compute_dtype = torch_dtype(model_cfg["compute_dtype"])
+    use_fp8 = bool(model_cfg.get("fp8", False))
     if model_cfg["cnn"]["enabled"]:
-        return cnn_from_config(model_cfg["cnn"], obs_shape, compute_dtype, generator)
-    return MLP(
-        math.prod(obs_shape),
-        hidden=tuple(hidden),
-        activation=model_cfg["activation"],
-        compute_dtype=compute_dtype,
-        generator=generator,
-    )
+        trunk = cnn_from_config(model_cfg["cnn"], obs_shape, compute_dtype, generator, use_fp8=use_fp8)
+    else:
+        trunk = MLP(
+            math.prod(obs_shape),
+            hidden=tuple(hidden),
+            activation=model_cfg["activation"],
+            compute_dtype=compute_dtype,
+            generator=generator,
+            use_fp8=use_fp8,
+        )
+    return trunk.to(torch_dtype(model_cfg["dtype"]))

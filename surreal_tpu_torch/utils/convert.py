@@ -49,7 +49,7 @@ state is not converted.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -198,3 +198,20 @@ def ddpg_params_from_jax(
         critic[f"norms.{i}.bias"] = _tensor(ctree[f"LayerNorm_{i}"]["bias"])
     _dense(ctree[f"Dense_{n_dense - 1}"], "q_head", critic)
     return actor, critic
+
+
+def loss_scale_state_from_jax(jax_state: Any, inner_opt_state) -> "LossScaleState":
+    """The port's ``LossScaleState`` with the scale, good steps and
+    overflows of the reference's (numpy or JAX scalars) around the port's
+    own ``inner_opt_state``, so that a test can start both packages from
+    the same point of the schedule (the optimizer's moments are not
+    converted)."""
+    from surreal_tpu_torch.ops.precision import LossScaleState
+
+    device = inner_opt_state.count.device
+    return LossScaleState(
+        scale=torch.full((), float(np.asarray(jax_state.scale)), dtype=torch.float32, device=device),
+        good_steps=torch.full((), int(np.asarray(jax_state.good_steps)), dtype=torch.int32, device=device),
+        overflows=torch.full((), int(np.asarray(jax_state.overflows)), dtype=torch.int32, device=device),
+        inner=inner_opt_state,
+    )

@@ -112,10 +112,11 @@ def _assert_metrics_close(t_metrics, j_metrics, **tol):
         np.testing.assert_allclose(float(t_metrics[k]), float(j_metrics[k]), err_msg=k, **tol)
 
 
-@pytest.mark.parametrize("precision,pixels", [("f32", False), ("mixed", False), ("f32", True)])
+@pytest.mark.parametrize("precision,pixels", [("f32", False), ("mixed", False), ("f32", True), ("bf16_fp8", False)])
 def test_ddpg_nets_forward_match_jax(precision, pixels):
     """Converted weights give the reference's Q and actions: 'f32' to 1e-6;
-    'mixed' to the PPO model test's bf16 bar, 2e-2 (both compute in bf16 with f32
+    'mixed' and 'bf16_fp8' (the trunk's and the critic's hidden layers on
+    the fp8 path) to the PPO model test's bf16 bar, 2e-2 (both compute in bf16 with f32
     accumulation but round the bias add, the LayerNorm output cast and the
     tanh at other places). The pixel case puts a (narrow) NatureCNN stem
     in front of both nets, on uint8 frames."""
@@ -234,8 +235,6 @@ def test_ddpg_learn_matches_jax(target):
 
 def test_ddpg_rejects_unported_options():
     """Options the port does not carry raise instead of being ignored."""
-    with pytest.raises(NotImplementedError):
-        build_learner(Config(algo=Config(name="ddpg", precision="bf16")), _specs()[1], device="cpu")
     jcfg, tcfg = _slice_configs("fifo")
     with pytest.raises(NotImplementedError):
         OffPolicyTrainer(tcfg, device="cpu")

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.test_torch_precision as tprec
 from surreal_tpu.envs.base import ArraySpec as JaxArraySpec
 from surreal_tpu.envs.base import EnvSpecs as JaxEnvSpecs
 from surreal_tpu.envs.jax.pong import Pong as JaxPong
@@ -162,13 +163,43 @@ def test_impala_learn_matches_jax(kind, knobs):
         assert int(t_new.obs_stats.count) == 0  # no obs filter for uint8 pixels
 
 
-@pytest.mark.parametrize("algo,model", [
-    ({"precision": "bf16_fp8"}, {}),
-    ({"precision": "bf16"}, {}),
-])
-def test_impala_rejects_unported_options(algo, model):
-    with pytest.raises(NotImplementedError):
-        build_learner(Config(algo=Config(name="impala", **algo), model=Config(model)), PongSmall.specs, device="cpu")
+# the bf16 bars of tests/test_torch_precision.py: both compute in bf16 and
+# round at other places (2e-2, the models' forward bar); one Adam step
+# moves a weight by lr * g / |g|, so each element's update is held to
+# JAX's within lr / 10 but at a few sign flips where |g| is near 0
+# (measured: 'bf16' 0.16% of the elements, at most 0.08% of their leaf's
+# largest |g|; 'bf16_fp8' 0.52% and 2.7%; the bars are about twice that)
+BF16_METRIC_TOL = dict(rtol=2e-2, atol=2e-2)
+IMPALA_LR = 6e-4
+
+
+@pytest.mark.parametrize("precision,max_flips,near_zero", [("bf16", 5e-3, 1e-2), ("bf16_fp8", 1e-2, 5e-2)])
+def test_impala_learn_matches_jax_under_precision(precision, max_flips, near_zero):
+    """One learn on pong16 (CNN stem, its dense layer on the fp8 path under
+    'bf16_fp8') under dynamic loss scaling, against JAX's: the metrics at
+    the bf16 bar, each element's update at the bars above, the loss-scale
+    state and metrics equal."""
+    T, B = 8, 6
+    jl, tl = _learners("pong16", {"precision": precision})
+    batch = _batch("pong16", T, B, seed=3)
+    params = _params(jl, batch["obs"][0, :1], seed=4)
+    j_state = JaxIMPALAState(
+        params=params, opt_state=jl.tx.init(params), obs_stats=JRS.init_stats((1,)),
+        iteration=jnp.zeros((), jnp.int32),
+    )
+    j_new, j_metrics = jax.jit(jl.learn)(j_state, jax.tree.map(jnp.asarray, batch), jax.random.key(0))
+    t_new, t_metrics = tl.learn(tl.state_from_params(categorical_params_from_jax(params)),
+                                jax.tree.map(torch.from_numpy, batch))
+    assert float(t_metrics["precision/loss_scale"]) == float(j_metrics["precision/loss_scale"]) == 2.0**15
+    _assert_metrics_close(t_metrics, j_metrics, **BF16_METRIC_TOL)
+    tprec.assert_one_adam_step_matches(
+        categorical_params_from_jax(params), t_new.params, categorical_params_from_jax(_np_tree(j_new.params)),
+        categorical_params_from_jax(_np_tree(tprec._jax_adam(j_new.opt_state).mu)), IMPALA_LR, max_flips, near_zero)
+    for f in ("scale", "good_steps", "overflows"):
+        assert float(getattr(t_new.opt_state, f)) == float(getattr(j_new.opt_state, f)), f
+
+
+def test_impala_rejects_unported_options():
     with pytest.raises(ValueError, match="vtrace_impl"):
         build_learner(Config(algo=Config(name="impala", vtrace_impl="scan")), PongSmall.specs, device="cpu")
 

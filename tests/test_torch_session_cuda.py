@@ -6,7 +6,9 @@ collects on a machine that has the port and a card only:
 
 - a state saved from the card restores onto the card bit-equal;
 - an iteration off every cadence, through the engine and the hooks,
-  makes no host sync (``torch.cuda.set_sync_debug_mode("error")``)."""
+  makes no host sync (``torch.cuda.set_sync_debug_mode("error")``);
+- a 'bf16' PPO learn (dynamic loss scaling: the scale read, the skip
+  decided and the state chosen on the device) makes no host sync."""
 
 import pytest
 import torch
@@ -92,3 +94,44 @@ def test_off_cadence_iteration_makes_no_host_sync(tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert seen == [2, 4]
+
+
+@pytest.mark.cuda
+def test_bf16_learn_makes_no_host_sync():
+    """One 'bf16' PPO learn (4 epochs x 4 minibatches, each a loss-scaled
+    step) on the card under set_sync_debug_mode('error'), after a first
+    learn that builds the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from surreal_tpu_torch.envs.base import ArraySpec, EnvSpecs
+    from surreal_tpu_torch.learners import build_learner
+
+    T, B, obs_dim, act_dim = 8, 16, 17, 4
+    f32 = np.dtype(np.float32)
+    specs = EnvSpecs(obs=ArraySpec((obs_dim,), f32), action=ArraySpec((act_dim,), f32))
+    learner = build_learner(Config(algo=Config(name="ppo", precision="bf16")), specs, device="cuda")
+    g = torch.Generator().manual_seed(1)
+    batch = {
+        "obs": torch.randn(T, B, obs_dim, generator=g), "next_obs": torch.randn(T, B, obs_dim, generator=g),
+        "action": torch.randn(T, B, act_dim, generator=g), "reward": torch.randn(T, B, generator=g),
+        "done": torch.zeros(T, B, dtype=torch.bool), "terminated": torch.zeros(T, B, dtype=torch.bool),
+        "behavior_logp": torch.randn(T, B, generator=g) - 3.0,
+        "behavior": {"mean": torch.zeros(T, B, act_dim), "log_std": torch.full((T, B, act_dim), -0.5)},
+    }
+    batch = {k: ({a: b.cuda() for a, b in v.items()} if isinstance(v, dict) else v.cuda()) for k, v in batch.items()}
+    from surreal_tpu_torch.learners.ppo import _block_layout
+
+    domain = 4 * _block_layout(T * B, 4, obs_dim * 2)
+    perms = torch.stack([torch.randperm(domain, generator=g) for _ in range(4)]).cuda()
+    state = learner.init(torch.Generator().manual_seed(0))
+    learner.learn(state, batch, perms=perms)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, metrics = learner.learn(state, batch, perms=perms)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(metrics["precision/loss_scale"]) == 2.0**15 and float(metrics["health/nonfinite"]) == 0.0
+    assert int(new.opt_state.good_steps) == 16
