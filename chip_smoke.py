@@ -21,7 +21,9 @@ inference server: PPO on cheetah-run, IMPALA on CartPole and on 256
 pixel envs), the profiling and cost accounting of a session (the
 profiler captures, the perf gauges, the diag and trace readers), and
 the 'bf16' and 'bf16_fp8' precision policies (dynamic loss scaling, bf16
-staging and replay storage, the fp8 Dense path). Five kernels are built
+staging and replay storage, the fp8 Dense path), and live parameter
+publishing with the processes that consume it (``actor``, ``eval
+--follow``) and ``eval --best`` with its video. Five kernels are built
 and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
@@ -176,6 +178,31 @@ and checked. Phases, each printing one JSON line:
              restored state (its loss-scale state included) bit-equal to
              the saved one, then a relaunch at 'mixed' stopped by
              PrecisionMismatchError.
+11. publish - live parameter publishing (the parameter service over the
+             standard-library sockets, the agents, the actor and eval
+             subcommands): ``train ppo jax:lift`` at the north-star
+             geometry with ``session_config.publish.enabled`` (every
+             iteration; metrics every 2, a checkpoint every 4,
+             ``env_config.video`` on) while ``python -m surreal_tpu_torch
+             actor --folder F`` (64 envs on the card, a fetch every 10
+             acts, from version 2, 768 episodes) and ``eval F --follow
+             --rounds 2`` run as processes of their own; the session
+             stops at the first boundary after both have exited (4 to 40
+             iterations), GAE once a learn, iteration 3 under
+             set_sync_debug_mode("error") but for its publish, and every
+             publish one host sync; after each boundary a client on the
+             card fetches from the session's server, each view bit-equal
+             to the one published under its version; the actor must see
+             at least 2 versions; then ``eval F --best`` in this process,
+             its episode recorded (``.npz`` without imageio) and read
+             back; ``train ddpg jax:lift`` at the headline DDPG geometry
+             with prioritized replay and publishing every iteration while
+             a DDPG actor process acts from the actor-only view (gather
+             and scatter 64 each an iteration); and the north-star with
+             publishing every 2nd iteration and no consumer, the
+             publishing iterations' median against the others' in one
+             run. Publish ms p50 (encode and send, the ``param-publish``
+             span), fetch ms p50 and the bytes of a fetch are printed.
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -3212,6 +3239,302 @@ def phase_precision(M, gae, vtrace, RR) -> dict:
     }
 
 
+# -- live parameter publishing: the parameter service, agents, actor and eval
+
+PUBLISH_MIN_ITERS, PUBLISH_MAX_ITERS = 4, 40  # a live session's iterations: at least, at most
+PUBLISH_ACTOR_ENVS, PUBLISH_ACTOR_EPISODES = 64, 768  # the actor: 64 jax:lift envs, 12 episodes each
+PUBLISH_EVAL_EPISODES = 64
+PUBLISH_CONSUMER_S = 240  # each consumer's --wait, and this script's wait for it to exit
+PUBLISH_TIMED_ITERS = 8  # the on/off timing run: publish every 2nd of 2 warm-up + 8 timed iterations
+
+
+def port_process(argv: list[str], log: str) -> subprocess.Popen:
+    """``python -m surreal_tpu_torch <argv>`` from this checkout, stdout
+    and stderr to ``log`` (a file, so a full pipe can never stall it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "surreal_tpu_torch", *argv], cwd=root, env=env,
+                                stdout=f, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_process(proc: subprocess.Popen, log: str, name: str) -> list[dict]:
+    """Wait (bounded) for ``proc``; its JSON lines, or an error with the
+    end of its log. A process still running at the deadline is killed."""
+    try:
+        proc.wait(timeout=PUBLISH_CONSUMER_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(log) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n{text[-3000:]}")
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def live_session(M, tag: str, argv: list[str], consumers: dict, counters: dict, guard_iteration: int | None = None):
+    """The ``train`` CLI in this process with publishing on, while each of
+    ``consumers`` (name -> argv of a subcommand) runs as its own process
+    against the session. The session stops at the first metrics window
+    after every consumer has exited (after at least PUBLISH_MIN_ITERS
+    iterations; the CLI's --total-steps bounds it). Every publish is
+    wrapped: its host syncs counted (under set_sync_debug_mode("warn")) and
+    a clone of its view kept by version. After each boundary, a
+    ParameterClient on the card fetches from the session's server, and
+    each fetched view must be bit-equal to the view published under its
+    version. ``guard_iteration``: that iteration runs under
+    set_sync_debug_mode("error") from its step through its boundary,
+    the publish excepted. ``counters``: kernel -> (wrapper, launches an
+    iteration)."""
+    import warnings
+
+    from surreal_tpu_torch.distributed.param_service import ParameterClient, ParameterPublisher
+    from surreal_tpu_torch.utils.tree import tree_map
+
+    views, publish_syncs, fetched, consumer_procs = {}, [], [], {}
+    client, iterations = [], []
+
+    def record_publish(orig):
+        def publish(self, params):
+            mode = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    version = orig(self, params)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            publish_syncs.append(sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+                                     for w in caught))
+            views[version] = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, params)
+            return version
+        return publish
+
+    def boundary(orig):
+        def end_iteration(self, iteration, *a, **kw):
+            m, stop = orig(self, iteration, *a, **kw)
+            iterations.append(iteration)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            if not client and views:
+                client.append(ParameterClient(self._param_server.address, next(iter(views.values()))))
+            if client:
+                t0 = time.perf_counter()
+                view = client[0].fetch(timeout_ms=10_000)
+                ms = (time.perf_counter() - t0) * 1e3
+                if view is not None:
+                    v = client[0].version
+                    fetched.append({"version": v, "ms": ms,
+                                    "bit_equal": tensors_equal(view, views[v], M.tree_flatten),
+                                    "on_card": all(x.device.type == "cuda" for x in M.tree_flatten(view).values()
+                                                   if isinstance(x, torch.Tensor))})
+            torch.cuda.set_sync_debug_mode(mode)
+            done = all(p.poll() is not None for p, _ in consumer_procs.values())
+            return m, stop or (done and iteration >= PUBLISH_MIN_ITERS)
+        return end_iteration
+
+    calls = []
+
+    def guard(orig):
+        def train_iter(self, *a, **kw):
+            calls.append(iteration := len(calls) + 1)
+            torch.cuda.set_sync_debug_mode("error" if iteration == guard_iteration else 0)
+            return orig(self, *a, **kw)
+        return train_iter
+
+    folder = argv[argv.index("--folder") + 1]
+    trainer_cls = M.OffPolicyTrainer if argv[1] == "ddpg" else M.Trainer
+    for name, consumer in consumers.items():
+        log = os.path.join(_SCRATCH[0], f"{tag}_{name}.log")
+        consumer_procs[name] = (port_process(consumer, log), log)
+    for wrapper, _ in counters.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with Patched(ParameterPublisher, "publish", record_publish), Patched(M.SessionHooks, "end_iteration", boundary), \
+                Patched(trainer_cls, "_device_train_iter", guard):
+            final = run_cli(M, argv)
+    except BaseException:
+        for proc, _ in consumer_procs.values():
+            proc.kill()
+            proc.wait()
+        raise
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for c in client:
+            c.close()
+    train_s = time.perf_counter() - t0
+    outputs = {name: finish_process(proc, log, name) for name, (proc, log) in consumer_procs.items()}
+    n = len(iterations)
+    launches = {name: wrapper.launches for name, (wrapper, _) in counters.items()}
+    for name, (_, per_iter) in counters.items():
+        if launches[name] != per_iter * n:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times in {n} iterations, "
+                                 f"expected {per_iter} an iteration")
+    events = session_events(folder, M.iter_jsonl)
+    publish_ms = [e["dur_s"] * 1e3 for e in events if e["type"] == "span" and e["name"] == "param-publish"]
+    fetch_bytes = [e["bytes"] for e in events if e["type"] == "param_fetch" and not e["unchanged"]]
+    checks = {
+        "publishes": len(publish_ms) == len(publish_syncs) == len(views) >= n - 1,
+        "one_sync_a_publish": set(publish_syncs) == {1},
+        "fetched_bit_equal": bool(fetched) and all(f["bit_equal"] and f["on_card"] for f in fetched),
+        "discovery_retracted": not os.path.exists(os.path.join(folder, "param_server.json")),
+        "finite": all(math.isfinite(v) for k, v in final.items() if k != "episode/return"),
+    }
+    if guard_iteration is not None:
+        checks["guarded_iteration_ran"] = len(calls) >= guard_iteration
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed: {checks}")
+    return {
+        "folder": folder, "iterations": n, "train_s": train_s, "launches": launches, "checks": checks,
+        "publish_ms_p50": statistics.median(publish_ms), "publish_ms": publish_ms,
+        "fetch_ms_p50": statistics.median(f["ms"] for f in fetched),
+        "fetch_bytes": statistics.median(fetch_bytes) if fetch_bytes else None,
+        "fetched_versions": [f["version"] for f in fetched], "outputs": outputs, "final": final,
+    }
+
+
+def actor_argv(folder: str, *extra: str) -> list[str]:
+    return ["actor", "--folder", folder, "--num-envs", str(PUBLISH_ACTOR_ENVS), "--episodes",
+            str(PUBLISH_ACTOR_EPISODES), "--fetch-every", "10", "--min-version", "2",
+            "--wait", str(PUBLISH_CONSUMER_S), *extra]
+
+
+def check_actor(summary_lines: list[dict], tag: str) -> dict:
+    summary = summary_lines[-1]
+    episodes = [line for line in summary_lines if "episode" in line]
+    ok = (summary["actor/versions_seen"] >= 2 and summary["actor/episodes"] >= PUBLISH_ACTOR_EPISODES
+          and all(math.isfinite(e["return"]) and e["param_version"] >= 2 for e in episodes))
+    if not ok:
+        raise AssertionError(f"{tag} actor: {summary}")
+    return summary
+
+
+def publish_ppo(M, gae) -> dict:
+    """``train ppo jax:lift`` at the north-star geometry with
+    ``publish.enabled`` and every_n_iters=1 (metrics every 2, a checkpoint
+    every 4, keep-best on episode/return, ``env_config.video`` on), while
+    ``actor --folder F`` (64 envs on the card, a fetch every 10 acts, from
+    version 2) and ``eval F --follow --rounds 2`` run as processes of their
+    own; iteration 3 under set_sync_debug_mode("error") but for its
+    publish; GAE once a learn. Then ``eval F --best`` in this process:
+    the best checkpoint scored, its episode recorded to the video dir."""
+    folder = scratch_dir("publish_ppo")
+    vdir = os.path.join(folder, "videos")
+    argv = ["train", "ppo", "jax:lift", "--folder", folder, "--num-envs", str(MAIN_B),
+            "--total-steps", str(PUBLISH_MAX_ITERS * MAIN_B * MAIN_T), "--set",
+            f"learner_config.algo.horizon={MAIN_T}", "learner_config.algo.epochs=4",
+            "learner_config.algo.num_minibatches=4", "learner_config.algo.precision=mixed",
+            "session_config.publish.enabled=true", "session_config.publish.every_n_iters=1",
+            "session_config.metrics.every_n_iters=2", "session_config.checkpoint.every_n_iters=4",
+            "session_config.eval.every_n_iters=0", "session_config.metrics.console=false",
+            "session_config.metrics.tensorboard=false", "env_config.video.enabled=true",
+            f"env_config.video.dir={vdir}", "env_config.video.every_n_episodes=1"]
+    consumers = {
+        "actor": actor_argv(folder),
+        "eval_follow": ["eval", folder, "--follow", "--rounds", "2", "--episodes", str(PUBLISH_EVAL_EPISODES),
+                        "--wait", str(PUBLISH_CONSUMER_S)],
+    }
+    live = live_session(M, "publish_ppo", argv, consumers, {"gae": (gae, 1)}, guard_iteration=3)
+    actor = check_actor(live["outputs"]["actor"], "ppo")
+    rounds = live["outputs"]["eval_follow"]
+    if not (len(rounds) == 2 and all(math.isfinite(r["eval/return"]) for r in rounds)
+            and 1 <= rounds[0]["param_version"] <= rounds[1]["param_version"]):
+        raise AssertionError(f"eval --follow rounds: {rounds}")
+    shutil.rmtree(vdir, ignore_errors=True)  # what eval --follow recorded
+    out = io.StringIO()
+    with redirect_stdout(out):
+        (rc, best_ms) = fenced_ms(lambda: M.launch.main(["eval", folder, "--best", "--episodes", "64"]))
+    if rc != 0:
+        raise AssertionError(f"eval --best exited {rc}")
+    best = json.loads(out.getvalue().strip().splitlines()[-1])
+    (video,) = os.listdir(vdir)
+    if video.endswith(".npz"):
+        frames = np.load(os.path.join(vdir, video))["frames"]
+    else:
+        import imageio.v2 as imageio
+
+        frames = np.stack(imageio.mimread(os.path.join(vdir, video), memtest=False))
+    video_ok = bool(video.startswith("episode_000000") and frames.dtype == np.uint8 and frames.ndim == 4
+                    and frames.shape[-1] == 3 and 2 <= frames.shape[0] <= 201 and frames.std() > 0)
+    if not video_ok:
+        raise AssertionError(f"eval --best video {video}: {frames.shape} {frames.dtype}")
+    result = {
+        "phase": "publish", "step": "ppo_lift", "num_envs": MAIN_B, "horizon": MAIN_T,
+        "iterations": live["iterations"], "train_s": live["train_s"], "gae_launches": live["launches"]["gae"],
+        "checks": {**live["checks"], "actor_versions_seen": actor["actor/versions_seen"], "video": video_ok},
+        "publish_ms_p50": live["publish_ms_p50"], "fetch_ms_p50": live["fetch_ms_p50"],
+        "fetch_bytes": live["fetch_bytes"], "fetched_versions": live["fetched_versions"],
+        "actor": actor, "eval_follow": rounds,
+        "eval_best": {**best, "ms": best_ms, "video": video, "frames": list(frames.shape)},
+    }
+    emit(result)
+    return result
+
+
+def publish_ddpg(M, RR) -> dict:
+    """``train ddpg jax:lift`` at the headline DDPG geometry, prioritized
+    replay, publishing every iteration (metrics every iteration), while a
+    DDPG ``actor`` process acts from the actor-only view (OU noise,
+    masked at resets); gather and scatter 64 times each an iteration."""
+    folder = scratch_dir("publish_ddpg")
+    per_iter = DDPG_B * DDPG_H
+    argv = ["train", "ddpg", "jax:lift", "--folder", folder, "--num-envs", str(DDPG_B),
+            "--total-steps", str(PUBLISH_MAX_ITERS * per_iter), "--set",
+            f"learner_config.algo.horizon={DDPG_H}", f"learner_config.algo.updates_per_iter={DDPG_K}",
+            "learner_config.algo.precision=mixed", "learner_config.algo.exploration.warmup_steps=0",
+            "learner_config.replay.kind=prioritized", f"learner_config.replay.capacity={DDPG_CAPACITY}",
+            f"learner_config.replay.start_sample_size={per_iter}", f"learner_config.replay.batch_size={DDPG_BS}",
+            "session_config.publish.enabled=true", "session_config.metrics.every_n_iters=1",
+            "session_config.checkpoint.every_n_iters=1000", "session_config.eval.every_n_iters=0",
+            "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+    live = live_session(M, "publish_ddpg", argv, {"actor": actor_argv(folder)},
+                        {"replay_gather": (RR.gather_rows, DDPG_K), "replay_scatter": (RR.scatter_rows, DDPG_K)})
+    actor = check_actor(live["outputs"]["actor"], "ddpg")
+    result = {
+        "phase": "publish", "step": "ddpg_lift", "num_envs": DDPG_B, "horizon": DDPG_H,
+        "updates_per_iter": DDPG_K, "iterations": live["iterations"], "train_s": live["train_s"],
+        "replay_gather_launches": live["launches"]["replay_gather"],
+        "replay_scatter_launches": live["launches"]["replay_scatter"],
+        "checks": {**live["checks"], "actor_versions_seen": actor["actor/versions_seen"]},
+        "publish_ms_p50": live["publish_ms_p50"], "fetch_ms_p50": live["fetch_ms_p50"],
+        "fetch_bytes": live["fetch_bytes"], "actor": actor,
+    }
+    emit(result)
+    return result
+
+
+def publish_timing(M, gae) -> dict:
+    """The north-star through ``Trainer.run`` with publishing every 2nd
+    iteration and no consumer: metrics every iteration (a fence), so each
+    iteration's time is fenced; the publishing iterations' median against
+    the others', in one run (2 warm-up, 8 timed: 4 of each)."""
+    cfg = north_star_config(M, scratch_dir("publish_timing"), publish=M.Config(enabled=True, every_n_iters=2))
+    _, timing = timed_run(M.Trainer(cfg), {"gae": (gae, 1)}, warmup=2, timed=PUBLISH_TIMED_ITERS)
+    # iter_ms[i] is iteration i + 2; iterations 2, 4, ... publish
+    timed = [(i + 2, ms) for i, ms in enumerate(timing["iter_ms"])][1:]
+    on = [ms for it, ms in timed if it % 2 == 0]
+    off = [ms for it, ms in timed if it % 2 == 1]
+    result = {"phase": "publish", "step": "north_star_on_off", "iterations": {"on": len(on), "off": len(off)},
+              "iter_ms_publishing": statistics.median(on), "iter_ms_not_publishing": statistics.median(off),
+              "iter_ms": timing["iter_ms"], "gae_launches": timing["gae_launches"]}
+    emit(result)
+    return result
+
+
+def phase_publish(M, gae, RR) -> dict:
+    ppo = publish_ppo(M, gae)
+    ddpg = publish_ddpg(M, RR)
+    timing = publish_timing(M, gae)
+    return {
+        "gae": {"publish_ppo_lift": ppo["gae_launches"]},
+        "replay_gather": {"publish_ddpg_lift": ddpg["replay_gather_launches"]},
+        "replay_scatter": {"publish_ddpg_lift": ddpg["replay_scatter_launches"]},
+        "ppo": ppo, "ddpg": ddpg, "timing": timing,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -3299,22 +3622,25 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     seed = phase_seed(M, ops_gae, ops_vtrace, RS, host["env_source"])
     profile = phase_profile(M, ops_gae.gae_advantages_masked, host["env_source"])
     precision = phase_precision(M, ops_gae.gae_advantages_masked, ops_vtrace.vtrace_fused, RR)
+    publish = phase_publish(M, ops_gae.gae_advantages_masked, RR)
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
     gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
                                **host["gae"], **seed["gae"], "profile_ppo_lift": profile["gae_launches"],
-                               "precision_ppo_lift": precision["gae_launches"]}
+                               "precision_ppo_lift": precision["gae_launches"], **publish["gae"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
                                   "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
                                   **seed["vtrace"], "precision_impala_pong": precision["vtrace_launches"]}
     gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"],
-                                  "precision_ddpg_lift": precision["replay_gather_launches"]}
+                                  "precision_ddpg_lift": precision["replay_gather_launches"],
+                                  **publish["replay_gather"]}
     gather["max_abs_err"] = max(gather["max_abs_err"], host["replay_gather_check"]["max_abs_err"],
                                 precision["gather"]["max_abs_err"])
     gather["bf16_rows"] = {k: precision["gather"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "row_bytes")}
     scatter["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_scatter_launches"], **host["replay_scatter"],
-                                   "precision_ddpg_lift": precision["replay_scatter_launches"]}
+                                   "precision_ddpg_lift": precision["replay_scatter_launches"],
+                                   **publish["replay_scatter"]}
     rev_scan["launches_by_path"] = {"ppo_lift_assoc": train_assoc["rev_scan_launches"],
                                     "impala_pong_assoc": train_impala_assoc["rev_scan_launches"], **host["rev_scan"],
                                     **seed["rev_scan"]}

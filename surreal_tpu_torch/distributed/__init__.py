@@ -1,12 +1,33 @@
-"""The SEED host data plane, the port of ``surreal_tpu/distributed/``'s
-single-server path: the batched inference server, the env worker, the
-shared-memory transport and, in place of zmq, the standard-library
-ROUTER/DEALER sockets they talk over. Not ported yet: ``InferenceFleet``,
-the parameter service and fanout, and ``module_dict``.
+"""The host data plane of the port, the port of ``surreal_tpu/distributed/``'s
+single-server paths: the SEED batched inference server, the env worker
+and the shared-memory transport; the parameter service (publisher,
+server, sharded server, client) with its wire format (``ModuleDict``,
+``dumps_pytree``, ``loads_pytree``); and, in place of zmq, the
+standard-library sockets they talk over. Not ported yet:
+``InferenceFleet`` and the parameter fanout.
 """
 
 from surreal_tpu_torch.distributed.env_worker import run_env_worker
 from surreal_tpu_torch.distributed.inference_server import InferenceServer
+from surreal_tpu_torch.distributed.module_dict import ModuleDict, dumps_pytree, loads_pytree
+from surreal_tpu_torch.distributed.param_service import (
+    ParameterClient,
+    ParameterPublisher,
+    ParameterServer,
+    ShardedParameterServer,
+)
 from surreal_tpu_torch.distributed.shm_transport import SlabSpec, negotiate_worker_transport
 
-__all__ = ["run_env_worker", "InferenceServer", "SlabSpec", "negotiate_worker_transport"]
+__all__ = [
+    "run_env_worker",
+    "InferenceServer",
+    "SlabSpec",
+    "negotiate_worker_transport",
+    "ModuleDict",
+    "dumps_pytree",
+    "loads_pytree",
+    "ParameterClient",
+    "ParameterPublisher",
+    "ParameterServer",
+    "ShardedParameterServer",
+]

@@ -1,17 +1,29 @@
-"""A ROUTER/DEALER socket pair over the standard library (``socket`` and
-``selectors``): the SEED wire of the port, in place of the pyzmq pair the
-reference uses (``surreal_tpu/distributed/inference_server.py:209-216``,
-``env_worker.py:108-116``). pyzmq is not among what the card's machine
-has, so the port carries exactly the semantics SEED relies on:
+"""Message sockets over the standard library (``socket``, ``selectors``
+and ``threading``), in place of the pyzmq sockets the reference uses.
+pyzmq is not among what the card's machine has, so the port carries
+exactly the semantics its callers rely on. Three pairs:
+
+- ROUTER/DEALER, the SEED wire (``surreal_tpu/distributed/inference_server.py:209-216``,
+  ``env_worker.py:108-116``);
+- REQ/REP and PUB/SUB, the parameter service
+  (``surreal_tpu/distributed/param_service.py``).
+
+Common to all:
 
 - messages are length-framed (a little-endian u32 length, then the
-  payload); the bytes inside a frame are ``shm_transport``'s, unchanged;
+  payload); a multipart message (REQ/REP, PUB/SUB) is one frame holding
+  its parts, each length-framed in turn (:func:`pack_parts`);
+- ``bind("tcp://127.0.0.1:*")`` binds a free port and reports the bound
+  ``tcp://host:port`` (zmq's ``LAST_ENDPOINT``); any other address scheme
+  raises;
+- every wait takes a timeout; each socket belongs to one thread, as a zmq
+  socket does (a ``Pub``'s own I/O thread is internal to it).
+
+ROUTER/DEALER:
+
 - a DEALER sends its identity (``worker-{i}``) as the first frame of a
   connection, and the ROUTER receives ``(identity, payload)`` pairs and
   sends to an identity;
-- ``Router(bind="tcp://127.0.0.1:*")`` binds a free port and reports the
-  bound ``tcp://host:port`` in ``address`` (zmq's ``LAST_ENDPOINT``);
-  any other address scheme raises;
 - ``ROUTER_HANDOVER``: a connection that names an identity already
   connected replaces the old connection and closes it (a respawned worker
   reuses its dead predecessor's identity, and a SIGKILLed one never said
@@ -28,7 +40,32 @@ has, so the port carries exactly the semantics SEED relies on:
   error on either call: sends are dropped and polls find nothing, and the
   worker's silence budget (or its stop event) ends it, as with zmq.
 
-Each socket belongs to one thread, as a zmq socket does.
+REQ/REP:
+
+- a ``Req`` alternates strictly, send then receive (a second send before
+  the reply raises, as zmq's EFSM does). Its connection is made while it
+  waits, so a request to a server not up yet is delivered once it binds
+  within the wait. After a timeout the caller closes it and makes a new
+  one (the reference's ``ParameterClient._request_once``);
+- a ``Rep`` binds several endpoints and serves them all; ``recv`` takes
+  the oldest request of any peer and ``send_multipart`` answers that
+  peer. A reply to a peer that has gone away (a client that timed out and
+  reconnected) is dropped without blocking, and the Rep serves the new
+  connection as any other.
+
+PUB/SUB:
+
+- a ``Sub`` sends its topic prefixes to the ``Pub`` (as a zmq SUB does
+  over TCP); the Pub sends a message only to subscribers with a prefix of
+  its first part;
+- ``Pub.send_multipart`` never blocks: an I/O thread of the Pub's own
+  writes to the subscribers, and per subscriber the Pub keeps only the
+  message it is writing and the newest one not yet started (zmq's
+  ``CONFLATE``); older ones are dropped, as a subscriber to parameter
+  snapshots needs only the newest;
+- a subscriber that connects after a publish receives the newest message
+  of its topic at once (a last-value cache), so a subscriber never
+  misses a snapshot by joining late.
 """
 
 from __future__ import annotations
@@ -36,12 +73,14 @@ from __future__ import annotations
 import selectors
 import socket
 import struct
+import threading
 import time
 from collections import deque
 
 _LEN = struct.Struct("<I")
 _RECV_BYTES = 1 << 20
 _NOBLOCK_SEND_S = 0.1  # a non-blocking DEALER send: what the kernel takes at once, or this long
+_RECONNECT_S = 0.05    # a Req's pause between connection attempts while it waits
 
 
 class Again(Exception):
@@ -87,74 +126,90 @@ def _frame(payload: bytes) -> bytes:
     return b"".join((_LEN.pack(len(payload)), payload))
 
 
+def pack_parts(parts) -> bytes:
+    """A multipart message as one payload: the part count, then each part
+    length-framed."""
+    out = [_LEN.pack(len(parts))]
+    for p in parts:
+        out += (_LEN.pack(len(p)), p)
+    return b"".join(out)
+
+
+def unpack_parts(payload: bytes) -> list[bytes]:
+    """:func:`pack_parts`' inverse."""
+    (n,) = _LEN.unpack_from(payload, 0)
+    off, parts = _LEN.size, []
+    for _ in range(n):
+        (k,) = _LEN.unpack_from(payload, off)
+        off += _LEN.size
+        parts.append(payload[off:off + k])
+        off += k
+    return parts
+
+
 class _Peer:
-    __slots__ = ("sock", "ident", "frames", "out")
+    __slots__ = ("sock", "ident", "frames", "out", "off", "nxt", "topics")
 
     def __init__(self, sock: socket.socket):
         self.sock = sock
-        self.ident: bytes | None = None  # the connection's first frame
+        self.ident: bytes | None = None  # a DEALER's first frame
         self.frames = _Frames()
-        self.out = bytearray()           # what the kernel has not taken yet
+        self.out = bytearray()           # being written; out[off:] not taken by the kernel yet
+        self.off = 0
+        self.nxt: bytes | None = None    # a Pub's newest message not started yet
+        self.topics: list[bytes] = []    # a Sub's prefixes
 
 
-class Router:
-    """The server side: many identified peers, one non-blocking loop."""
+class _Server:
+    """Bound endpoints and their accepted peers, on one selector: the
+    non-blocking accept, read and write shared by ``Router``, ``Rep`` and
+    ``Pub``. A subclass takes each received frame in ``_deliver``."""
 
-    def __init__(self, bind: str = "tcp://127.0.0.1:*"):
-        host, port = parse_tcp(bind)
-        self._listen = socket.create_server((host, port))
-        self._listen.setblocking(False)
-        self.address = f"tcp://{host}:{self._listen.getsockname()[1]}"
+    def __init__(self):
         self._sel = selectors.DefaultSelector()
-        self._sel.register(self._listen, selectors.EVENT_READ, None)
-        self._routes: dict[bytes, _Peer] = {}
-        self._inbox: deque[tuple[bytes, bytes]] = deque()
+        self.addresses: list[str] = []
 
-    # -- receiving -------------------------------------------------------------
-    def poll(self, timeout_ms: float) -> bool:
-        """True once a message is waiting, or False after ``timeout_ms``;
-        accepts connections and flushes pending replies meanwhile."""
-        deadline = time.monotonic() + max(0.0, timeout_ms) / 1e3
-        while True:
-            if self._inbox:
-                return True
-            self._pump(max(0.0, deadline - time.monotonic()))
-            if self._inbox:
-                return True
-            if time.monotonic() >= deadline:
-                return False
+    def bind(self, address: str) -> str:
+        """Listen on ``address`` as well; returns the bound address."""
+        host, port = parse_tcp(address)
+        listen = socket.create_server((host, port))
+        listen.setblocking(False)
+        self._sel.register(listen, selectors.EVENT_READ, None)
+        bound = f"tcp://{host}:{listen.getsockname()[1]}"
+        self.addresses.append(bound)
+        return bound
 
-    def recv_multipart(self) -> tuple[bytes, bytes]:
-        """The oldest waiting (identity, payload); ``Again`` if none."""
-        if not self._inbox:
-            self._pump(0.0)
-        if not self._inbox:
-            raise Again
-        return self._inbox.popleft()
+    @property
+    def address(self) -> str:
+        return self.addresses[0]
 
     def _pump(self, timeout_s: float) -> None:
         for key, mask in self._sel.select(timeout_s):
             if key.data is None:
-                self._accept()
+                self._accept(key.fileobj)
                 continue
             peer = key.data
             if peer.sock.fileno() < 0:
                 continue  # dropped earlier in this pass (a handover)
             if mask & selectors.EVENT_WRITE:
                 self._flush(peer)
-            if mask & selectors.EVENT_READ:
+            if mask & selectors.EVENT_READ and peer.sock.fileno() >= 0:
                 self._read(peer)
 
-    def _accept(self) -> None:
+    def _accept(self, listen: socket.socket) -> None:
         while True:
             try:
-                sock, _ = self._listen.accept()
+                sock, _ = listen.accept()
             except BlockingIOError:
                 return
             sock.setblocking(False)
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             peer = _Peer(sock)
             self._sel.register(sock, selectors.EVENT_READ, peer)
+            self._accepted(peer)
+
+    def _accepted(self, peer: _Peer) -> None:
+        pass
 
     def _read(self, peer: _Peer) -> None:
         closed = False
@@ -171,13 +226,103 @@ class Router:
             peer.frames.feed(data)
         # what arrived before a close is delivered, as zmq delivers it
         while peer.frames.frames:
-            payload = peer.frames.frames.popleft()
-            if peer.ident is None:
-                self._adopt(peer, payload)
-            else:
-                self._inbox.append((peer.ident, payload))
+            self._deliver(peer, peer.frames.frames.popleft())
         if closed:
             self._drop(peer)
+
+    def _deliver(self, peer: _Peer, payload: bytes) -> None:
+        raise NotImplementedError
+
+    def _drop(self, peer: _Peer) -> None:
+        try:
+            self._sel.unregister(peer.sock)
+        except (KeyError, ValueError):
+            pass  # already unregistered
+        peer.sock.close()
+        peer.out, peer.off, peer.nxt = bytearray(), 0, None
+
+    def _send(self, peer: _Peer, data: bytes) -> None:
+        """Queue ``data`` after what ``peer`` still has to write, and write
+        what the kernel takes now."""
+        if peer.off and peer.off == len(peer.out):
+            peer.out, peer.off = bytearray(), 0
+        peer.out += data
+        self._flush(peer)
+
+    def _flush(self, peer: _Peer) -> None:
+        while True:
+            if peer.off >= len(peer.out):
+                if peer.nxt is None:
+                    peer.out, peer.off = bytearray(), 0
+                    break
+                peer.out, peer.off, peer.nxt = peer.nxt, 0, None  # bytes shared by every subscriber
+            try:
+                with memoryview(peer.out) as view, view[peer.off:] as rest:
+                    sent = peer.sock.send(rest)
+            except BlockingIOError:
+                break
+            except OSError:
+                self._drop(peer)
+                return
+            peer.off += sent
+        pending = peer.off < len(peer.out) or peer.nxt is not None
+        events = selectors.EVENT_READ | (selectors.EVENT_WRITE if pending else 0)
+        if self._sel.get_key(peer.sock).events != events:
+            self._sel.modify(peer.sock, events, peer)
+
+    def _close_all(self) -> None:
+        for key in list(self._sel.get_map().values()):
+            key.fileobj.close()
+        self._sel.close()
+
+
+class _Inbox(_Server):
+    """A server whose received messages wait in an inbox, read behind
+    ``poll`` (``Router``, ``Rep``)."""
+
+    def __init__(self):
+        super().__init__()
+        self._inbox: deque = deque()
+
+    def poll(self, timeout_ms: float) -> bool:
+        """True once a message is waiting, or False after ``timeout_ms``;
+        accepts connections and flushes pending replies meanwhile."""
+        deadline = time.monotonic() + max(0.0, timeout_ms) / 1e3
+        while True:
+            if self._inbox:
+                return True
+            self._pump(max(0.0, deadline - time.monotonic()))
+            if self._inbox:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+
+    def _next(self):
+        if not self._inbox:
+            self._pump(0.0)
+        if not self._inbox:
+            raise Again
+        return self._inbox.popleft()
+
+
+class Router(_Inbox):
+    """The server side of ROUTER/DEALER: many identified peers, one
+    non-blocking loop."""
+
+    def __init__(self, bind: str = "tcp://127.0.0.1:*"):
+        super().__init__()
+        self.bind(bind)
+        self._routes: dict[bytes, _Peer] = {}
+
+    def recv_multipart(self) -> tuple[bytes, bytes]:
+        """The oldest waiting (identity, payload); ``Again`` if none."""
+        return self._next()
+
+    def _deliver(self, peer: _Peer, payload: bytes) -> None:
+        if peer.ident is None:
+            self._adopt(peer, payload)
+        else:
+            self._inbox.append((peer.ident, payload))
 
     def _adopt(self, peer: _Peer, ident: bytes) -> None:
         """ROUTER_HANDOVER: the newest connection under an identity wins."""
@@ -190,14 +335,8 @@ class Router:
     def _drop(self, peer: _Peer) -> None:
         if peer.ident is not None and self._routes.get(peer.ident) is peer:
             del self._routes[peer.ident]
-        try:
-            self._sel.unregister(peer.sock)
-        except (KeyError, ValueError):
-            pass  # already unregistered
-        peer.sock.close()
-        peer.out.clear()
+        super()._drop(peer)
 
-    # -- sending ---------------------------------------------------------------
     def send_multipart(self, parts) -> None:
         """Send ``payload`` to ``identity`` without blocking; what the
         kernel does not take waits for the socket to become writable."""
@@ -205,51 +344,213 @@ class Router:
         peer = self._routes.get(ident)
         if peer is None:
             return  # no such peer: dropped, as a ROUTER drops it
-        peer.out += _frame(payload)
-        self._flush(peer)
-
-    def _flush(self, peer: _Peer) -> None:
-        if peer.out:
-            try:
-                sent = peer.sock.send(peer.out)
-            except BlockingIOError:
-                sent = 0
-            except OSError:
-                self._drop(peer)
-                return
-            del peer.out[:sent]
-        events = selectors.EVENT_READ | (selectors.EVENT_WRITE if peer.out else 0)
-        if self._sel.get_key(peer.sock).events != events:
-            self._sel.modify(peer.sock, events, peer)
+        self._send(peer, _frame(payload))
 
     def close(self) -> None:
         """Close every connection; replies still buffered here are dropped,
         as zmq's ``close(0)`` drops them."""
-        for key in list(self._sel.get_map().values()):
-            key.fileobj.close()
-        self._sel.close()
+        self._close_all()
         self._routes.clear()
 
 
-class Dealer:
-    """The worker side: one connection, identity first."""
+class Rep(_Inbox):
+    """REP: requests from any peer on any bound endpoint, each answered to
+    its own peer."""
 
-    def __init__(self, identity: bytes, send_timeout_s: float):
-        self.identity = bytes(identity)
-        self._send_timeout = send_timeout_s
+    def __init__(self):
+        super().__init__()
+        self._peer: _Peer | None = None
+
+    def _deliver(self, peer: _Peer, payload: bytes) -> None:
+        self._inbox.append((peer, payload))
+
+    def recv(self) -> bytes:
+        """The oldest waiting request; ``Again`` if none. The next
+        ``send_multipart`` answers its peer."""
+        self._peer, payload = self._next()
+        return payload
+
+    def send_multipart(self, parts) -> None:
+        """Answer the last request's peer without blocking; dropped when
+        that peer has gone away."""
+        peer, self._peer = self._peer, None
+        if peer is None:
+            raise RuntimeError("Rep.send_multipart before recv")
+        if peer.sock.fileno() < 0:
+            return  # the client gave up and closed: dropped, as zmq drops it
+        self._send(peer, _frame(pack_parts(parts)))
+
+    def close(self) -> None:
+        self._close_all()
+        self._inbox.clear()
+
+
+class Pub(_Server):
+    """PUB: multipart messages to every subscriber of their topic, written
+    by an I/O thread of its own, never blocking the caller; per subscriber
+    only the newest message not yet started is kept."""
+
+    def __init__(self, bind: str = "tcp://127.0.0.1:*"):
+        super().__init__()
+        self.bind(bind)
+        self._lock = threading.Lock()
+        self._peers: list[_Peer] = []
+        self._last: dict[bytes, bytes] = {}  # topic -> its newest framed message
+        self._wake_r, self._wake_w = socket.socketpair()
+        self._wake_r.setblocking(False)
+        self._wake_w.setblocking(False)
+        self._sel.register(self._wake_r, selectors.EVENT_READ, "wake")
+        self._dirty = False
+        self._closed = False
+        self._thread = threading.Thread(target=self._io, name="pub-io", daemon=True)
+        self._thread.start()
+
+    def send_multipart(self, parts) -> None:
+        """Queue ``parts`` for every subscriber of ``parts[0]``; returns at once."""
+        topic = bytes(parts[0])
+        msg = _frame(pack_parts(parts))
+        with self._lock:
+            self._last[topic] = msg
+            for peer in self._peers:
+                if any(topic.startswith(t) for t in peer.topics):
+                    peer.nxt = msg  # conflate: an older unstarted message is dropped
+            self._dirty = True
+        try:
+            self._wake_w.send(b"\0")
+        except (BlockingIOError, OSError):
+            pass  # a wake-up is already pending, or the Pub is closing
+
+    def pending(self) -> int:
+        """Messages held for subscribers (started or not): at most two a
+        subscriber."""
+        with self._lock:
+            return sum((p.off < len(p.out)) + (p.nxt is not None) for p in self._peers)
+
+    def _io(self) -> None:
+        while not self._closed:
+            try:
+                with self._lock:
+                    self._pump(0.1)
+            except (OSError, ValueError):
+                if self._closed:
+                    return
+                raise
+
+    def _pump(self, timeout_s: float) -> None:
+        # select without the lock, so send_multipart never waits on the wire
+        self._lock.release()
+        try:
+            ready = self._sel.select(timeout_s)
+        finally:
+            self._lock.acquire()
+        for key, mask in ready:
+            if key.data is None:
+                self._accept(key.fileobj)
+            elif key.data == "wake":
+                try:
+                    while self._wake_r.recv(4096):
+                        pass
+                except (BlockingIOError, OSError):
+                    pass
+            else:
+                peer = key.data
+                if peer.sock.fileno() < 0:
+                    continue
+                if mask & selectors.EVENT_WRITE:
+                    self._flush(peer)
+                if mask & selectors.EVENT_READ and peer.sock.fileno() >= 0:
+                    self._read(peer)
+        if self._dirty:
+            self._dirty = False
+            for peer in list(self._peers):
+                if peer.nxt is not None and peer.sock.fileno() >= 0:
+                    self._flush(peer)
+
+    def _accepted(self, peer: _Peer) -> None:
+        self._peers.append(peer)
+
+    def _deliver(self, peer: _Peer, payload: bytes) -> None:
+        """A subscription: the prefix, and the newest message it matches."""
+        peer.topics.append(payload)
+        newest = [msg for topic, msg in self._last.items() if topic.startswith(payload)]
+        if newest and peer.nxt is None:
+            peer.nxt = newest[-1]
+            self._flush(peer)
+
+    def _drop(self, peer: _Peer) -> None:
+        if peer in self._peers:
+            self._peers.remove(peer)
+        super()._drop(peer)
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+        try:
+            self._wake_w.send(b"\0")
+        except OSError:
+            pass
+        self._thread.join(timeout=2)
+        with self._lock:
+            self._close_all()
+            self._peers.clear()
+        self._wake_w.close()
+
+
+class _Client:
+    """One connection to a bound endpoint, length-framed both ways."""
+
+    def __init__(self):
         self._sock: socket.socket | None = None
         self._sel: selectors.BaseSelector | None = None
         self._frames = _Frames()
         self._gone = False  # the server closed the connection
 
-    def connect(self, address: str) -> None:
+    def _open(self, address: str, timeout_s: float) -> None:
         host, port = parse_tcp(address)
         if port == 0:
-            raise ValueError(f"address {address!r}: a DEALER connects to a bound port")
-        self._sock = socket.create_connection((host, port), timeout=self._send_timeout)
+            raise ValueError(f"address {address!r}: a client connects to a bound port")
+        self._sock = socket.create_connection((host, port), timeout=timeout_s)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sel = selectors.DefaultSelector()
         self._sel.register(self._sock, selectors.EVENT_READ)
+
+    def _receive(self, wait_s: float) -> None:
+        """Read what arrives within ``wait_s`` into the frame decoder."""
+        if self._gone or self._sel is None:
+            time.sleep(max(0.0, wait_s))
+            return
+        if self._sel.select(max(0.0, wait_s)):
+            self._sock.settimeout(0.0)
+            try:
+                data = self._sock.recv(_RECV_BYTES)
+            except BlockingIOError:
+                return
+            except OSError:
+                data = b""
+            if not data:
+                self._gone = True
+                return
+            self._frames.feed(data)
+
+    def close(self) -> None:
+        if self._sel is not None:
+            self._sel.close()
+            self._sel = None
+        if self._sock is not None:
+            self._sock.close()
+            self._sock = None
+
+
+class Dealer(_Client):
+    """The worker side of ROUTER/DEALER: one connection, identity first."""
+
+    def __init__(self, identity: bytes, send_timeout_s: float):
+        super().__init__()
+        self.identity = bytes(identity)
+        self._send_timeout = send_timeout_s
+
+    def connect(self, address: str) -> None:
+        self._open(address, self._send_timeout)
         self.send(self.identity)
 
     def send(self, payload: bytes, noblock: bool = False) -> None:
@@ -273,21 +574,7 @@ class Dealer:
             wait = deadline - time.monotonic()
             if wait <= 0:
                 return False
-            if self._gone:
-                time.sleep(wait)
-                return False
-            if self._sel.select(wait):
-                self._sock.settimeout(0.0)
-                try:
-                    data = self._sock.recv(_RECV_BYTES)
-                except BlockingIOError:
-                    continue
-                except OSError:
-                    data = b""
-                if not data:
-                    self._gone = True
-                    continue
-                self._frames.feed(data)
+            self._receive(wait)
         return True
 
     def recv(self) -> bytes:
@@ -296,10 +583,103 @@ class Dealer:
             raise Again
         return self._frames.frames.popleft()
 
-    def close(self) -> None:
-        """Close the connection; sent bytes the kernel holds still leave
-        (the final fire-and-forget flush of a worker that is exiting)."""
-        if self._sel is not None:
-            self._sel.close()
-        if self._sock is not None:
-            self._sock.close()
+
+class Req(_Client):
+    """REQ: send, then receive, strictly. The connection is made (and
+    retried every 50 ms) while the request waits, so ``connect`` never
+    fails and a silent or absent server costs the caller's poll timeout
+    only."""
+
+    def __init__(self):
+        super().__init__()
+        self._address: str | None = None
+        self._out: bytes | None = None   # the request, until the server has it
+        self._awaiting = False
+
+    def connect(self, address: str) -> None:
+        parse_tcp(address)  # malformed addresses raise here
+        self._address = address
+
+    def send(self, payload: bytes) -> None:
+        if self._awaiting:
+            raise RuntimeError("Req.send before the previous request's reply was received")
+        self._out = _frame(payload)
+        self._awaiting = True
+
+    def _try_send(self, deadline: float) -> None:
+        if self._sock is None:
+            try:
+                self._open(self._address, max(1e-3, deadline - time.monotonic()))
+            except OSError:
+                self.close()  # refused or unreachable: retried while the wait lasts
+                time.sleep(max(0.0, min(_RECONNECT_S, deadline - time.monotonic())))
+                return
+        if self._sock is not None and self._out is not None:
+            self._sock.settimeout(max(1e-3, deadline - time.monotonic()))
+            try:
+                self._sock.sendall(self._out)
+                self._out = None
+            except TimeoutError:
+                pass  # the server takes nothing: the wait runs out
+            except OSError:
+                self._gone = True
+
+    def poll(self, timeout_ms: float) -> bool:
+        """True once the reply is waiting, or False after ``timeout_ms``."""
+        deadline = time.monotonic() + max(0.0, timeout_ms) / 1e3
+        while not self._frames.frames:
+            if time.monotonic() >= deadline:
+                return False
+            if self._out is not None and not self._gone:
+                self._try_send(deadline)
+                continue
+            self._receive(deadline - time.monotonic())  # a gone server: sleeps out the wait
+        return True
+
+    def recv_multipart(self) -> list[bytes]:
+        """The reply's parts; ``Again`` if none (poll first)."""
+        if not self._frames.frames:
+            raise Again
+        self._awaiting = False
+        return unpack_parts(self._frames.frames.popleft())
+
+
+class Sub(_Client):
+    """SUB: messages of the subscribed topics from one ``Pub``."""
+
+    def __init__(self, connect_timeout_s: float = 5.0):
+        super().__init__()
+        self._timeout = connect_timeout_s
+        self._topics: list[bytes] = []
+
+    def connect(self, address: str) -> None:
+        self._open(address, self._timeout)
+
+    def subscribe(self, topic: bytes) -> None:
+        self._topics.append(bytes(topic))
+        self._sock.settimeout(self._timeout)
+        self._sock.sendall(_frame(bytes(topic)))
+
+    def poll(self, timeout_ms: float) -> bool:
+        """True once a message of a subscribed topic is waiting, or False
+        after ``timeout_ms``."""
+        deadline = time.monotonic() + max(0.0, timeout_ms) / 1e3
+        while True:
+            while self._frames.frames:
+                # a packed message: the part count and the first part's length, then the topic
+                if any(self._frames.frames[0][2 * _LEN.size:].startswith(t) for t in self._topics):
+                    return True
+                self._frames.frames.popleft()  # another topic: filtered out
+            wait = deadline - time.monotonic()
+            if wait <= 0 and not self._pending():
+                return False
+            self._receive(max(0.0, wait))
+
+    def _pending(self) -> bool:
+        return self._sel is not None and not self._gone and bool(self._sel.select(0))
+
+    def recv_multipart(self) -> list[bytes]:
+        """The oldest waiting message's parts; ``Again`` if none (poll first)."""
+        if not self._frames.frames:
+            raise Again
+        return unpack_parts(self._frames.frames.popleft())

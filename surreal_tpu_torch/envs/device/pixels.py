@@ -12,8 +12,8 @@ table line 60); overlaps resolve by max intensity. The previous two-view
 frame is carried in the env state and concatenated, giving obs
 ``[RES, RES, 4] uint8`` (current, then previous).
 
-The eval-video helpers of the reference (``_views_to_rgb``,
-``frame_renderer``) wait for video recording.
+``frame_renderer`` gives the evaluator's video recording a frame of a
+device env's state (``_views_to_rgb``: the two views side by side, RGB).
 """
 
 from __future__ import annotations
@@ -161,3 +161,41 @@ class NutAssemblyPixels(_DevicePixels):
     max_episode_steps = NutAssembly.max_episode_steps
     reset_draw_dim = NutAssembly.reset_draw_dim
     specs = _pixel_specs(NutAssembly)
+
+
+# -- eval-video frame rendering ---------------------------------------------
+
+def _views_to_rgb(views, upscale: int = 3) -> np.ndarray:
+    """[R, R, 2] two-view uint8 -> side-by-side RGB [R*u, 2*R*u + u, 3]
+    (host numpy, once a recorded frame)."""
+    v = np.asarray(views)
+    sep = np.full((v.shape[0], 1), 40, np.uint8)  # thin divider column
+    panel = np.concatenate([v[..., 0], sep, v[..., 1]], axis=1)
+    panel = panel.repeat(upscale, axis=0).repeat(upscale, axis=1)
+    return np.stack([panel] * 3, axis=-1)
+
+
+def frame_renderer(env):
+    """The eval-video renderer of a device env: ``state -> [H, W, 3]
+    uint8`` (numpy) of env 0 of a batched state, or None when the env has
+    no visual form (``jax:lift``, ``jax:nut``, their pixel variants and
+    ``jax:pong``/``jax:pong16`` have one)."""
+    from surreal_tpu_torch.envs.device.pong import Pong
+
+    def first(views: torch.Tensor) -> np.ndarray:
+        return _views_to_rgb(views[0].cpu().numpy())
+
+    if isinstance(env, _DevicePixels):
+        render = type(env).render
+        return lambda s: first(render(s.inner))
+    if isinstance(env, BlockLift):
+        return lambda s: first(render_lift(s))
+    if isinstance(env, NutAssembly):
+        return lambda s: first(render_nut(s))
+    if isinstance(env, Pong):
+        def pong_frame(s):
+            f = s.prev_frame[0].cpu().numpy().repeat(4, axis=0).repeat(4, axis=1)
+            return np.stack([f] * 3, axis=-1)
+
+        return pong_frame
+    return None

@@ -15,8 +15,11 @@ both packages:
   on the CPU and takes no ``device``; only the learner and its batches go
   to the card.
 
-Callers branch on :func:`is_jax_env`. Video recording (``VideoWrapper``)
-is not ported: ``env_config.video.enabled`` on a host env raises.
+Callers branch on :func:`is_jax_env`. With ``env_config.video.enabled``
+and a ``video.dir``, a host env ends its chain in ``envs/video.py``'s
+``VideoWrapper`` (and gym renders ``rgb_array`` frames for it), as in the
+reference; a device env's eval episodes are recorded by the evaluator
+from state (``launch/evaluator.py``).
 """
 
 from __future__ import annotations
@@ -80,14 +83,12 @@ def make_env(env_config, device: str | torch.device = "cuda") -> AnyEnv:
         return AutoReset(env_cls(resolve_device(device)), time_limit=env_config.time_limit)
 
     video = env_config.get("video", None)
-    if video is not None and video.get("enabled", False):
-        raise NotImplementedError(
-            f"env_config.video.enabled on host env {name!r}: video recording is not ported to PyTorch yet"
-        )
+    record = video is not None and bool(video.get("enabled", False))
     if backend == "gym":
         from surreal_tpu_torch.envs.gym_adapter import GymAdapter
 
-        kwargs = {"render_mode": "rgb_array"} if env_config.pixel_obs else {}
+        # pixel obs and video recording both need rendered frames
+        kwargs = {"render_mode": "rgb_array"} if env_config.pixel_obs or record else {}
         env: HostEnv = GymAdapter(env_id, num_envs=env_config.num_envs, seed=env_config.seed, **kwargs)
     elif backend == "dm_control":
         from surreal_tpu_torch.envs.dm_control_adapter import DmControlAdapter
@@ -106,7 +107,7 @@ def make_env(env_config, device: str | torch.device = "cuda") -> AnyEnv:
 
         env = RobosuiteAdapter(
             env_id, num_envs=env_config.num_envs, seed=env_config.seed,
-            renderable=bool(env_config.pixel_obs),
+            renderable=bool(env_config.pixel_obs or record),
         )
     else:
         raise ValueError(f"unknown env backend {backend!r}")
@@ -119,4 +120,9 @@ def make_env(env_config, device: str | torch.device = "cuda") -> AnyEnv:
         env = FrameStackWrapper(env, env_config.frame_stack)
     if env_config.action_repeat > 1:
         env = ActionRepeatWrapper(env, env_config.action_repeat)
-    return EpisodeStatsWrapper(env)
+    env = EpisodeStatsWrapper(env)
+    if record and video.get("dir", None):
+        from surreal_tpu_torch.envs.video import VideoWrapper
+
+        env = VideoWrapper(env, video.dir, video.every_n_episodes)
+    return env

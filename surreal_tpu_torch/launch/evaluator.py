@@ -15,7 +15,16 @@
 
 Either way the mode is 'eval_deterministic' or 'eval_stochastic', and the
 metrics are ``eval/return``, ``eval/length`` and ``eval/success`` (0 for
-envs that report no success). Video recording is not ported and raises.
+envs that report no success).
+
+Video (``env_config.video`` with ``enabled`` and ``dir``), where the
+reference records it: a host env records through the ``VideoWrapper``
+that ``make_env`` puts at the end of its chain; on a device env, every
+``video.every_n_episodes``-th evaluation also rolls one episode of the
+unwrapped env (no auto-reset, so the outcome frame is kept) with the
+policy and renders each state (``envs/device/pixels.py::frame_renderer``),
+reset frame and terminal frame included, to ``episode_NNNNNN`` in the
+video dir. A device env without a renderer raises, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,10 +50,7 @@ class Evaluator:
         if cap is not None and int(cap) < 1:
             raise ValueError(f"eval max_steps must be >= 1, got {cap}")
         video = env_config.get("video", None)
-        if video is not None and video.get("enabled", False) and video.get("dir", None):
-            raise NotImplementedError(
-                "env_config.video with eval: recording eval episodes is not ported to PyTorch yet"
-            )
+        self._video = video if video is not None and video.get("enabled", False) and video.get("dir", None) else None
         # a host env is built with eval.episodes parallel envs; a device env
         # takes its batch at reset
         self.env = make_env(Config(num_envs=self.episodes).extend(env_config), learner.device)
@@ -59,6 +65,17 @@ class Evaluator:
             self._time_limit = int(cap) if cap is not None else 10_000
         else:
             self._time_limit = int(cap) if cap is not None else (self.env.time_limit or 1000)
+            if self._video is not None:
+                from surreal_tpu_torch.envs.device.pixels import frame_renderer
+
+                self._render_frame = frame_renderer(self.env.env)
+                if self._render_frame is None:
+                    raise ValueError(
+                        "env_config.video.enabled is set but device env "
+                        f"{type(self.env.env).__name__} has no frame renderer "
+                        "(envs/device/pixels.py frame_renderer): disable video or add a renderer for this env"
+                    )
+                self._video_episode = 0
 
     @torch.no_grad()
     def _device_eval(self, state, generator: torch.Generator) -> dict[str, torch.Tensor]:
@@ -113,13 +130,44 @@ class Evaluator:
             "eval/success": float(success.astype(np.float32).mean()),
         }
 
+    @torch.no_grad()
+    def _record_device_episode(self, state, generator: torch.Generator) -> None:
+        """One episode of the unwrapped env (batch 1) with the policy, each
+        state rendered to a frame, the terminal one included; every
+        ``video.every_n_episodes``-th call records, the others return."""
+        from surreal_tpu_torch.envs.video import save_episode_frames
+
+        episode = self._video_episode
+        self._video_episode += 1
+        if episode % max(1, self._video.every_n_episodes):
+            return
+        env = self.env.env
+        env_state, obs = env.reset(1, generator=generator)
+        frames = [self._render_frame(env_state)]
+        act_carry = self.learner.act_init(1)
+        for _ in range(self._time_limit):
+            action, _, act_carry = self.learner.act_step(state, act_carry, obs, self.mode, generator)
+            if env.step_draw_dim:
+                env_state, obs, _, done, _ = env.step(env_state, action, generator=generator)
+            else:
+                env_state, obs, _, done, _ = env.step(env_state, action)
+            frames.append(self._render_frame(env_state))
+            if bool(done[0]):
+                break
+        save_episode_frames(frames, self._video.dir, episode)
+
     def evaluate(self, state, key: int) -> dict[str, float]:
-        """One evaluation with draws seeded by ``key`` (an int)."""
+        """One evaluation with draws seeded by ``key`` (an int); a recorded
+        episode draws from its own generator, seeded by ``key + 7``."""
         generator = torch.Generator(device=self.learner.device).manual_seed(int(key))
         if self.host:
             return self._host_eval(state, generator)
         out = self._device_eval(state, generator)
-        return dict(zip(out, torch.stack(list(out.values())).tolist()))
+        metrics = dict(zip(out, torch.stack(list(out.values())).tolist()))
+        if self._video is not None:
+            video_gen = torch.Generator(device=self.learner.device).manual_seed(int(key) + 7)
+            self._record_device_episode(state, video_gen)
+        return metrics
 
     def close(self) -> None:
         if self.host:

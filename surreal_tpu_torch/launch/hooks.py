@@ -2,7 +2,17 @@
 ``surreal_tpu/launch/hooks.py`` (``SessionHooks``, ``host_metrics``,
 ``training_env_config``): metrics writing, periodic checkpoints with
 keep-best, periodic eval, restore and auto-resume, the interrupt
-sentinel and the divergence guard.
+sentinel, the divergence guard and live parameter publishing.
+
+Publishing (``session_config.publish.enabled``): the hooks start a
+``ParameterPublisher`` and a ``ParameterServer`` (``distributed/param_service.py``),
+write their addresses to ``<folder>/param_server.json`` for the ``actor``
+and ``eval --follow`` subcommands, and publish the agent's acting view
+every ``publish.every_n_iters`` iterations (never from a window the
+divergence guard tripped), under the ``param-publish`` span, with the
+``publish/version`` metric. A publish costs one device-to-host copy of
+the acting view: the one host sync off the metrics cadence. The
+parameter fanout (``publish.fanout.enabled``) is not ported and raises.
 
 Restore: ``checkpoint.auto_resume`` (on by default) resumes from the
 session's own newest finite checkpoint; ``checkpoint.restore_from`` names
@@ -86,8 +96,8 @@ def check_session_options(config, learner=None) -> None:
     def refuse(key: str, what: str):
         raise NotImplementedError(f"{key}: {what} is not ported to PyTorch yet")
 
-    if _switch_on(cfg, "publish.enabled"):
-        refuse("session_config.publish.enabled", "live parameter publishing")
+    if _switch_on(cfg, "publish.enabled") and _switch_on(cfg, "publish.fanout.enabled"):
+        refuse("session_config.publish.fanout.enabled", "the parameter fanout (versioned weight frames)")
     if cfg.get("compile_cache_dir", None):
         refuse("session_config.compile_cache_dir", "the persistent compile cache")
     topo = cfg.get("topology", None)
@@ -172,6 +182,11 @@ class SessionHooks:
             self._eval_every = PeriodicTracker(ev.every_n_iters)
         if self.ckpt is not None:
             self.ckpt.best_key = "eval/return" if self.evaluator else "episode/return"
+        self._publisher = None
+        self._param_server = None
+        pub = cfg.get("publish", None)
+        if pub is not None and pub.enabled:
+            self._start_publishing(pub, learner)
         # on-demand profiling (session/profile.py): the profiler window,
         # trigger-file captures and the slow-iteration trigger, all behind
         # one boundary tick
@@ -182,6 +197,28 @@ class SessionHooks:
         self._metrics_every = PeriodicTracker(max(1, cfg.metrics.every_n_iters))
         self._t0 = None
         self._steps0 = 0
+
+    def _start_publishing(self, pub, learner) -> None:
+        """Live parameter publishing: a publisher and a parameter server,
+        advertised in ``<folder>/param_server.json`` (written atomically:
+        the ``actor`` and ``eval --follow`` processes poll for it)."""
+        import json
+
+        from surreal_tpu_torch.agents import make_agent
+        from surreal_tpu_torch.distributed.param_service import ParameterPublisher, ParameterServer
+
+        self._pub_agent = make_agent(learner)
+        self._publisher = ParameterPublisher()
+        # span-tagged fetches land in the telemetry spine as param_fetch events
+        self._param_server = ParameterServer(self._publisher.address, bind=pub.bind, on_event=self.tracer.event)
+        self._pub_every = PeriodicTracker(max(1, pub.every_n_iters))
+        self._discovery_path = os.path.join(self.config.session_config.folder, "param_server.json")
+        with open(self._discovery_path + ".tmp", "w") as f:
+            json.dump({"addresses": self._param_server.addresses, "publisher": self._publisher.address}, f)
+        os.replace(self._discovery_path + ".tmp", self._discovery_path)
+        self.log.info(
+            "parameter server live at %s (publish every %d iters)", self._param_server.addresses, self._pub_every.period
+        )
 
     @property
     def last_metrics(self) -> dict[str, float]:
@@ -235,6 +272,8 @@ class SessionHooks:
         self._ckpt_every = PeriodicTracker(self._ckpt_every.period, init_count=iteration)
         if self.evaluator is not None:
             self._eval_every = PeriodicTracker(self._eval_every.period, init_count=iteration)
+        if self._publisher is not None:
+            self._pub_every = PeriodicTracker(self._pub_every.period, init_count=iteration)
 
     # -- per-iteration -------------------------------------------------------
     def begin_run(self, iteration: int, env_steps: int) -> None:
@@ -301,6 +340,13 @@ class SessionHooks:
             or self.recovery.pending is not None
             or self.recovery.last_window_tripped is not None
         )
+        if self._publisher is not None and self._pub_every.track_increment() and not tripped:
+            # never publish poisoned params to live actors. The acting
+            # view's copy to the host is the publish's one sync.
+            with self.tracer.span("param-publish", emit=True):
+                version = self._publisher.publish(self._pub_agent.acting_view(resolve_state()))
+            if m is not None:
+                m["publish/version"] = float(version)
         evaled: dict[str, float] = {}
         if self.evaluator is not None and self._eval_every.track_increment() and not tripped:
             with self.tracer.span("eval", emit=True):
@@ -395,6 +441,18 @@ class SessionHooks:
         for ev in faults.drain_fired():  # faults since the last boundary
             self.tracer.event("fault", **ev)
         self.profile.close()  # stop and record a capture cut short by the end
+        if self._param_server is not None:
+            self._param_server.close()
+            self._param_server = None
+            # a dead session must not advertise its ports: an actor would
+            # spend its wait on the stale address
+            try:
+                os.unlink(self._discovery_path)
+            except OSError:
+                pass
+        if self._publisher is not None:
+            self._publisher.close()
+            self._publisher = None
         self.writer.close()
         self.tracer.close()
         # detach this session's file log handler, so its fd into

@@ -1,6 +1,6 @@
 """Experiment launcher, the port of ``surreal_tpu/main/launch.py``'s
-``train`` subcommand (``build_config``, ``select_trainer``, ``run_train``,
-``main``):
+``train``, ``eval`` and ``actor`` subcommands (``build_config``,
+``select_trainer``, ``run_train``, ``run_eval``, ``run_actor``, ``main``):
 
     python -m surreal_tpu_torch train ppo jax:lift --folder /tmp/exp1
     python -m surreal_tpu_torch train ddpg jax:lift --folder /tmp/exp2 \\
@@ -18,6 +18,24 @@ workers, else ``Trainer``), runs it with the session services of
 default, "the accelerator") runs on the CUDA card and raises without
 one; 'cpu' runs on the CPU (``--set session_config.backend=cpu``).
 
+Scoring a session, and acting against a live one:
+
+    python -m surreal_tpu_torch eval /tmp/exp1 --best --episodes 10   # a checkpoint (or --folder F)
+    python -m surreal_tpu_torch eval /tmp/exp1 --follow --rounds 2    # the live session's published params
+    python -m surreal_tpu_torch actor --folder /tmp/exp1 --episodes 4 --min-version 2
+
+``actor`` and ``eval --follow`` need a session trained with
+``session_config.publish.enabled=true``: they find its parameter server
+in ``<folder>/param_server.json`` (or ``--connect tcp://host:port``),
+wait up to ``--wait`` seconds for it and for a first publish (rc 2 with a
+message if none comes), and act on the session's backend (the card for
+'tpu', the CPU for 'cpu'), from parameters fetched over the wire. The
+actor prints a JSON line per finished episode and a summary whose
+``actor/versions_seen`` counts the versions it acted with; eval prints
+one JSON line per round (``--follow``) or one for the checkpoint, and
+records eval episodes to video when the session's ``env_config.video``
+asks for it.
+
 The offline subcommands, with the reference's arguments, messages and
 exit codes (pure file work, so they run on any machine, also beside a
 live session on the card):
@@ -29,7 +47,7 @@ live session on the card):
 Refused with exit code 2: ``--workers`` with ddpg or a ``jax:`` env (the
 reference's rule and message), and, not ported yet, ``--local-procs``
 (process groups, with the multi-host SEED trainer) and the other
-subcommands (eval, actor, tune, top, why, chaos).
+subcommands (tune, top, why, chaos).
 """
 
 from __future__ import annotations
@@ -46,7 +64,7 @@ from surreal_tpu_torch.session.default_configs import base_config
 
 PROG = "surreal_tpu_torch"
 ALGOS = ("ppo", "ddpg", "impala")
-UNPORTED_COMMANDS = ("eval", "actor", "tune", "top", "why", "chaos")
+UNPORTED_COMMANDS = ("tune", "top", "why", "chaos")
 BACKENDS = {"tpu": "cuda", "cpu": "cpu"}
 
 
@@ -144,6 +162,260 @@ def run_train(args) -> int:
     return 0
 
 
+def _load_session_config(folder: str, wait_s: float = 0.0):
+    """The session's ``config.json``, or None; with ``wait_s``, polled for
+    that long (an actor may start before the trainer wrote it). A file
+    that does not parse counts as not there yet."""
+    import time
+
+    cfg_path = os.path.join(folder, "config.json")
+    deadline = time.monotonic() + wait_s
+    while True:
+        if os.path.exists(cfg_path):
+            try:
+                with open(cfg_path) as f:
+                    return Config(json.load(f))
+            except (json.JSONDecodeError, OSError):
+                pass
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(0.2)
+
+
+def _discover_param_server(folder: str, connect: str | None, wait_s: float) -> str:
+    """The live session's parameter-server address: ``--connect`` when
+    given, else ``<folder>/param_server.json`` (written by ``SessionHooks``
+    under ``session_config.publish.enabled``), polled for ``wait_s``."""
+    import time
+
+    if connect:
+        return connect
+    path = os.path.join(folder, "param_server.json")
+    deadline = time.monotonic() + wait_s
+    while True:
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    return json.load(f)["addresses"][0]
+            except (json.JSONDecodeError, OSError, KeyError, IndexError):
+                pass  # racing the atomic replace; retry
+        if time.monotonic() >= deadline:
+            raise TimeoutError(
+                f"no {path} after {wait_s:.0f}s: is a training session with "
+                "session_config.publish.enabled=true running? (or pass --connect tcp://host:port)"
+            )
+        time.sleep(0.2)
+
+
+_ACTOR_MODES = {
+    "training": "training",
+    "deterministic": "eval_deterministic",
+    "stochastic": "eval_stochastic",
+}
+
+
+def _wait_for_publish(agent, folder, connect, address, wait_s, *, min_version=1, fetch_every=1) -> bool:
+    """Wait until a view of version >= ``min_version`` has been fetched
+    into ``agent``: True, or False after ``wait_s``. Polls with
+    version-only probes and, unless the address was pinned with
+    ``--connect``, re-reads the discovery file between them, reconnecting
+    when a new session has rewritten it (a dead session's stale file must
+    not eat the wait)."""
+    import time
+
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            if agent.peek_published_version(timeout_ms=2000) >= min_version and agent.fetch_params():
+                return True
+        except TimeoutError:
+            pass
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.3)
+        if not connect:
+            try:
+                new_addr = _discover_param_server(folder, None, 0.0)
+            except TimeoutError:
+                continue
+            if new_addr != address:
+                address = new_addr
+                state = agent.state
+                agent.close()
+                agent.connect(address, state, fetch_every=fetch_every)
+
+
+def _connect_live(args, learner, mode: str, seed: int, min_version: int = 1, fetch_every: int = 1):
+    """(an agent of ``learner`` on the live session's server with a view
+    of version >= ``min_version`` fetched, None), or (None, the message of
+    an exit with code 2)."""
+    from surreal_tpu_torch.agents import make_agent
+
+    try:
+        address = _discover_param_server(args.folder, args.connect, args.wait)
+    except TimeoutError as e:
+        return None, str(e)
+    agent = make_agent(learner, _ACTOR_MODES[mode])
+    agent.connect(address, learner.init(torch.Generator().manual_seed(seed)), fetch_every=fetch_every)
+    if not _wait_for_publish(agent, args.folder, args.connect, address, args.wait,
+                             min_version=min_version, fetch_every=fetch_every):
+        agent.close()
+        return None, f"nothing published (>= version {min_version}) on {address} after {args.wait:.0f}s"
+    return agent, None
+
+
+def run_actor(args) -> int:
+    """A standalone actor against a LIVE training session: acts with
+    parameters fetched from its server every ``--fetch-every`` acts.
+    Prints one JSON line per finished episode (episode, return, length,
+    param_version) and a summary; ``actor/versions_seen`` > 1 shows it
+    tracked a live learner, not a snapshot."""
+    import numpy as np
+
+    from surreal_tpu_torch.envs import is_jax_env, make_env
+    from surreal_tpu_torch.learners import build_learner
+
+    config = _load_session_config(args.folder, wait_s=args.wait)
+    if config is None:
+        print(f"no config.json under {args.folder!r} (launch training first)", file=sys.stderr)
+        return 2
+    device = backend_device(config.session_config.get("backend", "tpu"))
+    env_cfg = config.env_config
+    if args.num_envs is not None:
+        env_cfg = Config(num_envs=args.num_envs).extend(env_cfg)
+    if args.video_dir:
+        if env_cfg.name.startswith("jax:"):
+            raise ValueError(
+                "--video-dir records through the host VideoWrapper; device (jax:*) env episodes are "
+                "recorded by eval's state renderer (env_config.video on the training session) instead"
+            )
+        env_cfg = Config(video=Config(enabled=True, dir=args.video_dir, every_n_episodes=1)).extend(env_cfg)
+    env = make_env(env_cfg, device)
+    learner = build_learner(config.learner_config, env.specs, device)
+    agent, why = _connect_live(args, learner, args.mode, args.seed,
+                               min_version=max(1, args.min_version), fetch_every=args.fetch_every)
+    if agent is None:
+        print(why, file=sys.stderr)
+        if not is_jax_env(env):
+            env.close()
+        return 2
+
+    B = env_cfg.num_envs
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    ep_ret = np.zeros(B, np.float64)
+    ep_len = np.zeros(B, np.int64)
+    episodes_done = 0
+    versions_seen: set[int] = set()
+
+    def on_step(reward: np.ndarray, done: np.ndarray) -> None:
+        nonlocal episodes_done
+        ep_ret[:] += reward
+        ep_len[:] += 1
+        versions_seen.add(agent.param_version)
+        for i in np.nonzero(done)[0]:
+            episodes_done += 1
+            print(json.dumps({"episode": episodes_done, "return": float(ep_ret[i]), "length": int(ep_len[i]),
+                              "param_version": agent.param_version}), flush=True)
+            ep_ret[i] = 0.0
+            ep_len[i] = 0
+        if hasattr(agent, "mask_noise_on_reset"):
+            agent.mask_noise_on_reset(done)  # DDPG's OU state must not leak across resets
+
+    act_steps = 0  # across the batch: each pass acts B envs
+    cap = args.max_steps if args.max_steps is not None else 10**9
+    final_version = agent.param_version
+    try:
+        if is_jax_env(env):
+            env_state, obs = env.reset(B, generator=generator)
+            while episodes_done < args.episodes and act_steps < cap:
+                action, _ = agent.remote_act(obs, generator)
+                env_state, obs, reward, done, _ = env.step(env_state, action, generator)
+                on_step(reward.cpu().numpy(), done.cpu().numpy())
+                act_steps += B
+        else:
+            obs = env.reset(seed=env_cfg.seed)
+            while episodes_done < args.episodes and act_steps < cap:
+                action, _ = agent.remote_act(obs, generator)
+                out = env.step(action.cpu().numpy())
+                on_step(out.reward, out.done)
+                obs = out.obs
+                act_steps += B
+    finally:
+        final_version = max(final_version, agent.param_version)
+        agent.close()
+        if not is_jax_env(env):
+            env.close()
+    print(json.dumps({
+        "actor/episodes": episodes_done,
+        "actor/steps": act_steps,
+        "actor/param_version": final_version,
+        "actor/versions_seen": len(versions_seen),
+    }), flush=True)
+    return 0
+
+
+def run_eval(args) -> int:
+    """Score a session folder from its newest (or ``--best``) checkpoint,
+    or, with ``--follow``, the LIVE session's published parameters, fetched
+    afresh each of ``--rounds`` rounds."""
+    from surreal_tpu_torch.envs import is_jax_env, make_env
+    from surreal_tpu_torch.launch.evaluator import Evaluator
+    from surreal_tpu_torch.learners import build_learner
+    from surreal_tpu_torch.session.checkpoint import CheckpointManager
+
+    folder = args.folder_pos or args.folder
+    if folder is None or (args.folder_pos and args.folder and args.folder_pos != args.folder):
+        print(f"{PROG} eval: give the session folder once, as FOLDER or --folder", file=sys.stderr)
+        return 2
+    args.folder = folder
+    config = _load_session_config(folder, wait_s=args.wait if args.follow else 0.0)
+    if config is None:
+        print(f"no config.json under {folder!r} (was it trained via the CLI?)", file=sys.stderr)
+        return 2
+    # eval runs on the backend the session trained on
+    device = backend_device(config.session_config.get("backend", "tpu"))
+    probe = make_env(config.env_config, device)
+    learner = build_learner(config.learner_config, probe.specs, device)
+    if not is_jax_env(probe):
+        probe.close()
+    eval_cfg = Config(episodes=args.episodes, mode=args.mode, max_steps=args.max_steps)
+
+    if args.follow:
+        agent, why = _connect_live(args, learner, args.mode, 0)
+        if agent is None:
+            print(why, file=sys.stderr)
+            return 2
+        ev = Evaluator(config.env_config, eval_cfg, learner)
+        try:
+            for rnd in range(args.rounds):
+                if rnd:
+                    agent.fetch_params()  # the freshest published view each round
+                out = ev.evaluate(agent.state, args.seed + rnd)
+                out["param_version"] = agent.param_version
+                print(json.dumps({k: v for k, v in sorted(out.items())}, default=float), flush=True)
+        finally:
+            ev.close()
+            agent.close()
+        return 0
+
+    mgr = CheckpointManager(config.session_config.folder)
+    template = learner.init()
+    restored = mgr.restore_best(template) if args.best else mgr.restore(template)
+    if restored is None:
+        print(f"no {'best ' if args.best else ''}checkpoint under {folder!r}", file=sys.stderr)
+        return 2
+    state, meta = restored
+    ev = Evaluator(config.env_config, eval_cfg, learner)
+    try:
+        out = ev.evaluate(state, args.seed)
+    finally:
+        ev.close()
+    out["checkpoint/iteration"] = meta["iteration"]
+    out["checkpoint/env_steps"] = meta["env_steps"]
+    print(json.dumps({k: v for k, v in sorted(out.items())}, default=float))
+    return 0
+
+
 def run_profile(args) -> int:
     """Request an on-demand profiler capture from a live training session:
     drops ``<folder>/profile.trigger``, which the session's
@@ -231,6 +503,43 @@ def make_parser() -> argparse.ArgumentParser:
     t.add_argument("--set", nargs="*", metavar="KEY=VAL", default=[],
                    help="dotlist overrides, e.g. learner_config.algo.horizon=64")
     t.set_defaults(fn=run_train)
+
+    e = sub.add_parser("eval", help="evaluate a trained session folder, or "
+                       "--follow a live session's parameter server")
+    e.add_argument("folder_pos", nargs="?", metavar="FOLDER", help="the session folder (or --folder)")
+    e.add_argument("--folder", default=None)
+    e.add_argument("--episodes", type=int, default=10)
+    e.add_argument("--mode", choices=("deterministic", "stochastic"), default="deterministic")
+    e.add_argument("--best", action="store_true", help="use the keep-best checkpoint instead of the latest")
+    e.add_argument("--max-steps", type=int, default=None,
+                   help="per-episode step cap (default: env time limit on device envs, 10000 on host envs)")
+    e.add_argument("--seed", type=int, default=0)
+    e.add_argument("--follow", action="store_true",
+                   help="score the LIVE session's published params instead of a checkpoint (needs session_config.publish)")
+    e.add_argument("--connect", default=None,
+                   help="parameter-server address (default: discover via <folder>/param_server.json)")
+    e.add_argument("--rounds", type=int, default=1, help="--follow only: eval rounds, re-fetching params each round")
+    e.add_argument("--wait", type=float, default=60.0,
+                   help="--follow only: seconds to wait for the live session's server / first publish")
+    e.set_defaults(fn=run_eval)
+
+    a = sub.add_parser("actor", help="standalone actor against a live training session's parameter server")
+    a.add_argument("--folder", required=True, help="the live session's folder (config.json + param_server.json discovery)")
+    a.add_argument("--connect", default=None,
+                   help="parameter-server address (default: discover via <folder>/param_server.json)")
+    a.add_argument("--episodes", type=int, default=10)
+    a.add_argument("--fetch-every", type=int, default=100, help="re-fetch params every K acts")
+    a.add_argument("--min-version", type=int, default=1,
+                   help="block until the published version reaches this before acting (wait out warmup)")
+    a.add_argument("--mode", choices=("training", "deterministic", "stochastic"), default="training")
+    a.add_argument("--num-envs", type=int, default=None,
+                   help="actor batch width (default: the session's env_config.num_envs)")
+    a.add_argument("--max-steps", type=int, default=None, help="total act-step cap across the batch (safety stop)")
+    a.add_argument("--video-dir", default=None, help="record episodes (host envs) via VideoWrapper")
+    a.add_argument("--wait", type=float, default=60.0,
+                   help="seconds to wait for the live session's config/server/first publish")
+    a.add_argument("--seed", type=int, default=0)
+    a.set_defaults(fn=run_actor)
 
     p = sub.add_parser("profile", help="ask a LIVE session for an "
                        "on-demand torch.profiler capture (writes "

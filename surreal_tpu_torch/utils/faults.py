@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the trainer and SEED data-plane
-sites, the port of ``surreal_tpu/utils/faults.py``'s registry
+"""Deterministic fault injection for the trainer, SEED data-plane and
+parameter-service sites, the port of ``surreal_tpu/utils/faults.py``'s registry
 (``FaultInjector``, ``configure_from``, ``fire``, ``drain_fired``,
 ``sleep_ms``, ``corrupt_array``, ``FaultInjected``, ``poison_state``,
 ``apply_trainer_fault``).
@@ -26,10 +26,14 @@ port has:
                         ``corrupt_slab``: NaN-stomp the obs payload
     server.serve        once per inference-server micro-batch
                         ``delay``: sleep ``ms``
+    param_service.reply once per parameter-server reply
+                        ``delay_reply``: sleep ``ms`` before replying
+                        (past the client's timeout: the client replaces
+                        its socket, the late reply is dropped)
 
 The reference's other sites belong to subsystems the port does not have
-yet (the parameter service, the serving tier, the experience plane, the
-ops plane, causal-span emission): a plan entry for one of them raises
+yet (the serving tier, the experience plane, the ops plane, causal-span
+emission): a plan entry for one of them raises
 ``NotImplementedError`` naming the site. A spawned env worker starts
 with an empty registry; the SEED trainer forwards the plan to it. ``session_config.faults.plan`` (a list, or a JSON
 string for ``--set``) configures the registry at run start, which also
@@ -56,12 +60,12 @@ SITE_KINDS: dict[str, frozenset[str]] = {
     "env_worker.step": frozenset({"kill_worker", "delay"}),
     "transport.send": frozenset({"drop_frame", "delay_frame", "corrupt_slab"}),
     "server.serve": frozenset({"delay"}),
+    "param_service.reply": frozenset({"delay_reply"}),
 }
 SITES = frozenset(SITE_KINDS)
 # the reference's sites on paths the port does not have yet
 UNPORTED_SITES = frozenset({
-    "param_service.reply", "experience.shard",
-    "experience.sample", "experience.send", "experience.spill", "fleet.replica", "param.publish",
+    "experience.shard", "experience.sample", "experience.send", "experience.spill", "fleet.replica", "param.publish",
     "gateway.session", "ops.push", "trace.emit", "watchdog.eval", "lgroup.member",
 })
 

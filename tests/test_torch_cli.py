@@ -90,6 +90,13 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
     for cmd in torch_launch.UNPORTED_COMMANDS:
         assert torch_launch.main([cmd, str(tmp_path)]) == 2
     assert "not ported" in capsys.readouterr().err
+    # eval and actor are ported: on a folder with no session they exit 2
+    # with the reference's message, not with "not ported"
+    assert not {"eval", "actor"} & set(torch_launch.UNPORTED_COMMANDS)
+    assert torch_launch.main(["eval", str(tmp_path)]) == 2
+    assert torch_launch.main(["actor", "--folder", str(tmp_path), "--wait", "0"]) == 2
+    err = capsys.readouterr().err
+    assert err.count("no config.json") == 2 and "not ported" not in err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="session_config.backend=cpu"):
         torch_launch.main(base)  # 'tpu', the default, is the card
@@ -98,20 +105,17 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
 
 
 UNPORTED_OPTIONS = {
-    "session_config.publish.enabled": {"session_config": {"publish": {"enabled": True}}},
+    "session_config.publish.fanout.enabled": {"session_config": {"publish": {"enabled": True,
+                                                                             "fanout": {"enabled": True}}}},
     "session_config.compile_cache_dir": {"session_config": {"compile_cache_dir": "xla_cache"}},
     "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
     "session_config.topology.mesh": {"session_config": {"topology": {"mesh": {"dp": 2}}}},
     "session_config.topology.multihost": {"session_config": {"topology": {"multihost": {"coordinator": "h:1"}}}},
-    "env_config.video": {"env_config": {"video": {"enabled": True, "dir": "v"}},
-                         "session_config": {"eval": {"every_n_iters": 1}}},
     "experience.send": {"session_config": {"faults": {"plan": [{"site": "experience.send", "kind": "drop_frame"}]}}},
 }
 
 
-@pytest.mark.parametrize("key", sorted(UNPORTED_OPTIONS))
-def test_every_unported_session_option_raises(key, tmp_path):
-    over = UNPORTED_OPTIONS[key]
+def _option_tree(over: dict, tmp_path) -> Config:
     tree = {
         "learner_config": {"algo": {"name": "ppo", "horizon": 4, "epochs": 1, "num_minibatches": 1,
                                     **over.get("learner_config", {}).get("algo", {})}},
@@ -119,11 +123,42 @@ def test_every_unported_session_option_raises(key, tmp_path):
         "session_config": {"folder": str(tmp_path), "metrics": {"tensorboard": False},
                            **over.get("session_config", {})},
     }
+    return Config(tree).extend(base_config())
+
+
+@pytest.mark.parametrize("key", sorted(UNPORTED_OPTIONS))
+def test_every_unported_session_option_raises(key, tmp_path):
     try:
         with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
-            Trainer(Config(tree).extend(base_config()), device="cpu").run(max_env_steps=8)
+            Trainer(_option_tree(UNPORTED_OPTIONS[key], tmp_path), device="cpu").run(max_env_steps=8)
     finally:
         faults.configure(None)
+
+
+# options the port refused until it had their paths: each now trains
+PORTED_OPTIONS = {
+    "session_config.publish.enabled": {"session_config": {"publish": {"enabled": True}}},
+    "env_config.video": {"env_config": {"video": {"enabled": True, "dir": "v"}},
+                         "session_config": {"eval": {"every_n_iters": 1, "episodes": 2, "max_steps": 6}}},
+}
+
+
+@pytest.mark.parametrize("key", sorted(PORTED_OPTIONS))
+def test_formerly_unported_session_option_trains(key, tmp_path):
+    """One iteration with the option on: publishing starts the parameter
+    server, publishes once (a ``param-publish`` span) and retracts its
+    discovery file at the end; video records the eval episode of the
+    device env (reset frame, 6 steps)."""
+    over = PORTED_OPTIONS[key]
+    if key == "env_config.video":
+        over = {**over, "env_config": {"video": {**over["env_config"]["video"], "dir": str(tmp_path / "v")}}}
+    Trainer(_option_tree(over, tmp_path), device="cpu").run(max_env_steps=8)
+    events = list(_iter_jsonl(os.path.join(tmp_path, "telemetry", "events.jsonl")))
+    if key == "env_config.video":
+        assert [f.split(".")[0] for f in os.listdir(tmp_path / "v")] == ["episode_000000"]
+    else:
+        assert [e["name"] for e in events if e["type"] == "span" and e["name"] == "param-publish"] == ["param-publish"]
+        assert not os.path.exists(tmp_path / "param_server.json")
 
 
 PROFILE_OPTIONS = {

@@ -131,7 +131,7 @@ def test_lift_autoreset_trajectory_matches_jax():
     assert grasped > 0, "the scripted policy never grasped: physics branches not exercised"
 
 
-def test_make_env_builds_lift_and_refuses_unported_envs():
+def test_make_env_builds_lift_and_refuses_unported_envs(tmp_path):
     env = make_env(Config(name="jax:lift", time_limit=7).extend(BASE_ENV_CONFIG), device="cpu")
     assert isinstance(env, AutoReset) and env.time_limit == 7
     assert env.specs.obs.shape == (17,) and env.specs.action.shape == (4,)
@@ -139,10 +139,14 @@ def test_make_env_builds_lift_and_refuses_unported_envs():
     assert obs.shape == (3, 17) and state.step_count.dtype == torch.int32
     with pytest.raises(ValueError, match="no step draws"):
         env.step(state, torch.zeros(3, 4), step_draws=torch.zeros(3, 1))
-    # every env name is ported; video recording on a host env is not, and
+    # every env name is ported, and video recording on a host env: without
+    # a video dir nothing records, with one the chain ends in the recorder;
     # robosuite stays behind the reference's import guard
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_env(Config(name="gym:CartPole-v1", video=Config(enabled=True)).extend(BASE_ENV_CONFIG), device="cpu")
+    for video, last in ((Config(enabled=True), "EpisodeStatsWrapper"),
+                        (Config(enabled=True, dir=str(tmp_path)), "VideoWrapper")):
+        host = make_env(Config(name="gym:CartPole-v1", video=video).extend(BASE_ENV_CONFIG), device="cpu")
+        assert type(host).__name__ == last and host.envs[0].render_mode == "rgb_array"
+        host.close()
     with pytest.raises(ImportError, match="robosuite"):
         make_env(Config(name="robosuite:Lift").extend(BASE_ENV_CONFIG), device="cpu")
 

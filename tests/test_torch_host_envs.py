@@ -183,16 +183,23 @@ def test_factory_builds_the_reference_wrapper_chain():
     assert port_factory.is_jax_env(port_factory.make_env(Config(name="jax:nut").extend(BASE_ENV_CONFIG), "cpu"))
 
 
-def test_factory_refusals():
+def test_factory_refusals(tmp_path):
     """robosuite sits behind the reference's import guard (it is not
-    installed); video on a host env and unknown names raise."""
+    installed); unknown names raise. Video on a host env ends the chain in
+    the VideoWrapper, as the reference's does, over envs that render
+    ``rgb_array`` frames."""
     with pytest.raises(ImportError, match="robosuite is not installed"):
         port_factory.make_env(Config(name="robosuite:Lift").extend(BASE_ENV_CONFIG))
     with pytest.raises(ImportError):
         jax_factory.make_env(JaxConfig(name="robosuite:Lift").extend(JAX_BASE_ENV_CONFIG))
-    video = Config(name="gym:CartPole-v1", video=Config(enabled=True, dir="v")).extend(BASE_ENV_CONFIG)
-    with pytest.raises(NotImplementedError, match="video"):
-        port_factory.make_env(video)
+    video = dict(name="gym:CartPole-v1", video=dict(enabled=True, dir=str(tmp_path / "v")))
+    ours = port_factory.make_env(Config(video).extend(BASE_ENV_CONFIG))
+    theirs = jax_factory.make_env(JaxConfig(video).extend(JAX_BASE_ENV_CONFIG))
+    try:
+        assert _chain(ours) == _chain(theirs) == ["VideoWrapper", "EpisodeStatsWrapper", "GymAdapter"]
+        assert ours.envs[0].render_mode == theirs.envs[0].render_mode == "rgb_array"
+    finally:
+        ours.close(), theirs.close()
     with pytest.raises(ValueError, match="unknown jax env"):
         port_factory.make_env(Config(name="jax:nope").extend(BASE_ENV_CONFIG), "cpu")
     with pytest.raises(ValueError, match="unknown env backend"):

@@ -1,5 +1,7 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX, of the JAX
-package or of zmq (its SEED wire is the standard library's sockets), its
+package, of zmq or of msgpack (its SEED and parameter wires are the
+standard library's sockets, and the parameter service's bytes are
+decoded without pickle), its
 entry points never fall back to the CPU on their own, and every gauge
 literal it emits is documented in its ``GAUGE_REGISTRY`` with a unit (the
 reference's lint, ``tests/test_import_hygiene.py``)."""
@@ -18,7 +20,7 @@ from surreal_tpu_torch.session.default_configs import base_config
 
 _PKG = pathlib.Path(surreal_tpu_torch.__file__).parent
 _REPO = _PKG.parent
-_BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "surreal_tpu", "zmq")
+_BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "surreal_tpu", "zmq", "msgpack")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -54,7 +56,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "utils/respawn.py",
     }
     perf = {"session/costs.py", "session/profile.py"}
-    wanted = session_runtime | trajectory | host | seed | perf
+    publish = {
+        "agents/__init__.py", "agents/base.py", "agents/ppo_agent.py", "agents/ddpg_agent.py",
+        "distributed/param_service.py", "distributed/module_dict.py", "envs/video.py",
+    }
+    wanted = session_runtime | trajectory | host | seed | perf | publish
     assert wanted <= scanned, f"not scanned: {sorted(wanted - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
@@ -62,7 +68,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for line, root in _imported_roots(path)
         if root in _BANNED
     ]
-    assert not bad, "the port must not import JAX, the JAX package or zmq:\n" + "\n".join(bad)
+    assert not bad, "the port must not import JAX, the JAX package, zmq or msgpack:\n" + "\n".join(bad)
+    # nothing on the parameter wire unpickles: bytes from a socket are decoded by their header
+    wire = ("distributed/sockets.py", "distributed/module_dict.py", "distributed/param_service.py")
+    unpickling = [f"{name}: import {root}" for name in wire for _, root in _imported_roots(_PKG / name)
+                  if root in ("pickle", "cloudpickle", "dill", "marshal")]
+    assert not unpickling, unpickling
 
 
 def _tiny_config():

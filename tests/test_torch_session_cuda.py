@@ -8,7 +8,11 @@ collects on a machine that has the port and a card only:
 - an iteration off every cadence, through the engine and the hooks,
   makes no host sync (``torch.cuda.set_sync_debug_mode("error")``);
 - a 'bf16' PPO learn (dynamic loss scaling: the scale read, the skip
-  decided and the state chosen on the device) makes no host sync."""
+  decided and the state chosen on the device) makes no host sync;
+- an agent acts on the card from a view fetched over the parameter
+  service, the view bit-equal to the published one;
+- an iteration that publishes its acting view makes one host sync, in
+  the publish (the view's copy to the host), and none elsewhere."""
 
 import pytest
 import torch
@@ -135,3 +139,90 @@ def test_bf16_learn_makes_no_host_sync():
         torch.cuda.set_sync_debug_mode(0)
     assert float(metrics["precision/loss_scale"]) == 2.0**15 and float(metrics["health/nonfinite"]) == 0.0
     assert int(new.opt_state.good_steps) == 16
+
+
+@pytest.mark.cuda
+def test_agent_acts_on_the_card_from_a_fetched_view():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+
+    import numpy as np
+
+    from surreal_tpu_torch.agents import make_agent
+    from surreal_tpu_torch.distributed import ParameterPublisher, ParameterServer
+    from surreal_tpu_torch.envs.base import ArraySpec, EnvSpecs
+    from surreal_tpu_torch.learners import build_learner
+
+    f32 = np.dtype(np.float32)
+    specs = EnvSpecs(obs=ArraySpec((17,), f32), action=ArraySpec((4,), f32))
+    learner = build_learner(Config(algo=Config(name="ppo"), model=Config(dtype="bfloat16")), specs, device="cuda")
+    published = learner.init(torch.Generator().manual_seed(1))
+    pub = ParameterPublisher()
+    server = ParameterServer(pub.address)
+    agent = make_agent(learner)
+    try:
+        agent.connect(server.address, learner.init(torch.Generator().manual_seed(2)))
+        pub.publish(agent.acting_view(published))
+        deadline = time.monotonic() + 10
+        while not agent.fetch_params():
+            assert time.monotonic() < deadline, "nothing fetched"
+            time.sleep(0.02)
+        want, got = tree_flatten(agent.acting_view(published)), tree_flatten(agent.acting_view(agent.state))
+        assert any(v.dtype == torch.bfloat16 for v in got.values())
+        for k, v in want.items():
+            assert got[k].is_cuda and got[k].dtype == v.dtype and torch.equal(got[k], v), k
+        action, info = agent.remote_act(torch.randn(8, 17, device="cuda"))
+        assert action.is_cuda and info["param_version"].is_cuda and info["param_version"].tolist() == [1] * 8
+    finally:
+        agent.close()
+        server.close()
+        pub.close()
+
+
+@pytest.mark.cuda
+def test_publishing_iteration_syncs_once_in_the_publish(tmp_path, monkeypatch):
+    """Publish every 3 iterations, metrics every 4: iteration 3 (it
+    publishes) and iteration 5 (no cadence) run under
+    set_sync_debug_mode('error') from their step through their boundary,
+    except inside the publish, which makes exactly one sync (counted under
+    'warn'), as does the publish at iteration 6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import warnings
+
+    from surreal_tpu_torch.distributed.param_service import ParameterPublisher
+
+    cfg = _tiny(tmp_path, metrics={"every_n_iters": 4}, checkpoint={"every_n_iters": 0},
+                publish={"enabled": True, "every_n_iters": 3})
+    tr = Trainer(cfg)
+    inner = tr._device_train_iter
+    calls = []
+
+    def wrapped(*a, **kw):
+        calls.append(1)
+        torch.cuda.set_sync_debug_mode("error" if len(calls) in (3, 5) else 0)
+        return inner(*a, **kw)
+
+    publish_syncs = []
+    publish = ParameterPublisher.publish
+
+    def counted(self, params):
+        mode = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return publish(self, params)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                publish_syncs.append(sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+                                         for w in caught))
+
+    monkeypatch.setattr(ParameterPublisher, "publish", counted)
+    tr._device_train_iter = wrapped
+    try:
+        tr.run(max_env_steps=8 * 64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(calls) == 8 and publish_syncs == [1, 1]
