@@ -21,9 +21,11 @@ inference server: PPO on cheetah-run, IMPALA on CartPole and on 256
 pixel envs), the profiling and cost accounting of a session (the
 profiler captures, the perf gauges, the diag and trace readers), and
 the 'bf16' and 'bf16_fp8' precision policies (dynamic loss scaling, bf16
-staging and replay storage, the fp8 Dense path), and live parameter
+staging and replay storage, the fp8 Dense path), live parameter
 publishing with the processes that consume it (``actor``, ``eval
---follow``) and ``eval --best`` with its video. Five kernels are built
+--follow``) and ``eval --best`` with its video, and the serving tier
+(SEED behind a replicated, autoscaled inference fleet; the versioned
+parameter fanout with a subscriber process). Five kernels are built
 and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
@@ -203,6 +205,38 @@ and checked. Phases, each printing one JSON line:
              publishing iterations' median against the others' in one
              run. Publish ms p50 (encode and send, the ``param-publish``
              span), fetch ms p50 and the bytes of a fetch are printed.
+12. fleet  - the serving tier under SEED (``topology.inference_fleet``):
+             ``train impala gym:CartPole-v1 --workers 4`` with 2 replicas
+             (thread workers on the pickle wire, chunks [32, 8], each
+             iteration paced to at least 50 ms) and one replica killed by
+             the ``fleet.replica`` ``kill_replica`` injection: the replica
+             respawned in place, its workers respawned against the
+             survivor, 2 replicas live at the end, the last
+             ``serving_tier`` event all alive, no slab left, V-trace once a
+             learn; the seed-impala-pixels256 geometry (4 worker processes
+             x 64 pixel envs, chunks [32, 32]) at 1, 2, 2 and 1 replicas in
+             turns, each with its iteration ms, env steps/s, serve p50/p99
+             fleet-wide and per replica and syncs a serve; seed-ppo-cheetah
+             (4 processes x 8 envs, chunks [64, 4]) at 2 replicas, GAE once
+             a learn; autoscale from 1 replica with a threshold every serve
+             passes (``fleet/scale_ups``);
+13. fanout - the versioned parameter fanout (``publish.fanout``):
+             ``train ppo jax:lift`` at the north-star geometry publishing
+             every iteration under three arms (f32 without delta, f32
+             delta, bf16 delta), then ``train impala jax:pong`` (the
+             NatureCNN) under f32 delta with its 4th frame dropped
+             (``param.publish`` ``drop_frame``) and bf16 delta, each while
+             this script runs itself as a subscriber process
+             (``chip_smoke.py fanout-subscriber <folder> <out>``) that
+             polls frames, acks them and catches up by fetch; for each arm
+             the frames (full, delta, re-keys, bytes of each kind), the
+             publish ms p50 (the publisher's share beside it; the
+             publisher alone is phase publish's), one host sync a publish,
+             the subscriber's applied, stale and fetched counts, and its
+             view at each version: f32 without delta bit-equal to the view
+             fetched from the session's server, f32 delta equal to the
+             publisher's shadow and within one rounding step of the view,
+             bf16 delta equal to the shadow; GAE or V-trace once a learn.
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -2413,11 +2447,16 @@ def phase_host(M, ops_gae, ops_vtrace, RS, RR) -> dict:
 
 
 
-def seed_config(M, algo: dict, env: str, workers: int, num_envs: int, mode: str, **learner):
+def seed_config(M, algo: dict, env: str, workers: int, num_envs: int, mode: str, fleet: dict | None = None,
+                **learner):
+    """A SEED session; ``fleet``: its ``topology.inference_fleet``."""
+    topology = M.Config(num_env_workers=workers, worker_mode=mode)
+    if fleet is not None:
+        topology.inference_fleet = M.Config(fleet)
     return M.Config(
         learner_config=M.Config(algo=M.Config(algo), **{k: M.Config(v) for k, v in learner.items()}),
         env_config=M.Config(name=env, num_envs=num_envs),
-        session_config=timed_session(M.Config, topology=M.Config(num_env_workers=workers, worker_mode=mode)),
+        session_config=timed_session(M.Config, topology=topology),
     ).extend(M.base_config())
 
 
@@ -2464,21 +2503,38 @@ def seed_sync_check(trainer, state, chunk: dict, width: int) -> dict:
 
 
 def phase_seed_train(M, path: str, algo: dict, env: str, workers: int, num_envs: int, mode: str,
-                     counters: dict, env_source: dict, **learner) -> dict:
+                     counters: dict, env_source: dict, fleet: dict | None = None, phase: str = "seed",
+                     iters: tuple[int, int] = (SEED_WARMUP_ITERS, SEED_TIMED_ITERS), **learner) -> dict:
     """``SEEDTrainer.run`` on the card (``timed_run``: SEED_WARMUP_ITERS +
     SEED_TIMED_ITERS learns, kernel launches counted, every metric finite),
     then the serve and wire figures of its server, the staleness and
-    lineage gauges of its last row and the host syncs of its paths."""
-    trainer = M.SEEDTrainer(seed_config(M, algo, env, workers, num_envs, mode, **learner))
+    lineage gauges of its last row and the host syncs of its paths. With
+    ``fleet`` (a ``topology.inference_fleet``), the server is the fleet:
+    its hop windows are read as it closes, fleet-wide and per replica."""
+    from surreal_tpu_torch.distributed.fleet import InferenceFleet
+
+    trainer = M.SEEDTrainer(seed_config(M, algo, env, workers, num_envs, mode, fleet, **learner))
     kept = keep_last_chunk(trainer)
-    state, timing = timed_run(trainer, counters, SEED_WARMUP_ITERS, SEED_TIMED_ITERS)
+    closing = {}
+
+    def keep_hops(close):
+        def closing_fleet(self):
+            closing["replicas"] = {str(i): s.hop_stats() for i, s in enumerate(self._replicas)
+                                   if s is not None and s.alive}
+            closing["fleet"] = self.hop_stats()
+            closing["tier"] = self.tier_event()
+            close(self)
+        return closing_fleet
+
+    with Patched(InferenceFleet, "close", keep_hops):
+        state, timing = timed_run(trainer, counters, *iters)
     m = timing["metrics"]
-    hops = trainer._server.hop_stats()
-    spans = timing["span_ms"][SEED_WARMUP_ITERS:]
+    hops = closing["fleet"] if fleet is not None else trainer._server.hop_stats()
+    spans = timing["span_ms"][iters[0]:]
     chunk_wait = [sp.get("chunk-wait", 0.0) for sp in spans]
-    timed_iter_ms = timing["iter_ms"][SEED_WARMUP_ITERS - 1:]
+    timed_iter_ms = timing["iter_ms"][iters[0] - 1:]
     result = {
-        "phase": "seed", "path": path, "env": env, "env_source": env_source.get(env, "fixture"),
+        "phase": phase, "path": path, "env": env, "env_source": env_source.get(env, "fixture"),
         "workers": workers, "worker_mode": mode, "transport": trainer.worker_transport,
         "pipeline": trainer.pipeline_workers, "envs_per_worker": num_envs,
         "chunk": [trainer.algo.horizon, trainer.chunk_width], "algo": algo, **timing,
@@ -2492,6 +2548,9 @@ def phase_seed_train(M, path: str, algo: dict, env: str, workers: int, num_envs:
         "evicted_chunks": m.get("server/evicted_chunks"), "queue_depth": m.get("server/queue_depth"),
         "syncs": seed_sync_check(trainer, state, kept[0], max(1, round(m.get("server/serve_batch", 1.0)))),
     }
+    if fleet is not None:
+        result["fleet"] = {"config": fleet, **{k: v for k, v in m.items() if k.startswith("fleet/")},
+                           "replica_hops": closing["replicas"], "tier": closing["tier"]}
     emit(result)
     return result
 
@@ -3535,10 +3594,440 @@ def phase_publish(M, gae, RR) -> dict:
     }
 
 
+# -- the serving tier: the inference fleet and the parameter fanout -----------
+
+FLEET_KILL_AT = 40        # the kill: the 41st serve-loop turn of the two replicas
+FLEET_PACING_MS = 50      # each kill-run iteration at least this long: the run outlasts the orphan's 2 s budget
+FLEET_KILL_ITERS = 32     # learns of the kill run: IMPALA CartPole chunks [32, 8]
+FLEET_TURNS = (1, 2, 2, 1)  # replicas of the pixels256 runs, in turns
+FLEET_SEED_ITERS = (2, 6)   # warm-up and timed learns of each fleet SEED run (process workers start in ~10 s)
+FANOUT_NS_ITERS = 5       # north-star iterations an arm, each publishing
+FANOUT_PONG_ITERS = 8     # pong iterations an arm
+FANOUT_DROP_AT = 3        # the drop run swallows its 4th frame
+FANOUT_WAIT_S = 180       # the subscriber's wait for the session, and the session's for the subscriber
+
+
+def slab_residue() -> list[str]:
+    import glob
+
+    from surreal_tpu_torch.distributed.shm_transport import SLAB_PREFIX
+
+    return glob.glob(f"/dev/shm/{SLAB_PREFIX}*_{os.getpid()}_*")
+
+
+def fleet_kill_cli(M, vtrace, env_source: dict) -> dict:
+    """``train impala gym:CartPole-v1 --workers 4`` with
+    ``inference_fleet.replicas=2`` (thread workers on the pickle wire, 16
+    envs each: chunks [32, 8]), one replica killed by the
+    ``fleet.replica`` ``kill_replica`` injection: its workers time out (2 s
+    silence budget) and are respawned against the survivor, the replica
+    respawns in place, the budget completes, V-trace once a learn; the
+    last ``serving_tier`` event all alive; no slab left."""
+    folder, T, width = scratch_dir("fleet_kill"), CARTPOLE_T, SEED_CARTPOLE_ENVS // 2
+    plan = [{"site": "fleet.replica", "kind": "kill_replica", "at": FLEET_KILL_AT},
+            {"site": "trainer.iteration", "kind": "delay", "ms": FLEET_PACING_MS, "times": 10**6}]
+    argv = ["train", "impala", "gym:CartPole-v1", "--folder", folder, "--workers", "4",
+            "--num-envs", str(SEED_CARTPOLE_ENVS), "--total-steps", str(FLEET_KILL_ITERS * T * width), "--set",
+            f"learner_config.algo.horizon={T}", "learner_config.algo.precision=mixed",
+            "session_config.topology.inference_fleet.replicas=2",
+            "session_config.topology.inference_fleet.respawn_backoff_s=0.05",
+            "session_config.topology.worker_silence_s=2.0", "session_config.topology.respawn_backoff_s=0.05",
+            f"session_config.faults.plan={json.dumps(plan)}", "session_config.metrics.every_n_iters=1",
+            "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+    t0 = time.perf_counter()
+    final, launches = count_launches({"vtrace": (vtrace, FLEET_KILL_ITERS)}, lambda: run_cli(M, argv))
+    seconds = time.perf_counter() - t0
+    events = session_events(folder, M.iter_jsonl)
+    tiers = [e for e in events if e["type"] == "serving_tier"]
+    residue = slab_residue()
+    checks = {
+        "replica_respawned": final["fleet/respawns"] >= 1.0, "replicas_live_2": final["fleet/replicas_live"] == 2.0,
+        "workers_respawned": final["workers/respawns"] >= 1.0,
+        "budget": final["time/env_steps"] == FLEET_KILL_ITERS * T * width,
+        "kill_fired": any(e["type"] == "fault" and e.get("site") == "fleet.replica" for e in events),
+        "last_tier_all_alive": bool(tiers) and all(r["state"] == "alive" for r in tiers[-1]["replicas"].values()),
+        "no_shm_residue": not residue,
+    }
+    result = {"phase": "fleet", "step": "kill_replica_cli", "env_source": env_source.get("gym:CartPole-v1", "fixture"),
+              "workers": 4, "chunk": [T, width], "seconds": seconds, "checks": checks, "launches": launches,
+              "fleet": {k: v for k, v in final.items() if k.startswith(("fleet/", "workers/"))},
+              "last_tier": tiers[-1] if tiers else None, "residue": residue}
+    emit(result)
+    if not all(checks.values()):
+        raise AssertionError(f"fleet kill-replica checks failed: {checks}")
+    return result
+
+
+def fleet_autoscale(M, vtrace, env_source: dict) -> dict:
+    """``inference_fleet.autoscale`` from one replica (IMPALA CartPole, 2
+    thread workers x 16 envs): a scale-up threshold every serve passes,
+    no cooldown, so the first metrics cadence adds the second replica."""
+    fleet = dict(replicas=1, autoscale=True, min_replicas=1, max_replicas=2, scale_up_serve_ms=0.0,
+                 scale_down_serve_ms=0.0, scale_cooldown_s=0.0)
+    trainer = M.SEEDTrainer(seed_config(M, dict(name="impala", horizon=CARTPOLE_T, precision="mixed"),
+                                        "gym:CartPole-v1", SEED_CARTPOLE_WORKERS, SEED_CARTPOLE_ENVS, "thread", fleet))
+    _, timing = timed_run(trainer, {"vtrace": (vtrace, 1)}, 2, 6)
+    m = timing["metrics"]
+    checks = {"scaled_up": m["fleet/scale_ups"] >= 1.0, "replicas_live_2": m["fleet/replicas_live"] == 2.0}
+    result = {"phase": "fleet", "step": "autoscale", "env_source": env_source.get("gym:CartPole-v1", "fixture"),
+              "config": fleet, "checks": checks, "iter_ms_median": timing["iter_ms_median"],
+              "vtrace_launches": timing["vtrace_launches"],
+              "fleet": {k: v for k, v in m.items() if k.startswith("fleet/")}}
+    emit(result)
+    if not all(checks.values()):
+        raise AssertionError(f"fleet autoscale checks failed: {checks}")
+    return result
+
+
+def phase_fleet(M, ops_gae, ops_vtrace, RS, env_source: dict) -> dict:
+    """The replicated inference fleet under SEED: the kill-and-respawn CLI
+    run; the seed-impala-pixels256 geometry at 1 and 2 replicas in turns
+    (iteration ms, env steps/s, serve p50/p99 fleet-wide and per replica,
+    syncs a serve); seed-ppo-cheetah at 2 replicas (GAE once a learn);
+    autoscale. Each kernel's shapes here (V-trace [32, 8] and [32, 32],
+    GAE [64, 4]) are the seed cells', held against their plain versions in
+    the kernels phase. Returns each kernel's launches by path."""
+    gae = {"gae": (ops_gae.gae_advantages_masked, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    vtrace = {"vtrace": (ops_vtrace.vtrace_fused, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    kill = fleet_kill_cli(M, ops_vtrace.vtrace_fused, env_source)
+    turns = []
+    for k, replicas in enumerate(FLEET_TURNS):
+        fleet = dict(replicas=replicas) if replicas > 1 else None
+        turns.append(phase_seed_train(
+            M, f"fleet_impala_pixels256_r{replicas}_{k}", dict(name="impala", horizon=SEED_PIXEL_T, precision="mixed"),
+            PONG_HOST_ENV, SEED_PIXEL_WORKERS, SEED_PIXEL_ENVS, "process", vtrace, env_source, fleet=fleet,
+            phase="fleet", iters=FLEET_SEED_ITERS, model=dict(cnn=dict(enabled=True))))
+    ppo = phase_seed_train(M, "fleet_ppo_cheetah_r2", dict(name="ppo", horizon=CHEETAH_T, epochs=4,
+                                                           num_minibatches=4, precision="mixed"),
+                           "dm_control:cheetah-run", SEED_PPO_WORKERS, SEED_PPO_ENVS, "process", gae, env_source,
+                           fleet=dict(replicas=2), phase="fleet", iters=FLEET_SEED_ITERS)
+    autoscale = fleet_autoscale(M, ops_vtrace.vtrace_fused, env_source)
+    by_replicas = {r: [t["iter_ms_median"] for t, n in zip(turns, FLEET_TURNS) if n == r] for r in set(FLEET_TURNS)}
+    emit({"phase": "fleet", "step": "summary", "pixels256_iter_ms_by_replicas": by_replicas,
+          "pixels256_env_steps_per_s": [t["env_steps_per_s"] for t in turns],
+          "pixels256_serve_ms": [t["serve_ms"] for t in turns], "ppo_cheetah_r2_iter_ms": ppo["iter_ms_median"]})
+    return {
+        "gae": {"fleet_ppo_cheetah_r2": ppo["gae_launches"]},
+        "vtrace": {"fleet_kill_cli": kill["launches"]["vtrace"], "fleet_autoscale": autoscale["vtrace_launches"],
+                   **{t["path"]: t["vtrace_launches"] for t in turns}},
+    }
+
+
+def fanout_leaves(tree) -> list[np.ndarray]:
+    """A view's leaves on the host as a subscriber holds them: floating
+    leaves float32, the others (bfloat16 as 16-bit patterns) raw."""
+    from surreal_tpu_torch.distributed.param_fanout import _host_leaf, _leaves
+
+    out = []
+    for x in _leaves(tree):
+        arr, is_bf16 = _host_leaf(x)
+        out.append(np.asarray(arr, np.float32) if np.issubdtype(arr.dtype, np.floating) and not is_bf16 else arr)
+    return out
+
+
+def leaves_digest(leaves) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in leaves:
+        h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
+def fanout_subscriber(folder: str, out: str) -> int:
+    """The subscriber process of the fanout phase (``python chip_smoke.py
+    fanout-subscriber <folder> <out>``): reads the session's config.json
+    and param_server.json, subscribes to the fanout (its template a CPU
+    learner's acting view), writes ``<out>.ready``, then polls frames,
+    acks them, catches up by fetch when a delta cannot apply, and writes
+    one JSON line a version it holds (its leaves' digest, and whether a
+    frame or a fetch brought it) until the session retracts its discovery
+    file; then its gauges."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from surreal_tpu_torch.agents import make_agent
+    from surreal_tpu_torch.distributed import ParameterClient, ParameterSubscriber
+    from surreal_tpu_torch.envs import make_env
+    from surreal_tpu_torch.learners import build_learner
+    from surreal_tpu_torch.main.launch import _load_session_config
+    from surreal_tpu_torch.session.config import Config
+
+    config = _load_session_config(folder, wait_s=FANOUT_WAIT_S)
+    env = make_env(Config(num_envs=1).extend(config.env_config), "cpu")
+    learner = build_learner(config.learner_config, env.specs, "cpu")
+    template = make_agent(learner).acting_view(learner.init(torch.Generator().manual_seed(0)))
+    discovery = os.path.join(folder, "param_server.json")
+    deadline = time.monotonic() + FANOUT_WAIT_S
+    while not os.path.exists(discovery) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    with open(discovery) as f:
+        info = json.load(f)
+    sub = ParameterSubscriber(info["fanout"], info["fanout_ack"], template, ident="chip-smoke")
+    client = ParameterClient(info["addresses"][0], template)
+    time.sleep(0.3)  # the subscription reaches the PUB's thread
+    with open(out + ".ready", "w"):
+        pass
+    with open(out, "w") as f:
+        def record(via):
+            f.write(json.dumps({"version": sub.version, "digest": leaves_digest(sub._leaves), "via": via}) + "\n")
+            f.flush()
+
+        while os.path.exists(discovery) and time.monotonic() < deadline + FANOUT_WAIT_S:
+            if sub.poll(timeout_ms=200) is not None:
+                record("frame")
+            if sub.needs_resync and sub.catch_up(client):
+                record("fetch")
+        f.write(json.dumps({"gauges": sub.gauges(), "version": sub.version}) + "\n")
+    sub.close()
+    client.close()
+    return 0
+
+
+def start_subscriber(folder: str, tag: str) -> tuple:
+    """``fanout_subscriber`` on ``folder`` as a process of its own (it
+    waits for the session): (the process, its output path, its log)."""
+    out = os.path.join(_SCRATCH[0], f"{tag}_subscriber.jsonl")
+    log = out + ".log"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "fanout-subscriber", folder, out],
+                                cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def fanout_session(M, tag: str, argv: list[str], subscriber: tuple, wire: str, delta: bool,
+                   drop_at: int | None = None) -> dict:
+    """The ``train`` CLI in this process with ``publish.fanout`` on (every
+    iteration), while ``subscriber`` (``start_subscriber``'s) runs.
+    At the first boundary the session waits for the subscriber to be
+    subscribed; after each boundary a ParameterClient fetches the view
+    from the session's ParameterServer. Every ``publish_view`` is wrapped:
+    its host syncs counted and its time taken; every fanout publish: its
+    frame's kind and bytes, the published view and the publisher's shadow
+    kept by version. Checks the subscriber's leaves at each version it
+    holds: f32 wire without delta, bit-equal to the fetched view; f32
+    delta, bit-equal to the shadow and the fetched view; bf16 without
+    delta, equal to the view cast to bf16 and back; bf16 delta, equal to
+    the shadow (from a chain a full frame started); and one host sync a
+    publish. ``drop_at``: the fanout's publish of that index (0-based) is
+    swallowed on the wire (``param.publish`` ``drop_frame``)."""
+    import warnings
+
+    from surreal_tpu_torch.distributed.param_fanout import ParameterFanout, from_bf16_bits, to_bf16_bits
+    from surreal_tpu_torch.distributed.param_service import ParameterClient, ParameterPublisher
+
+    folder = argv[argv.index("--folder") + 1]
+    argv = argv + [
+        "session_config.publish.enabled=true", "session_config.publish.every_n_iters=1",
+        "session_config.publish.fanout.enabled=true", f"session_config.publish.fanout.wire={wire}",
+        f"session_config.publish.fanout.delta={'true' if delta else 'false'}",
+    ]
+    if drop_at is not None:
+        argv.append("session_config.faults.plan=" + json.dumps(
+            [{"site": "param.publish", "kind": "drop_frame", "at": drop_at}]))
+    proc, out, log = subscriber
+    frames, publishes, fetched, client = {}, [], {}, []
+
+    def record_fanout(orig):
+        def publish(self, params):
+            info = orig(self, params)
+            # references only (each publish has a fresh host view and shadow);
+            # the digests are taken after the run, outside the timed publish
+            frames[info["version"]] = {**info, "_view": fanout_leaves(params), "_shadow": self._shadow}
+            return info
+        return publish
+
+    def record_publish_view(orig):
+        def publish_view(self, state):
+            mode = torch.cuda.get_sync_debug_mode()
+            publisher = self._publisher.publish
+            t = {}
+
+            def timed_publisher(view):
+                t0 = time.perf_counter()
+                out = publisher(view)
+                t["publisher_ms"] = (time.perf_counter() - t0) * 1e3
+                return out
+
+            self._publisher.publish = timed_publisher
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    version = orig(self, state)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+                    del self._publisher.publish
+            publishes.append({"version": version, "ms": (time.perf_counter() - t0) * 1e3, **t,
+                              "syncs": sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+                                           for w in caught)})
+            return version
+        return publish_view
+
+    waited = []
+
+    def boundary(orig):
+        def end_iteration(self, iteration, *a, **kw):
+            m, stop = orig(self, iteration, *a, **kw)
+            if not waited:
+                t0 = time.perf_counter()
+                deadline = time.monotonic() + FANOUT_WAIT_S
+                while not os.path.exists(out + ".ready") and proc.poll() is None and time.monotonic() < deadline:
+                    time.sleep(0.1)
+                waited.append(time.perf_counter() - t0)
+            if not client:
+                state = a[1]() if callable(a[1]) else a[1]
+                client.append(ParameterClient(self._param_server.address,
+                                              M.host_tree(self._pub_agent.acting_view(state))))
+            view = client[0].fetch(timeout_ms=10_000)
+            if view is not None:
+                fetched[client[0].version] = leaves_digest(fanout_leaves(view))
+            return m, stop
+        return end_iteration
+
+    try:
+        with Patched(ParameterFanout, "publish", record_fanout), \
+                Patched(M.SessionHooks, "publish_view", record_publish_view), \
+                Patched(M.SessionHooks, "end_iteration", boundary):
+            final = run_cli(M, argv)
+        proc.wait(timeout=FANOUT_WAIT_S)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        for c in client:
+            c.close()
+    with open(log) as f:
+        text = f.read()
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"{tag} subscriber exited {proc.returncode}:\n{text[-3000:]}")
+    with open(out) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    held, gauges = lines[:-1], lines[-1]["gauges"]
+    for fr in frames.values():
+        view, shadow = fr.pop("_view"), fr.pop("_shadow")
+        fr["view"], fr["shadow"] = leaves_digest(view), leaves_digest(shadow)
+        fr["bf16_view"] = leaves_digest([from_bf16_bits(to_bf16_bits(x)) if x.dtype == np.float32 else x
+                                         for x in view])
+        floats = [(a, b) for a, b in zip(shadow, view) if a.dtype == np.float32]
+        fr["shadow_vs_view_elems"] = int(sum(np.count_nonzero(a != b) for a, b in floats))
+        fr["float_elems"] = int(sum(b.size for _, b in floats))
+        # the largest difference, in rounding steps of its leaf's largest magnitude
+        fr["shadow_vs_view_steps"] = max((float(np.abs(a - b).max() / (np.spacing(np.abs(b).max()) or 1.0))
+                                          for a, b in floats if a.size), default=0.0)
+    # a delta applied on a fetched start holds neither the view nor the
+    # shadow: compare the versions a chain of frames from a full frame brought
+    kinds = {v: fr["kind"] for v, fr in frames.items()}
+    comparisons, from_full, prev = [], False, 0
+    for h in held:
+        v = h["version"]
+        if h["via"] == "fetch":
+            from_full, want = False, frames[v]["view"]  # a fetch installs the published view, in f32
+        else:
+            from_full = from_full or any(kinds.get(u) == "full" for u in range(prev + 1, v + 1))
+            want = frames[v]["shadow"] if delta else frames[v]["bf16_view" if wire == "bf16" else "view"]
+        prev = v
+        if h["via"] == "frame" and delta and not from_full:
+            continue
+        comparisons.append({"version": v, "via": h["via"], "equal": h["digest"] == want,
+                            "equal_fetched": h["digest"] == fetched[v] if wire == "f32" and v in fetched else None})
+    kinds_list = [frames[v]["kind"] for v in sorted(frames)]
+    dropped = [v for v, fr in frames.items() if fr.get("dropped")]
+    checks = {
+        "subscriber_views": len(comparisons) >= 2 and all(c["equal"] for c in comparisons),
+        # f32 without delta: bit-equal to the fetched view; f32 delta holds the
+        # shadow, which a delta brings within one rounding step of the view
+        # (shadow + fl(view - shadow) rounds twice), so it is held to that
+        "f32_equal_fetched": wire != "f32" or delta or (any(c["equal_fetched"] for c in comparisons)
+                                                         and all(c["equal_fetched"] is not False for c in comparisons)),
+        "f32_delta_within_a_step": wire != "f32" or not delta
+                                   or max(fr["shadow_vs_view_steps"] for fr in frames.values()) <= 1.0,
+        "fetched_equal_published": all(fetched[v] == frames[v]["view"] for v in fetched if v in frames),
+        "one_sync_a_publish": {p["syncs"] for p in publishes} == {1},
+        "delta_frames": not delta or "delta" in kinds_list,
+        "discovery_retracted": not os.path.exists(os.path.join(folder, "param_server.json")),
+    }
+    if drop_at is not None:
+        after = [frames[v]["kind"] for v in sorted(frames) if v > min(dropped, default=10**9)]
+        checks.update({"dropped_one": len(dropped) == 1, "rekeyed_full_after_drop": bool(after) and after[0] == "full",
+                       "rekeys": final.get("param/rekeys", 0.0) >= 1.0})
+    full_bytes = [fr["bytes"] for fr in frames.values() if fr["kind"] == "full"]
+    delta_bytes = [fr["bytes"] for fr in frames.values() if fr["kind"] == "delta"]
+    result = {
+        "wire": wire, "delta": delta, "drop_at": drop_at, "iterations": len(publishes), "checks": checks,
+        "frames": len(frames), "full_frames": kinds_list.count("full"), "delta_frames": kinds_list.count("delta"),
+        "kinds": kinds_list, "rekeys": final.get("param/rekeys"), "dropped_versions": dropped,
+        "bytes_full_frame": statistics.median(full_bytes) if full_bytes else None,
+        "bytes_delta_frame": statistics.median(delta_bytes) if delta_bytes else None,
+        "publish_ms_p50": statistics.median(p["ms"] for p in publishes),
+        "publisher_ms_p50": statistics.median(p["publisher_ms"] for p in publishes),
+        "publish_ms": [p["ms"] for p in publishes], "syncs": [p["syncs"] for p in publishes],
+        "subscriber": gauges, "held": [(h["version"], h["via"]) for h in held], "comparisons": comparisons,
+        "shadow_vs_view_elems": [frames[v]["shadow_vs_view_elems"] for v in sorted(frames)],
+        "shadow_vs_view_steps": [frames[v]["shadow_vs_view_steps"] for v in sorted(frames)],
+        "float_elems": max((fr["float_elems"] for fr in frames.values()), default=None),
+        "fetched_versions": sorted(fetched), "wait_for_subscriber_s": waited[0] if waited else None,
+        "launches": None, "final_param": {k: v for k, v in final.items() if k.startswith("param/")},
+    }
+    if not all(checks.values()):
+        emit({"phase": "fanout", "step": tag, "failed": result})
+        raise AssertionError(f"{tag} checks failed: {checks}")
+    return result
+
+
+def phase_fanout(M, gae, vtrace, publish_ref_ms: float | None) -> dict:
+    """The parameter fanout: the north-star (``train ppo jax:lift``) under
+    three arms, f32 without delta, f32 delta and bf16 delta, then pong
+    (``train impala jax:pong``, the NatureCNN, a full f32 frame of 437 KB)
+    under f32 delta with one frame dropped and bf16 delta; GAE or V-trace
+    once a learn. ``publish_ref_ms``: the publish p50 of the parameter
+    publisher alone on the north-star (phase publish, this run)."""
+    arms = [("ns_f32_full", "f32", False, None), ("ns_f32_delta", "f32", True, None),
+            ("ns_bf16_delta", "bf16", True, None)]
+    pong = [("pong_f32_delta_drop", "f32", True, FANOUT_DROP_AT), ("pong_bf16_delta", "bf16", True, None)]
+    argvs = {tag: north_star_argv(scratch_dir(tag), FANOUT_NS_ITERS) for tag, *_ in arms}
+    for tag, *_ in pong:
+        argvs[tag] = ["train", "impala", "jax:pong", "--folder", scratch_dir(tag), "--num-envs", str(PONG_B),
+                      "--total-steps", str(FANOUT_PONG_ITERS * PONG_B * PONG_T), "--set",
+                      f"learner_config.algo.horizon={PONG_T}", "learner_config.algo.precision=mixed",
+                      "learner_config.model.cnn.enabled=true", "session_config.metrics.every_n_iters=1",
+                      "session_config.checkpoint.every_n_iters=1000", "session_config.eval.every_n_iters=0",
+                      "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+    # every subscriber starts now and waits for its session: their start-up
+    # overlaps the sessions before theirs
+    subscribers = {tag: start_subscriber(argv[argv.index("--folder") + 1], tag) for tag, argv in argvs.items()}
+    out = {}
+    try:
+        for (tag, wire, delta, drop), (kernel, wrapper, iters) in (
+            [(arm, ("gae", gae, FANOUT_NS_ITERS)) for arm in arms]
+            + [(arm, ("vtrace", vtrace, FANOUT_PONG_ITERS)) for arm in pong]
+        ):
+            res, launches = count_launches({kernel: (wrapper, iters)}, lambda: fanout_session(
+                M, tag, argvs[tag], subscribers[tag], wire, delta, drop))
+            res["launches"] = launches
+            out[tag] = res
+            emit({"phase": "fanout", "step": tag, "publish_ref_ms": publish_ref_ms, **res})
+    finally:
+        for proc, _, _ in subscribers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {
+        "gae": {f"fanout_{t}": out[t]["launches"]["gae"] for t, *_ in arms},
+        "vtrace": {f"fanout_{t}": out[t]["launches"]["vtrace"] for t, *_ in pong},
+        "arms": out,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["fanout-subscriber"]:
+        return fanout_subscriber(*sys.argv[2:4])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from surreal_tpu_torch.launch.offpolicy_trainer import OffPolicyTrainer
     from surreal_tpu_torch.launch.trainer import Trainer
@@ -3567,12 +4056,13 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     from surreal_tpu_torch.utils.tree import tree_flatten
 
     from surreal_tpu_torch.envs import make_env
+    from surreal_tpu_torch.distributed.module_dict import host_tree
     from surreal_tpu_torch.launch.seed_trainer import SEEDTrainer
     from surreal_tpu_torch.session.default_configs import BASE_ENV_CONFIG
 
     M = SimpleNamespace(
         Config=Config, base_config=base_config, Trainer=Trainer, OffPolicyTrainer=OffPolicyTrainer, launch=launch,
-        SEEDTrainer=SEEDTrainer,
+        SEEDTrainer=SEEDTrainer, host_tree=host_tree,
         SessionHooks=SessionHooks, CheckpointManager=CheckpointManager, iter_jsonl=_iter_jsonl,
         tree_flatten=tree_flatten, make_env=make_env, BASE_ENV_CONFIG=BASE_ENV_CONFIG,
     )
@@ -3623,15 +4113,19 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     profile = phase_profile(M, ops_gae.gae_advantages_masked, host["env_source"])
     precision = phase_precision(M, ops_gae.gae_advantages_masked, ops_vtrace.vtrace_fused, RR)
     publish = phase_publish(M, ops_gae.gae_advantages_masked, RR)
+    fleet = phase_fleet(M, ops_gae, ops_vtrace, RS, host["env_source"])
+    fanout = phase_fanout(M, ops_gae.gae_advantages_masked, ops_vtrace.vtrace_fused, publish["ppo"]["publish_ms_p50"])
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
     gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
                                **host["gae"], **seed["gae"], "profile_ppo_lift": profile["gae_launches"],
-                               "precision_ppo_lift": precision["gae_launches"], **publish["gae"]}
+                               "precision_ppo_lift": precision["gae_launches"], **publish["gae"], **fleet["gae"],
+                               **fanout["gae"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
                                   "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
-                                  **seed["vtrace"], "precision_impala_pong": precision["vtrace_launches"]}
+                                  **seed["vtrace"], "precision_impala_pong": precision["vtrace_launches"],
+                                  **fleet["vtrace"], **fanout["vtrace"]}
     gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"],
                                   "precision_ddpg_lift": precision["replay_gather_launches"],
                                   **publish["replay_gather"]}

@@ -2,9 +2,10 @@
 ``surreal_tpu/distributed/inference_server.py`` (``InferenceServer``) on
 the standard-library sockets of ``distributed/sockets.py`` in place of
 zmq, with the same frames, batching, chunk stitching, eviction, lineage
-stamps and gauges. The ops-plane push (``OpsPusher``) and the
-``fleet.replica`` fault site belong to subsystems the port does not have
-yet and are left out.
+stamps, gauges and fault sites (``server.serve``, and ``fleet.replica``
+for a replica of ``distributed/fleet.py``'s fleet). The ops-plane push
+(``OpsPusher``, an ``ops_address``) belongs to a subsystem the port does
+not have yet and raises.
 
 The reference's design notes follow. (The north-star replacement for the
 reference's actor pool: "the Agent actor pool collapses into a SEED-RL-
@@ -79,10 +80,6 @@ class _WorkerState:
         self.last_span = 0                   # newest span seq seen
 
 
-# the tier the server's causal spans name (the reference's first serving
-# replica; the port has one server)
-_SPAN_TIER = "fleet.replica0"
-
 # a worker silent this long no longer counts toward the auto-tuned
 # min_batch (dead workers must not stall the coalescing window; the
 # supervisor's respawn re-hello refreshes the stamp)
@@ -106,6 +103,17 @@ class InferenceServer:
         a fleet that shrinks (worker death) or grows (respawn, elastic
         scaling) keeps coalescing into one forward per lockstep round
         without the trainer re-plumbing the knobs.
+      version: the starting params version. The fleet respawns a crashed
+        replica at the fleet's current version, so the transitions it
+        tags do not read as acted by an ancient policy (staleness is
+        ``server.version - chunk.param_version``: a respawn at 0 would
+        have every chunk it assembles dropped).
+      chunks: an externally owned output queue. The fleet hands every
+        replica one queue, so the trainer's chunk wait stays one blocking
+        get and eviction prefers the oldest chunk fleet-wide; None gives
+        the server its own.
+      ops_tier: the tier name of this server's causal spans (a fleet's
+        replica slot keeps its name across respawns).
     """
 
     def __init__(
@@ -119,17 +127,27 @@ class InferenceServer:
         auto_tune: bool = False,
         sanitize_obs: bool = True,
         trace_id: str | None = None,
+        version: int = 0,
+        chunks: "queue.Queue[dict] | None" = None,
+        ops_address: str | None = None,
+        ops_tier: str = "fleet.replica0",
         span_sink=None,
         trace_sample_n: int = 0,
         lineage: bool = True,
     ):
+        if ops_address is not None:
+            raise NotImplementedError(
+                "InferenceServer(ops_address=...): the ops plane (session/opsplane.py) is not ported to "
+                "PyTorch yet"
+            )
         # the run-scoped trace id this server belongs to (SessionHooks
         # mints it; the SEED trainer forwards it) — lets worker_traces()
         # consumers cross-check a frame's fleet against THIS run
         self.trace_id = trace_id
         self._act_fn = act_fn
         self._act_lock = threading.Lock()
-        self._version = 0  # params version; bumped by set_act_fn
+        self._version = int(version)  # params version; bumped by set_act_fn
+        self._tier = str(ops_tier)
         self.unroll_length = unroll_length
         self.min_batch = min_batch
         self.max_wait_ms = max_wait_ms
@@ -146,7 +164,7 @@ class InferenceServer:
         # trusted planes.
         self.sanitize_obs = bool(sanitize_obs)
         self.sanitized_requests = 0
-        self.chunks: "queue.Queue[dict]" = queue.Queue(maxsize=64)
+        self.chunks: "queue.Queue[dict]" = chunks if chunks is not None else queue.Queue(maxsize=64)
         # data-plane observability (SURVEY.md §5.5: the reference's
         # tensorplex tracked replay/fetch-queue occupancy): queue-full
         # evictions cost real env steps — count chunks AND steps so the
@@ -222,10 +240,30 @@ class InferenceServer:
         with self._act_lock:
             return self._version
 
+    def note_exemplar(self, exemplar: str, parent_span: int) -> None:
+        """Adopt a foreign trace exemplar (``InferenceFleet.serve_act``):
+        this server's next completed chunk carries it, so the learner's
+        dispatch span lands in the same tree. Newest exemplar wins."""
+        self._pending_exemplar = {"exemplar": str(exemplar), "parent": int(parent_span)}
+
+    def address_for(self, worker_id: int) -> str:
+        """The routing surface of ``InferenceFleet``: a single server
+        routes every worker to itself."""
+        return self.address
+
+    @property
+    def alive(self) -> bool:
+        """Serve-thread liveness, the fleet supervisor's death signal (a
+        crashed loop has released its socket already; ``close`` still
+        releases the slabs)."""
+        return self._thread.is_alive()
+
     # -- internals -----------------------------------------------------------
     def _loop(self) -> None:
-        # a serve thread that dies from an exception releases its bound
-        # ROUTER socket all the same
+        # a serve thread that dies from an exception (the kill_replica
+        # injection included) releases its bound ROUTER socket all the
+        # same, or the fleet's in-place respawn could not rebind the
+        # address
         try:
             self._loop_body()
         finally:
@@ -235,6 +273,16 @@ class InferenceServer:
         pending: list[tuple[bytes, dict]] = []
         deadline: float | None = None
         while not self._stop.is_set():
+            f = faults.fire("fleet.replica")
+            if f is not None:
+                if f["kind"] == "kill_replica":
+                    # die like a real crash: the loop unwinds (the socket
+                    # is released), the workers time out and re-hello to
+                    # the fleet's survivors, and the fleet respawns this
+                    # replica in place
+                    raise faults.FaultInjected("chaos: kill_replica")
+                if f["kind"] == "delay":
+                    faults.sleep_ms(f)
             timeout = 5.0
             if pending and deadline is not None:
                 timeout = max(0.0, (deadline - time.monotonic()) * 1000)
@@ -505,7 +553,7 @@ class InferenceServer:
             if not head_sampled(span_seq, self.trace_sample_n):
                 continue
             wid = ident.decode(errors="replace")[-8:]
-            root = sink.trace_context(f"{_SPAN_TIER}:{wid}:s{span_seq}")
+            root = sink.trace_context(f"{self._tier}:{wid}:s{span_seq}")
             t_send = msg.get("t_send")
             transit = (
                 max(0.0, (time.time() - float(t_send)) * 1e3)
@@ -517,7 +565,7 @@ class InferenceServer:
             )
             child = root.child(sink.next_span_id())
             sink.emit_span(
-                "replica.forward", child, tier=_SPAN_TIER,
+                "replica.forward", child, tier=self._tier,
                 dur_ms=forward_ms, version=self._version,
             )
             self._pending_exemplar = {

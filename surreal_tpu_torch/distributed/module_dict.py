@@ -1,6 +1,8 @@
 """The parameter wire format, the port of
 ``surreal_tpu/distributed/module_dict.py`` (``ModuleDict``,
-``dumps_pytree``, ``loads_pytree``).
+``dumps_pytree``, ``loads_pytree``), with ``host_tree``: a tree's
+tensors copied to the host in one copy, for a publish that feeds both the
+publisher and the parameter fanout.
 
 The reference encodes a pytree with flax's msgpack. The port's format is
 its own, and both ends of its wire are the port:
@@ -72,6 +74,35 @@ def dumps_pytree(tree: Any) -> bytes:
     payload = torch.cat(chunks).cpu().numpy().tobytes() if chunks else b""
     header = json.dumps({"leaves": leaves}).encode()
     return b"".join((MAGIC, _HEADER_LEN.pack(len(header)), header, payload))
+
+
+def host_tree(tree: Any) -> Any:
+    """``tree`` with every tensor leaf on the host, copied in one
+    device-to-host transfer (one sync): the leaves' bytes side by side,
+    each at a 16-byte-aligned offset, and each leaf a view of that
+    buffer (on the host too: a snapshot)."""
+    flat = tree_flatten(tree)
+    tensors = {k: x for k, x in flat.items() if isinstance(x, torch.Tensor)}
+    devices = {x.device for x in tensors.values()}
+    if len(devices) > 1:
+        raise ValueError(f"the tree's tensors lie on several devices: {sorted(map(str, devices))}")
+    if not tensors:
+        return tree
+    device = next(iter(devices))
+    chunks, offsets, offset = [], {}, 0
+    for k, x in tensors.items():
+        n = x.numel() * x.element_size()
+        chunks.append(x.detach().contiguous().reshape(-1).view(torch.uint8))
+        pad = -n % _ALIGN
+        if pad:
+            chunks.append(torch.zeros(pad, dtype=torch.uint8, device=device))
+        offsets[k] = offset
+        offset += n + pad
+    buf = torch.cat(chunks).cpu()
+    for k, x in tensors.items():
+        n = x.numel() * x.element_size()
+        flat[k] = buf[offsets[k]:offsets[k] + n].view(x.dtype).reshape(x.shape)
+    return tree_unflatten(tree, flat)
 
 
 def _header(data) -> tuple[list[dict], int]:

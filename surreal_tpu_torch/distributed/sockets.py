@@ -1,12 +1,14 @@
 """Message sockets over the standard library (``socket``, ``selectors``
 and ``threading``), in place of the pyzmq sockets the reference uses.
 pyzmq is not among what the card's machine has, so the port carries
-exactly the semantics its callers rely on. Three pairs:
+exactly the semantics its callers rely on. Four pairs:
 
 - ROUTER/DEALER, the SEED wire (``surreal_tpu/distributed/inference_server.py:209-216``,
   ``env_worker.py:108-116``);
 - REQ/REP and PUB/SUB, the parameter service
-  (``surreal_tpu/distributed/param_service.py``).
+  (``surreal_tpu/distributed/param_service.py``);
+- PUB/SUB and PUSH/PULL, the parameter fanout's frames and acks
+  (``surreal_tpu/distributed/param_fanout.py``).
 
 Common to all:
 
@@ -59,13 +61,29 @@ PUB/SUB:
   over TCP); the Pub sends a message only to subscribers with a prefix of
   its first part;
 - ``Pub.send_multipart`` never blocks: an I/O thread of the Pub's own
-  writes to the subscribers, and per subscriber the Pub keeps only the
-  message it is writing and the newest one not yet started (zmq's
-  ``CONFLATE``); older ones are dropped, as a subscriber to parameter
-  snapshots needs only the newest;
-- a subscriber that connects after a publish receives the newest message
-  of its topic at once (a last-value cache), so a subscriber never
-  misses a snapshot by joining late.
+  writes to the subscribers. By default, per subscriber the Pub keeps
+  only the message it is writing and the newest one not yet started
+  (zmq's ``CONFLATE``); older ones are dropped, as a subscriber to
+  parameter snapshots needs only the newest. And a subscriber that
+  connects after a publish receives the newest message of its topic at
+  once (a last-value cache), so it never misses a snapshot by joining
+  late;
+- ``Pub(hwm=N)`` queues instead (zmq's PUB with its high-water mark): per
+  subscriber up to N messages wait behind the one being written, every
+  one delivered in order; a message that finds N waiting is dropped for
+  that subscriber and counted (``dropped``), and a subscriber that joins
+  late receives only what is published after it (a delta stream needs
+  every frame, and no frame from before its join).
+
+PUSH/PULL:
+
+- a ``Pull`` binds and receives from any number of ``Push`` peers, behind
+  ``poll`` as a ``Router`` does;
+- ``Push.send`` never blocks its caller for long: it connects on first
+  use, and a message the connection cannot take within 0.1 s, or one
+  with no ``Pull`` to connect to, is dropped (the reference's
+  ``NOBLOCK`` send under ``SNDTIMEO``). It returns whether the message
+  went out.
 """
 
 from __future__ import annotations
@@ -148,7 +166,7 @@ def unpack_parts(payload: bytes) -> list[bytes]:
 
 
 class _Peer:
-    __slots__ = ("sock", "ident", "frames", "out", "off", "nxt", "topics")
+    __slots__ = ("sock", "ident", "frames", "out", "off", "waiting", "topics")
 
     def __init__(self, sock: socket.socket):
         self.sock = sock
@@ -156,7 +174,7 @@ class _Peer:
         self.frames = _Frames()
         self.out = bytearray()           # being written; out[off:] not taken by the kernel yet
         self.off = 0
-        self.nxt: bytes | None = None    # a Pub's newest message not started yet
+        self.waiting: deque[bytes] = deque()  # a Pub's messages not started yet
         self.topics: list[bytes] = []    # a Sub's prefixes
 
 
@@ -239,7 +257,8 @@ class _Server:
         except (KeyError, ValueError):
             pass  # already unregistered
         peer.sock.close()
-        peer.out, peer.off, peer.nxt = bytearray(), 0, None
+        peer.out, peer.off = bytearray(), 0
+        peer.waiting.clear()
 
     def _send(self, peer: _Peer, data: bytes) -> None:
         """Queue ``data`` after what ``peer`` still has to write, and write
@@ -252,10 +271,10 @@ class _Server:
     def _flush(self, peer: _Peer) -> None:
         while True:
             if peer.off >= len(peer.out):
-                if peer.nxt is None:
+                if not peer.waiting:
                     peer.out, peer.off = bytearray(), 0
                     break
-                peer.out, peer.off, peer.nxt = peer.nxt, 0, None  # bytes shared by every subscriber
+                peer.out, peer.off = peer.waiting.popleft(), 0  # bytes shared by every subscriber
             try:
                 with memoryview(peer.out) as view, view[peer.off:] as rest:
                     sent = peer.sock.send(rest)
@@ -265,7 +284,7 @@ class _Server:
                 self._drop(peer)
                 return
             peer.off += sent
-        pending = peer.off < len(peer.out) or peer.nxt is not None
+        pending = peer.off < len(peer.out) or bool(peer.waiting)
         events = selectors.EVENT_READ | (selectors.EVENT_WRITE if pending else 0)
         if self._sel.get_key(peer.sock).events != events:
             self._sel.modify(peer.sock, events, peer)
@@ -387,15 +406,21 @@ class Rep(_Inbox):
 
 class Pub(_Server):
     """PUB: multipart messages to every subscriber of their topic, written
-    by an I/O thread of its own, never blocking the caller; per subscriber
-    only the newest message not yet started is kept."""
+    by an I/O thread of its own, never blocking the caller. ``hwm=None``:
+    per subscriber only the newest message not yet started is kept, and a
+    late subscriber gets the newest at once; ``hwm=N``: up to N wait per
+    subscriber, in order, and the ones beyond are dropped and counted."""
 
-    def __init__(self, bind: str = "tcp://127.0.0.1:*"):
+    def __init__(self, bind: str = "tcp://127.0.0.1:*", hwm: int | None = None):
         super().__init__()
+        if hwm is not None and hwm < 1:
+            raise ValueError(f"hwm must be >= 1 or None, got {hwm}")
         self.bind(bind)
+        self.hwm = hwm
+        self.dropped = 0  # queued mode: messages dropped at a subscriber's high-water mark
         self._lock = threading.Lock()
         self._peers: list[_Peer] = []
-        self._last: dict[bytes, bytes] = {}  # topic -> its newest framed message
+        self._last: dict[bytes, bytes] = {}  # conflating mode: topic -> its newest framed message
         self._wake_r, self._wake_w = socket.socketpair()
         self._wake_r.setblocking(False)
         self._wake_w.setblocking(False)
@@ -410,10 +435,17 @@ class Pub(_Server):
         topic = bytes(parts[0])
         msg = _frame(pack_parts(parts))
         with self._lock:
-            self._last[topic] = msg
+            if self.hwm is None:
+                self._last[topic] = msg
             for peer in self._peers:
-                if any(topic.startswith(t) for t in peer.topics):
-                    peer.nxt = msg  # conflate: an older unstarted message is dropped
+                if not any(topic.startswith(t) for t in peer.topics):
+                    continue
+                if self.hwm is None:
+                    peer.waiting.clear()  # conflate: an older unstarted message is dropped
+                elif len(peer.waiting) >= self.hwm:
+                    self.dropped += 1  # at the high-water mark: this message is dropped for this subscriber
+                    continue
+                peer.waiting.append(msg)
             self._dirty = True
         try:
             self._wake_w.send(b"\0")
@@ -422,9 +454,9 @@ class Pub(_Server):
 
     def pending(self) -> int:
         """Messages held for subscribers (started or not): at most two a
-        subscriber."""
+        subscriber when conflating, ``hwm + 1`` when queued."""
         with self._lock:
-            return sum((p.off < len(p.out)) + (p.nxt is not None) for p in self._peers)
+            return sum((p.off < len(p.out)) + len(p.waiting) for p in self._peers)
 
     def _io(self) -> None:
         while not self._closed:
@@ -463,18 +495,19 @@ class Pub(_Server):
         if self._dirty:
             self._dirty = False
             for peer in list(self._peers):
-                if peer.nxt is not None and peer.sock.fileno() >= 0:
+                if peer.waiting and peer.sock.fileno() >= 0:
                     self._flush(peer)
 
     def _accepted(self, peer: _Peer) -> None:
         self._peers.append(peer)
 
     def _deliver(self, peer: _Peer, payload: bytes) -> None:
-        """A subscription: the prefix, and the newest message it matches."""
+        """A subscription: the prefix, and (conflating) the newest message
+        it matches."""
         peer.topics.append(payload)
         newest = [msg for topic, msg in self._last.items() if topic.startswith(payload)]
-        if newest and peer.nxt is None:
-            peer.nxt = newest[-1]
+        if newest and not peer.waiting:
+            peer.waiting.append(newest[-1])
             self._flush(peer)
 
     def _drop(self, peer: _Peer) -> None:
@@ -494,6 +527,25 @@ class Pub(_Server):
             self._close_all()
             self._peers.clear()
         self._wake_w.close()
+
+
+class Pull(_Inbox):
+    """PULL: messages from any number of ``Push`` peers, oldest first."""
+
+    def __init__(self, bind: str = "tcp://127.0.0.1:*"):
+        super().__init__()
+        self.bind(bind)
+
+    def _deliver(self, peer: _Peer, payload: bytes) -> None:
+        self._inbox.append(payload)
+
+    def recv(self) -> bytes:
+        """The oldest waiting message; ``Again`` if none."""
+        return self._next()
+
+    def close(self) -> None:
+        self._close_all()
+        self._inbox.clear()
 
 
 class _Client:
@@ -582,6 +634,40 @@ class Dealer(_Client):
         if not self._frames.frames:
             raise Again
         return self._frames.frames.popleft()
+
+
+class Push(_Client):
+    """PUSH: messages to one ``Pull``; a send never blocks for long, and
+    one that cannot go out is dropped."""
+
+    def __init__(self):
+        super().__init__()
+        self._address: str | None = None
+
+    def connect(self, address: str) -> None:
+        parse_tcp(address)  # malformed addresses raise here
+        self._address = address
+
+    def send(self, payload: bytes) -> bool:
+        """Send one message within 0.1 s (connecting first if need be);
+        False when it was dropped."""
+        if self._sock is None or self._gone:
+            self.close()
+            self._gone = False
+            try:
+                self._open(self._address, _NOBLOCK_SEND_S)
+            except OSError:
+                self.close()  # no Pull there (yet): dropped, retried on the next send
+                return False
+        self._sock.settimeout(_NOBLOCK_SEND_S)
+        try:
+            self._sock.sendall(_frame(payload))
+            return True
+        except OSError:
+            # a timeout may have sent part of the frame: a new connection
+            # starts the next message on a frame boundary
+            self.close()
+            return False
 
 
 class Req(_Client):

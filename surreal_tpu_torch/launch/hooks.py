@@ -11,8 +11,16 @@ and ``eval --follow`` subcommands, and publish the agent's acting view
 every ``publish.every_n_iters`` iterations (never from a window the
 divergence guard tripped), under the ``param-publish`` span, with the
 ``publish/version`` metric. A publish costs one device-to-host copy of
-the acting view: the one host sync off the metrics cadence. The
-parameter fanout (``publish.fanout.enabled``) is not ported and raises.
+the acting view: the one host sync off the metrics cadence. With
+``publish.fanout.enabled`` a ``ParameterFanout`` (``distributed/param_fanout.py``)
+starts beside them, advertised under ``fanout`` and ``fanout_ack`` in the
+same file, and broadcasts the same view as a versioned frame (``wire``,
+``delta``, ``ack_ttl_s``); the view is copied to the host once and feeds
+both, so a publish stays one sync. Its ``param/*`` gauges ride the
+metrics row.
+
+The serving tier (a SEED fleet) records one ``serving_tier`` event a
+metrics row through :meth:`SessionHooks.serving_event`.
 
 Restore: ``checkpoint.auto_resume`` (on by default) resumes from the
 session's own newest finite checkpoint; ``checkpoint.restore_from`` names
@@ -96,8 +104,6 @@ def check_session_options(config, learner=None) -> None:
     def refuse(key: str, what: str):
         raise NotImplementedError(f"{key}: {what} is not ported to PyTorch yet")
 
-    if _switch_on(cfg, "publish.enabled") and _switch_on(cfg, "publish.fanout.enabled"):
-        refuse("session_config.publish.fanout.enabled", "the parameter fanout (versioned weight frames)")
     if cfg.get("compile_cache_dir", None):
         refuse("session_config.compile_cache_dir", "the persistent compile cache")
     topo = cfg.get("topology", None)
@@ -184,6 +190,7 @@ class SessionHooks:
             self.ckpt.best_key = "eval/return" if self.evaluator else "episode/return"
         self._publisher = None
         self._param_server = None
+        self._fanout = None
         pub = cfg.get("publish", None)
         if pub is not None and pub.enabled:
             self._start_publishing(pub, learner)
@@ -211,10 +218,23 @@ class SessionHooks:
         self._publisher = ParameterPublisher()
         # span-tagged fetches land in the telemetry spine as param_fetch events
         self._param_server = ParameterServer(self._publisher.address, bind=pub.bind, on_event=self.tracer.event)
+        discovery = {"addresses": self._param_server.addresses, "publisher": self._publisher.address}
+        fan = pub.get("fanout", None)
+        if fan is not None and fan.get("enabled", False):
+            # versioned weight frames over PUB/SUB beside the pair above,
+            # whose fetch stays the late joiners' fallback
+            from surreal_tpu_torch.distributed.param_fanout import ParameterFanout
+
+            self._fanout = ParameterFanout(
+                wire=str(fan.get("wire", "f32")), delta=bool(fan.get("delta", True)),
+                ack_ttl_s=float(fan.get("ack_ttl_s", 60.0)),
+            )
+            discovery["fanout"] = self._fanout.address
+            discovery["fanout_ack"] = self._fanout.ack_address
         self._pub_every = PeriodicTracker(max(1, pub.every_n_iters))
         self._discovery_path = os.path.join(self.config.session_config.folder, "param_server.json")
         with open(self._discovery_path + ".tmp", "w") as f:
-            json.dump({"addresses": self._param_server.addresses, "publisher": self._publisher.address}, f)
+            json.dump(discovery, f)
         os.replace(self._discovery_path + ".tmp", self._discovery_path)
         self.log.info(
             "parameter server live at %s (publish every %d iters)", self._param_server.addresses, self._pub_every.period
@@ -341,12 +361,13 @@ class SessionHooks:
             or self.recovery.last_window_tripped is not None
         )
         if self._publisher is not None and self._pub_every.track_increment() and not tripped:
-            # never publish poisoned params to live actors. The acting
-            # view's copy to the host is the publish's one sync.
+            # never publish poisoned params to live actors
             with self.tracer.span("param-publish", emit=True):
-                version = self._publisher.publish(self._pub_agent.acting_view(resolve_state()))
+                version = self.publish_view(resolve_state())
             if m is not None:
                 m["publish/version"] = float(version)
+                if self._fanout is not None:
+                    m.update(self._fanout.gauges())
         evaled: dict[str, float] = {}
         if self.evaluator is not None and self._eval_every.track_increment() and not tripped:
             with self.tracer.span("eval", emit=True):
@@ -393,6 +414,21 @@ class SessionHooks:
             stop = True
         return m, stop
 
+    def publish_view(self, state) -> int:
+        """Publish the agent's acting view of ``state``; returns its
+        version. The view's copy to the host is the publish's one sync:
+        with the fanout on, it is taken once (``host_tree``) and feeds the
+        publisher and the fanout alike."""
+        view = self._pub_agent.acting_view(state)
+        if self._fanout is not None:
+            from surreal_tpu_torch.distributed.module_dict import host_tree
+
+            view = host_tree(view)
+        version = self._publisher.publish(view)
+        if self._fanout is not None:
+            self._fanout.publish(view)
+        return version
+
     def count_program(self, name: str, fn, *args, phase: str | None = None, calls_per_phase: int = 1, **kwargs):
         """``fn(*args, **kwargs)``, its first call under ``name`` counted by
         the cost accountant (one ``program_cost`` event; the port's
@@ -409,6 +445,13 @@ class SessionHooks:
         ``data_plane`` telemetry event."""
         self.log.info("data plane: %s", " ".join(f"{k}={v}" for k, v in sorted(info.items())))
         self.tracer.event("data_plane", **info)
+
+    def serving_event(self, **info) -> None:
+        """Record the serving tier's per-replica snapshot (liveness,
+        budgets, serve latency, scale decisions) as one ``serving_tier``
+        telemetry event a metrics row; ``diag``'s "Serving tier" section
+        renders the last one."""
+        self.tracer.event("serving_tier", **info)
 
     @property
     def interrupted(self) -> bool:
@@ -450,6 +493,9 @@ class SessionHooks:
                 os.unlink(self._discovery_path)
             except OSError:
                 pass
+        if self._fanout is not None:
+            self._fanout.close()
+            self._fanout = None
         if self._publisher is not None:
             self._publisher.close()
             self._publisher = None

@@ -1,11 +1,13 @@
 """SEED trainer, the port of ``surreal_tpu/launch/seed_trainer.py``
 (``hop_event``, ``_DataPlane``, ``SEEDTrainer``) on one device: a central
-inference server, host env workers and the learner, the topology for envs
-that cannot live on the card (BASELINE config 5's "SEED-RL batched
-inference").
+inference server (or a replicated fleet of them), host env workers and
+the learner, the topology for envs that cannot live on the card
+(BASELINE config 5's "SEED-RL batched inference").
 
 Data flow:
-  env workers --sockets--> InferenceServer (one batched policy forward)
+  env workers --sockets--> InferenceServer, or InferenceFleet
+     │                     (topology.inference_fleet: replicas > 1 or
+     │                     autoscale; one batched policy forward a replica)
      └─ trajectory chunks --queue--> staging thread (learners/prefetch.py:
         the chunk's host->device copy) --> learner.learn (V-trace corrects
         the one-update staleness; PPO with ``max_staleness`` drops chunks
@@ -15,25 +17,31 @@ Workers run as threads or as spawned OS processes
 (``topology.worker_mode='process'``), both through
 ``distributed/env_worker.py::run_env_worker``; they never touch CUDA.
 
-Acting: the server thread acts through ``Learner.acting_copy()``, made on
-the main thread before the server starts (``functional_call`` swaps
-parameters into the module object, so two threads must not apply one
-module), with its own ``torch.Generator`` on the learner's device. Every
-``set_act_fn`` publishes the state the learn just returned (the learns
-are out of place), and the server acts on that snapshot. A serve reads
-the actions and the behaviour info back in one device->host copy, and
-acts on exactly the rows it has (see ``_make_act_fn``).
+Acting: each server thread acts through a ``Learner.acting_copy()`` of
+its own, made on the main thread before the servers start
+(``functional_call`` swaps parameters into the module object, so two
+threads must not apply one module), with its own ``torch.Generator`` on
+the learner's device: one copy for the single server, one per replica
+slot for a fleet (``SlotActs``; a slot's respawns and scale-ups reuse
+its copy). Every ``set_act_fn`` publishes the state the learn just
+returned (the learns are out of place), and the servers act on that
+snapshot. A serve reads the actions and the behaviour info back in one
+device->host copy, and acts on exactly the rows it has (see
+``_make_act_fn``). Every worker spawn and respawn goes to
+``server.address_for(i)``: the fleet's affinity map, which routes a
+worker whose replica died to a survivor.
 
 ``run`` is the reference's: ``SessionHooks`` around a ``LoopEngine`` with
 the ``collect`` and ``learn`` stages; supervision under the respawn
 backoff, the staleness drop, the ``data_plane`` and ``hops`` events, the
 metrics row with the data-plane extras, ``staleness/updates_behind`` and
-the ``lineage/*`` gauges under the reference's names.
+the ``lineage/*`` gauges under the reference's names; with a fleet, its
+supervision beside the workers', one autoscale decision and one
+``serving_tier`` event a metrics row, and the ``fleet/*`` gauges in it.
 
-Not carried, and refused with ``NotImplementedError`` naming the key: an
-inference fleet (``topology.inference_fleet`` with more than one replica
-or autoscale), the session gateway (``topology.gateway.enabled``), the
-experience plane (``topology.experience_plane.enabled``), a dp mesh
+Not carried, and refused with ``NotImplementedError`` naming the key: the
+session gateway (``topology.gateway.enabled``), the experience plane
+(``topology.experience_plane.enabled``), a dp mesh
 (``topology.mesh.dp > 1``) and the learner group
 (``topology.learner_group``). DDPG and the trajectory encoder are refused
 with the reference's messages.
@@ -41,6 +49,7 @@ with the reference's messages.
 
 from __future__ import annotations
 
+import copy
 import functools
 import queue
 import threading
@@ -52,6 +61,7 @@ import numpy as np
 import torch
 
 from surreal_tpu_torch.distributed.env_worker import run_env_worker
+from surreal_tpu_torch.distributed.fleet import InferenceFleet
 from surreal_tpu_torch.distributed.inference_server import InferenceServer
 from surreal_tpu_torch.engine import EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, sideband_stages
 from surreal_tpu_torch.envs.factory import make_env
@@ -90,9 +100,6 @@ def _check_topology(topo) -> None:
     def refuse(key: str, what: str):
         raise NotImplementedError(f"session_config.topology.{key}: {what} is not ported to PyTorch yet")
 
-    fleet = topo.get("inference_fleet", None)
-    if fleet is not None and (int(fleet.get("replicas", 1)) > 1 or bool(fleet.get("autoscale", False))):
-        refuse("inference_fleet", "a replicated or autoscaled inference fleet")
     gateway = topo.get("gateway", None)
     if gateway is not None and bool(gateway.get("enabled", False)):
         refuse("gateway.enabled", "the session gateway")
@@ -105,6 +112,44 @@ def _check_topology(topo) -> None:
     group = topo.get("learner_group", None)
     if group is not None and int(group.get("members", 1)) > 1:
         refuse("learner_group", "the learner group")
+
+
+def fleet_config(topo):
+    """``topology.inference_fleet`` when it asks for the replicated tier
+    (more than one replica, or autoscale), else None."""
+    fc = topo.get("inference_fleet", None)
+    if fc is not None and (int(fc.get("replicas", 1)) > 1 or bool(fc.get("autoscale", False))):
+        return fc
+    return None
+
+
+class SlotActs:
+    """Act functions, one per server slot: slot ``i`` acts through its own
+    (acting copy, generator) pair, ``make_slot(i)``'s, so no two serve
+    threads apply one module. The ``n`` pairs are made when this is built,
+    on the main thread before any server starts; every snapshot (``at``)
+    shares them, so a slot's respawns reuse its pair."""
+
+    def __init__(self, make_act_fn, make_slot, n: int):
+        self._make = make_act_fn       # (actor, state, generator) -> act function
+        self._make_slot = make_slot    # i -> (actor, generator)
+        self._slots = [make_slot(i) for i in range(n)]
+        self.state = None
+
+    def at(self, state) -> "SlotActs":
+        """The same slots acting on ``state``."""
+        twin = copy.copy(self)
+        twin.state = state
+        return twin
+
+    def for_slot(self, i: int):
+        while len(self._slots) <= i:
+            # a slot beyond the pairs made up front: only a scale-up past a
+            # dead slot awaiting its respawn asks for one, and scale-ups run
+            # on the main thread (the metrics cadence)
+            self._slots.append(self._make_slot(len(self._slots)))
+        actor, generator = self._slots[i]
+        return self._make(actor, self.state, generator)
 
 
 class _DataPlane:
@@ -155,7 +200,11 @@ class _DataPlane:
         Workers are stateless: a fresh one reopens its DEALER under the
         same identity, and the server's first message from it (obs only)
         replaces the stale pending state without fabricating a
-        transition."""
+        transition. A fleet's replicas are supervised in the same pass,
+        first, and a respawned worker goes to ``address_for``: a worker
+        whose replica died re-hellos to a survivor."""
+        if isinstance(self.server, InferenceFleet):
+            self.server.supervise()
         with self._supervise_lock:
             now = time.monotonic()
             for i, w in enumerate(self.workers):
@@ -164,7 +213,7 @@ class _DataPlane:
                     continue
                 if not self._sched.due(i, now):
                     continue  # backing off a crash-looping worker
-                self.workers[i] = self.trainer._spawn_one(i, self.env_cfg, self.server.address, self.stop)
+                self.workers[i] = self.trainer._spawn_one(i, self.env_cfg, self.server.address_for(i), self.stop)
                 self.respawns += 1
                 self.respawn_backoff_s = self._sched.respawned(i, now)
 
@@ -314,21 +363,29 @@ class SEEDTrainer:
         w.start()
         return w
 
-    def _start_data_plane(self, act_fn, stop, first_chunk_timeout: float) -> _DataPlane:
-        """Start the inference server and the worker fleet; a
+    def _slot_acts(self, hooks=None) -> SlotActs:
+        """The server slots' act functions, their acting copies and
+        generators made here (the main thread): one slot for the single
+        server, ``max_replicas`` for a fleet. Slot 0's generator is seeded
+        as the overlap loop's collector."""
+        fc = fleet_config(self.config.session_config.topology)
+        n = max(int(fc.get("max_replicas", 4)), 1) if fc is not None else 1
+        return SlotActs(lambda actor, st, gen: self._make_act_fn(actor, st, gen, hooks), self._act_slot, n)
+
+    def _act_slot(self, i: int):
+        seed = derive_seed(self.seed, 1) if i == 0 else derive_seed(self.seed, 1, i)
+        return self.learner.acting_copy(), torch.Generator(device=self.device).manual_seed(seed)
+
+    def _start_data_plane(self, acts: SlotActs, stop, first_chunk_timeout: float) -> _DataPlane:
+        """Start the inference server (or the fleet, under
+        ``topology.inference_fleet``) and the env workers; a
         :class:`_DataPlane` owns their supervision, chunk waits and
         teardown."""
         topo = self.config.session_config.topology
-        server = InferenceServer(
-            act_fn=act_fn,
+        common = dict(
             unroll_length=self.algo.horizon,
-            # coalesce all workers into one forward per lockstep round;
-            # auto_tune keeps this true as the fleet shrinks and regrows
-            # and scales the coalescing wait to the serve-latency EWMA
-            min_batch=self.num_workers,
             max_wait_ms=5.0,
             transport="pickle" if self.worker_transport == "pickle" else "auto",
-            auto_tune=True,
             # nonfinite obs payloads (a corrupt slab slot) are sanitized and
             # counted rather than poisoning the whole micro-batch
             sanitize_obs=bool(topo.get("sanitize_obs", True)),
@@ -337,9 +394,37 @@ class SEEDTrainer:
             trace_sample_n=self._trace_sample_n,
             lineage=self._lineage,
         )
+        fc = fleet_config(topo)
+        if fc is not None:
+            # the serving tier: session-affinity routing, per-replica
+            # coalescing budgets, in-place respawns, autoscaling
+            server = InferenceFleet(
+                acts,
+                num_workers=self.num_workers,
+                replicas=int(fc.get("replicas", 1)),
+                min_replicas=int(fc.get("min_replicas", 1)),
+                max_replicas=int(fc.get("max_replicas", 4)),
+                autoscale=bool(fc.get("autoscale", False)),
+                scale_up_serve_ms=float(fc.get("scale_up_serve_ms", 40.0)),
+                scale_down_serve_ms=float(fc.get("scale_down_serve_ms", 5.0)),
+                scale_cooldown_s=float(fc.get("scale_cooldown_s", 30.0)),
+                respawn_backoff_s=float(fc.get("respawn_backoff_s", 0.5)),
+                respawn_backoff_cap_s=float(fc.get("respawn_backoff_cap_s", 30.0)),
+                **common,
+            )
+        else:
+            server = InferenceServer(
+                act_fn=acts.for_slot(0),
+                # coalesce all workers into one forward per lockstep round;
+                # auto_tune keeps this true as the fleet shrinks and regrows
+                # and scales the coalescing wait to the serve-latency EWMA
+                min_batch=self.num_workers,
+                auto_tune=True,
+                **common,
+            )
         try:
             env_cfg = training_env_config(self.config.env_config)
-            workers = [self._spawn_one(i, env_cfg, server.address, stop) for i in range(self.num_workers)]
+            workers = [self._spawn_one(i, env_cfg, server.address_for(i), stop) for i in range(self.num_workers)]
         except BaseException:
             server.close()  # a failed spawn must not leak the socket and serve thread
             raise
@@ -405,15 +490,18 @@ class SEEDTrainer:
             self._span_sink = hooks.tracer
             self._trace_sample_n = hooks.trace_sample_n
             self._lineage = hooks.lineage_enabled
-            # the server thread's own modules and generator, made here
-            # before it starts (seeded as the overlap loop's collector)
-            actor = self.learner.acting_copy()
-            act_gen = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, 1))
+            # the server threads' own modules and generators, made here
+            # before any starts
+            slots = self._slot_acts(hooks)
+            fleet = fleet_config(cfg.topology) is not None
+
+            def acts(st):
+                """The act function(s) over ``st`` that set_act_fn takes."""
+                return slots.at(st) if fleet else slots.at(st).for_slot(0)
+
             # the first chunk waits out a full unroll of round trips and the
             # first forwards; workers keep their own per-step liveness budget
-            plane = self._start_data_plane(
-                self._make_act_fn(actor, state, act_gen, hooks), stop, first_chunk_timeout=600.0
-            )
+            plane = self._start_data_plane(slots.at(state), stop, first_chunk_timeout=600.0)
             server = self._server = plane.server
             self._workers = plane.workers  # exposed for tests and fault injection
             prefetch = Prefetcher(lambda: self._stage(plane.next_chunk(), hooks.tracer), name="seed-stage")
@@ -485,7 +573,7 @@ class SEEDTrainer:
                         tier="learner", dur_ms=learn_ms[-1], version=int(server.version),
                     )
                 with hooks.tracer.span("param-publish"):
-                    server.set_act_fn(self._make_act_fn(actor, ls.state, act_gen, hooks))
+                    server.set_act_fn(acts(ls.state))
                 plane.supervise()
                 if not dp_event_emitted:
                     # the negotiated data-plane shape, once the fleet settled
@@ -503,6 +591,12 @@ class SEEDTrainer:
                     # the hop percentiles ride the metrics cadence (host-side
                     # deques only, no device work)
                     hooks.tracer.event("hops", **hop_event(server, plane, learn_ms))
+                    if fleet:
+                        # one scale decision a cadence (cooldown-bounded,
+                        # from the serve-latency EWMA) and the per-replica
+                        # snapshot
+                        server.maybe_autoscale()
+                        hooks.serving_event(**server.tier_event())
 
                 return Outcome(
                     metrics=metrics, hook_key=derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1),
@@ -521,7 +615,7 @@ class SEEDTrainer:
                 # the live act function acts on the poisoned state: re-arm
                 # it from the restored one now, and drop what the versions
                 # before this one acted
-                server.set_act_fn(self._make_act_fn(actor, ls.state, act_gen, hooks))
+                server.set_act_fn(acts(ls.state))
                 acting_floor = server.version
 
             engine = LoopEngine(

@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the trainer, SEED data-plane and
-parameter-service sites, the port of ``surreal_tpu/utils/faults.py``'s registry
+"""Deterministic fault injection for the trainer, SEED data-plane,
+serving-tier and parameter-service sites, the port of ``surreal_tpu/utils/faults.py``'s registry
 (``FaultInjector``, ``configure_from``, ``fire``, ``drain_fired``,
 ``sleep_ms``, ``corrupt_array``, ``FaultInjected``, ``poison_state``,
 ``apply_trainer_fault``).
@@ -30,10 +30,18 @@ port has:
                         ``delay_reply``: sleep ``ms`` before replying
                         (past the client's timeout: the client replaces
                         its socket, the late reply is dropped)
+    fleet.replica       once per inference-fleet replica serve-loop turn
+                        ``kill_replica``: raise FaultInjected (the serve
+                        thread dies like a crash; the fleet respawns it
+                        in place); ``delay``: sleep ``ms``
+    param.publish       once per parameter-fanout publish
+                        ``delay_publish``: sleep ``ms``; ``drop_frame``:
+                        swallow the frame on the wire (the stale acks
+                        re-key the next publish with a full frame)
 
 The reference's other sites belong to subsystems the port does not have
-yet (the serving tier, the experience plane, the ops plane, causal-span
-emission): a plan entry for one of them raises
+yet (the experience plane, the gateway, the ops plane, causal-span
+emission, the learner group): a plan entry for one of them raises
 ``NotImplementedError`` naming the site. A spawned env worker starts
 with an empty registry; the SEED trainer forwards the plan to it. ``session_config.faults.plan`` (a list, or a JSON
 string for ``--set``) configures the registry at run start, which also
@@ -61,12 +69,14 @@ SITE_KINDS: dict[str, frozenset[str]] = {
     "transport.send": frozenset({"drop_frame", "delay_frame", "corrupt_slab"}),
     "server.serve": frozenset({"delay"}),
     "param_service.reply": frozenset({"delay_reply"}),
+    "fleet.replica": frozenset({"kill_replica", "delay"}),
+    "param.publish": frozenset({"delay_publish", "drop_frame"}),
 }
 SITES = frozenset(SITE_KINDS)
 # the reference's sites on paths the port does not have yet
 UNPORTED_SITES = frozenset({
-    "experience.shard", "experience.sample", "experience.send", "experience.spill", "fleet.replica", "param.publish",
-    "gateway.session", "ops.push", "trace.emit", "watchdog.eval", "lgroup.member",
+    "experience.shard", "experience.sample", "experience.send", "experience.spill", "gateway.session", "ops.push",
+    "trace.emit", "watchdog.eval", "lgroup.member",
 })
 
 

@@ -1,8 +1,7 @@
 """Respawn backoff bookkeeping, a copy of ``surreal_tpu/utils/respawn.py``
-(``RespawnSchedule`` without ``add_slot``, whose user, the inference
-fleet, is not ported; jax-free). The SEED data plane
+(``RespawnSchedule``; jax-free). The SEED data plane
 (``launch/seed_trainer.py::_DataPlane``) supervises its env workers with
-it:
+it, and the inference fleet (``distributed/fleet.py``) its replicas:
 
 - first death respawns immediately; consecutive deaths back off
   ``base * 2^k`` up to ``cap`` (a component that dies AT STARTUP must
@@ -30,6 +29,13 @@ class RespawnSchedule:
         self._failures = [0] * int(n_slots)
         self._next_spawn_at = [0.0] * int(n_slots)
         self._spawned_at = [now] * int(n_slots)
+
+    def add_slot(self) -> int:
+        """Register one more supervised slot (fleet scale-up)."""
+        self._failures.append(0)
+        self._next_spawn_at.append(0.0)
+        self._spawned_at.append(time.monotonic())
+        return len(self._failures) - 1
 
     def note_alive(self, i: int, now: float | None = None) -> None:
         """Tick a live slot: a respawn that outlived its probation window

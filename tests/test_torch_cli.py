@@ -105,8 +105,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
 
 
 UNPORTED_OPTIONS = {
-    "session_config.publish.fanout.enabled": {"session_config": {"publish": {"enabled": True,
-                                                                             "fanout": {"enabled": True}}}},
     "session_config.compile_cache_dir": {"session_config": {"compile_cache_dir": "xla_cache"}},
     "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
     "session_config.topology.mesh": {"session_config": {"topology": {"mesh": {"dp": 2}}}},
@@ -138,6 +136,9 @@ def test_every_unported_session_option_raises(key, tmp_path):
 # options the port refused until it had their paths: each now trains
 PORTED_OPTIONS = {
     "session_config.publish.enabled": {"session_config": {"publish": {"enabled": True}}},
+    "session_config.publish.fanout.enabled": {"session_config": {
+        "publish": {"enabled": True, "fanout": {"enabled": True}},
+        "metrics": {"every_n_iters": 1, "tensorboard": False}}},
     "env_config.video": {"env_config": {"video": {"enabled": True, "dir": "v"}},
                          "session_config": {"eval": {"every_n_iters": 1, "episodes": 2, "max_steps": 6}}},
 }
@@ -147,8 +148,9 @@ PORTED_OPTIONS = {
 def test_formerly_unported_session_option_trains(key, tmp_path):
     """One iteration with the option on: publishing starts the parameter
     server, publishes once (a ``param-publish`` span) and retracts its
-    discovery file at the end; video records the eval episode of the
-    device env (reset frame, 6 steps)."""
+    discovery file at the end, and the fanout broadcasts that publish as
+    one full frame (its ``param/*`` gauges in the metrics row); video
+    records the eval episode of the device env (reset frame, 6 steps)."""
     over = PORTED_OPTIONS[key]
     if key == "env_config.video":
         over = {**over, "env_config": {"video": {**over["env_config"]["video"], "dir": str(tmp_path / "v")}}}
@@ -159,6 +161,9 @@ def test_formerly_unported_session_option_trains(key, tmp_path):
     else:
         assert [e["name"] for e in events if e["type"] == "span" and e["name"] == "param-publish"] == ["param-publish"]
         assert not os.path.exists(tmp_path / "param_server.json")
+        if "fanout" in key:
+            (row,) = [e["values"] for e in events if e["type"] == "metrics" and "param/publishes" in e["values"]]
+            assert row["param/publishes"] == row["param/full_frames"] == 1.0 and row["param/bytes_last_publish"] > 0
 
 
 PROFILE_OPTIONS = {

@@ -56,11 +56,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "utils/respawn.py",
     }
     perf = {"session/costs.py", "session/profile.py"}
+    serving = {"distributed/fleet.py", "distributed/param_fanout.py", "utils/net.py"}
     publish = {
         "agents/__init__.py", "agents/base.py", "agents/ppo_agent.py", "agents/ddpg_agent.py",
         "distributed/param_service.py", "distributed/module_dict.py", "envs/video.py",
     }
-    wanted = session_runtime | trajectory | host | seed | perf | publish
+    wanted = session_runtime | trajectory | host | seed | perf | publish | serving
     assert wanted <= scanned, f"not scanned: {sorted(wanted - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
@@ -70,7 +71,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     ]
     assert not bad, "the port must not import JAX, the JAX package, zmq or msgpack:\n" + "\n".join(bad)
     # nothing on the parameter wire unpickles: bytes from a socket are decoded by their header
-    wire = ("distributed/sockets.py", "distributed/module_dict.py", "distributed/param_service.py")
+    wire = ("distributed/sockets.py", "distributed/module_dict.py", "distributed/param_service.py",
+            "distributed/param_fanout.py")
     unpickling = [f"{name}: import {root}" for name in wire for _, root in _imported_roots(_PKG / name)
                   if root in ("pickle", "cloudpickle", "dill", "marshal")]
     assert not unpickling, unpickling

@@ -524,8 +524,6 @@ def test_seed_trainer_refuses_what_it_does_not_carry(tmp_path):
     with pytest.raises(ValueError, match="trajectory"):
         SEEDTrainer(traj, device="cpu")
     for key, over in [
-        ("inference_fleet", dict(inference_fleet=dict(replicas=2))),
-        ("inference_fleet", dict(inference_fleet=dict(autoscale=True))),
         ("gateway.enabled", dict(gateway=dict(enabled=True))),
         ("experience_plane.enabled", dict(experience_plane=dict(enabled=True))),
         ("mesh.dp", dict(mesh=dict(dp=2))),
@@ -554,6 +552,9 @@ def test_respawn_backoff_defers_hot_loop():
     stub = _Stub()
     class _Server:
         address = "tcp://127.0.0.1:1"
+
+        def address_for(self, worker_id):
+            return self.address
 
     plane = _DataPlane(stub, _Server(), [_Dead()], None, threading.Event(), 1.0,
                        respawn_backoff_s=0.05, respawn_backoff_cap_s=0.2)

@@ -1,6 +1,6 @@
 """Card-only checks of the port's SEED topology (marker ``cuda``; they skip
 without a card): one SEED IMPALA run and one SEED PPO run on the card,
-with thread workers stepping a seeded numpy env defined here (this file
+and one IMPALA run behind a fleet of two replicas, with thread workers stepping a seeded numpy env defined here (this file
 imports nothing of the JAX package and no env package, so it collects on
 any machine with the port and a card):
 
@@ -100,5 +100,40 @@ def test_seed_run_on_the_card(tmp_path, monkeypatch, algo, wrapper):
     assert trainer.device.type == "cuda" and acted_on == {"cuda"}
     learns = int(state.iteration)
     assert learns == len(rows) >= 40 and counted.launches == learns
+    for k, v in metrics.items():
+        assert math.isfinite(v), k
+
+
+@pytest.mark.cuda
+def test_seed_fleet_of_two_replicas_on_the_card(tmp_path, monkeypatch):
+    """``topology.inference_fleet.replicas=2``: 4 thread workers over two
+    replicas, each acting on the card through its own acting copy; V-trace
+    once a learn; both replicas alive and serving at the end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def make_env(env_config, device="cuda"):
+        return EpisodeStatsWrapper(DriftEnv(env_config.num_envs, n=3, seed=env_config.seed))
+
+    monkeypatch.setattr(env_worker_mod, "make_env", make_env)
+    monkeypatch.setattr(seed_mod, "make_env", make_env)
+    cfg = Config(
+        learner_config=Config(algo=Config(name="impala", horizon=16)),
+        env_config=Config(name="gym:Fixture", num_envs=8),
+        session_config=Config(
+            folder=str(tmp_path), total_env_steps=40 * 16 * 4,
+            metrics=Config(every_n_iters=1, tensorboard=False, console=False),
+            checkpoint=Config(every_n_iters=0), eval=Config(every_n_iters=0),
+            topology=Config(num_env_workers=4, inference_fleet=Config(replicas=2)),
+        ),
+    ).extend(base_config())
+    trainer = seed_mod.SEEDTrainer(cfg)
+    ops_vtrace.vtrace_fused.launches = 0
+    rows = []
+    state, metrics = trainer.run(on_metrics=lambda it, m: rows.append(m))
+    learns = int(state.iteration)
+    assert trainer.device.type == "cuda" and learns == len(rows) >= 40
+    assert ops_vtrace.vtrace_fused.launches == learns
+    assert metrics["fleet/replicas_live"] == 2.0 and metrics["server/serve_ms"] > 0
     for k, v in metrics.items():
         assert math.isfinite(v), k
