@@ -23,9 +23,11 @@ profiler captures, the perf gauges, the diag and trace readers), and
 the 'bf16' and 'bf16_fp8' precision policies (dynamic loss scaling, bf16
 staging and replay storage, the fp8 Dense path), live parameter
 publishing with the processes that consume it (``actor``, ``eval
---follow``) and ``eval --best`` with its video, and the serving tier
+--follow``) and ``eval --best`` with its video, the serving tier
 (SEED behind a replicated, autoscaled inference fleet; the versioned
-parameter fanout with a subscriber process). Five kernels are built
+parameter fanout with a subscriber process), and the sharded experience
+plane (remote DDPG over shard servers, the device hot tier, SEED's chunk
+relay). Five kernels are built
 and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
@@ -237,6 +239,24 @@ and checked. Phases, each printing one JSON line:
              fetched from the session's server, f32 delta equal to the
              publisher's shadow and within one rounding step of the view,
              bf16 delta equal to the shadow; GAE or V-trace once a learn.
+14. experience - the sharded experience plane (``replay.kind=remote``,
+             fixture gym:Pendulum-v1, 8 envs x 32 steps, 8 updates of 256
+             an iteration from 100,000 rows over 2 shards): thread shards
+             over shm, tcp and pickle in turns with the in-process host
+             DDPG at the same geometry (iteration ms, env steps/s, wire
+             bytes a step, sample wait, rows, 0 dropped); the strict loop
+             twice (equal final losses and grad norm); prioritized shards
+             (one PRIO frame per shard per iteration that learned); the
+             device hot tier (the gather kernel once per update on a hit,
+             the first request a counted miss; its sample wait against
+             the warm-only strict runs; its draw and gather under
+             set_sync_debug_mode("error"), bit-equal to UniformReplay and
+             to the plain gather, timed); process shards killed by
+             ``experience.shard`` ``kill_shard`` and respawned (2 live at
+             the end, no slab left, no shard with a CUDA context); SEED
+             through the relay (``train impala gym:CartPole-v1`` and
+             ``train ppo dm_control:cheetah-run``, 2 thread workers each;
+             V-trace or GAE once a learn).
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -258,6 +278,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import redirect_stdout
@@ -2448,11 +2469,14 @@ def phase_host(M, ops_gae, ops_vtrace, RS, RR) -> dict:
 
 
 def seed_config(M, algo: dict, env: str, workers: int, num_envs: int, mode: str, fleet: dict | None = None,
-                **learner):
-    """A SEED session; ``fleet``: its ``topology.inference_fleet``."""
+                xp: dict | None = None, **learner):
+    """A SEED session; ``fleet``: its ``topology.inference_fleet``; ``xp``:
+    its ``topology.experience_plane`` (the chunk relay)."""
     topology = M.Config(num_env_workers=workers, worker_mode=mode)
     if fleet is not None:
         topology.inference_fleet = M.Config(fleet)
+    if xp is not None:
+        topology.experience_plane = M.Config(xp)
     return M.Config(
         learner_config=M.Config(algo=M.Config(algo), **{k: M.Config(v) for k, v in learner.items()}),
         env_config=M.Config(name=env, num_envs=num_envs),
@@ -2504,7 +2528,8 @@ def seed_sync_check(trainer, state, chunk: dict, width: int) -> dict:
 
 def phase_seed_train(M, path: str, algo: dict, env: str, workers: int, num_envs: int, mode: str,
                      counters: dict, env_source: dict, fleet: dict | None = None, phase: str = "seed",
-                     iters: tuple[int, int] = (SEED_WARMUP_ITERS, SEED_TIMED_ITERS), **learner) -> dict:
+                     iters: tuple[int, int] = (SEED_WARMUP_ITERS, SEED_TIMED_ITERS), xp: dict | None = None,
+                     **learner) -> dict:
     """``SEEDTrainer.run`` on the card (``timed_run``: SEED_WARMUP_ITERS +
     SEED_TIMED_ITERS learns, kernel launches counted, every metric finite),
     then the serve and wire figures of its server, the staleness and
@@ -2513,7 +2538,7 @@ def phase_seed_train(M, path: str, algo: dict, env: str, workers: int, num_envs:
     its hop windows are read as it closes, fleet-wide and per replica."""
     from surreal_tpu_torch.distributed.fleet import InferenceFleet
 
-    trainer = M.SEEDTrainer(seed_config(M, algo, env, workers, num_envs, mode, fleet, **learner))
+    trainer = M.SEEDTrainer(seed_config(M, algo, env, workers, num_envs, mode, fleet, xp, **learner))
     kept = keep_last_chunk(trainer)
     closing = {}
 
@@ -4022,6 +4047,280 @@ def phase_fanout(M, gae, vtrace, publish_ref_ms: float | None) -> dict:
     }
 
 
+# -- the sharded experience plane ---------------------------------------------
+
+# remote DDPG: the ddpg cell's learner settings at 8 envs x 32 steps on
+# gym:Pendulum-v1, 8 updates of 256 an iteration from 100,000 rows over 2
+# shards
+XP_B, XP_H, XP_K, XP_BS, XP_CAPACITY, XP_SHARDS = 8, 32, 8, 256, 100_000, 2
+XP_WARMUP_ITERS, XP_TIMED_ITERS = 2, 6
+XP_HOT_MIN_FILL = 2 * XP_H * XP_B  # the first request misses (one chunk held), the rest hit
+XP_KILL_AT = 30                    # the kill: each process shard's 31st loop pass
+XP_KILL_ITERS, XP_KILL_PACING_MS = 30, 100
+XP_RELAY_ITERS = (2, 6)
+XP_LOSS_KEYS = ("loss/critic", "loss/actor", "health/grad_norm")
+
+
+def xp_config(M, tag: str, replay: dict, overlap: bool = True, plan: list | None = None, **plane):
+    """Host DDPG at the experience phase's geometry; ``replay`` completes
+    its replay config, ``plane`` its topology.experience_plane."""
+    algo = dict(name="ddpg", horizon=XP_H, updates_per_iter=XP_K, exploration=dict(warmup_steps=0))
+    topology = M.Config(overlap_rollouts=overlap,
+                        experience_plane=M.Config({"num_shards": XP_SHARDS, "shard_mode": "thread", **plane}))
+    session = timed_session(M.Config, topology=topology)
+    session.folder = scratch_dir(tag)
+    if plan is not None:
+        session.faults = M.Config(plan=plan)
+    return host_config(M, algo, "gym:Pendulum-v1", XP_B, session=session,
+                       replay=dict(capacity=XP_CAPACITY, start_sample_size=XP_BS, batch_size=XP_BS, **replay))
+
+
+def xp_run(M, RR, tag: str, replay: dict, gathers: int, iters: tuple[int, int] = (XP_WARMUP_ITERS, XP_TIMED_ITERS),
+           env_source: dict | None = None, **kw) -> dict:
+    """One host DDPG run on the card (``timed_run``), the replay gather
+    kernel launched exactly ``gathers`` times in it; its timing, the
+    experience gauges of its last metrics row, and the plane's last
+    ``experience_plane`` and ``experience_close`` events."""
+    cfg = xp_config(M, tag, replay, **kw)
+    trainer = M.OffPolicyTrainer(cfg)
+    (state, timing), launches = count_launches({"replay_gather": (RR.gather_rows, gathers)},
+                                               lambda: timed_run(trainer, {}, *iters))
+    trainer.env.close()
+    m = timing["metrics"]
+    events = session_events(cfg.session_config.folder, M.iter_jsonl)
+    planes = [e for e in events if e["type"] == "experience_plane"]
+    closes = [e for e in events if e["type"] == "experience_close"]
+    result = {
+        "phase": "experience", "path": tag, "env": "gym:Pendulum-v1", "env_source": (env_source or {}).get(
+            "gym:Pendulum-v1"), "replay": replay, "num_envs": XP_B, "horizon": XP_H, "updates_per_iter": XP_K,
+        "batch_size": XP_BS, "capacity": XP_CAPACITY, "iter_ms_median": timing["iter_ms_median"],
+        "env_steps_per_s": timing["env_steps_per_s"], "iter_ms": timing["iter_ms"],
+        "first_iter_ms": timing["first_iter_ms"], "peak_mem_gb": timing["peak_mem_gb"],
+        "replay_gather_launches": launches["replay_gather"],
+        "span_ms_last": timing["span_ms"][-1],
+        "final": {k: m.get(k) for k in XP_LOSS_KEYS},
+        "experience": {k: v for k, v in m.items() if k.startswith(("experience/", "tier/"))},
+        "plane_event": {k: planes[-1].get(k) for k in ("transports", "sender", "sampler", "shards", "tiers")}
+        if planes else None,
+        "close": {k: v for k, v in closes[-1].items() if k not in ("type", "t", "trace", "seq")} if closes else None,
+    }
+    emit(result)
+    return result
+
+
+def check_hot_gather(M, RR, example: dict) -> dict:
+    """The hot tier's draw and gather at the hot path's rows (the
+    trainer's replay leaves in a 100,000-row device ring, 256 rows a
+    draw): 8 draws under torch.cuda.set_sync_debug_mode("error") (no host
+    sync), one gather launch each, each bit-equal to UniformReplay.sample
+    from a generator seeded the same way and to the gather's plain version
+    on the same indices; the draw and the gather timed against the plain
+    version and index_select per leaf."""
+    from surreal_tpu_torch.replay.tiers import HotTier
+    from surreal_tpu_torch.replay.uniform import UniformReplay
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    hot = HotTier(capacity=XP_CAPACITY, batch_size=XP_BS, example=example)
+    replay = UniformReplay(M.Config(capacity=XP_CAPACITY, batch_size=XP_BS, start_sample_size=XP_BS))
+    state = replay.init(example)
+    for _ in range(4):
+        rows = {k: torch.randn((XP_CAPACITY // 3, *v.shape), generator=gen, device="cuda").to(v.dtype)
+                for k, v in example.items()}
+        hot.append(rows)
+        state = replay.insert(state, rows)
+    seeds = list(range(100, 108))
+    torch.cuda.synchronize()
+    RR.gather_rows.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [hot.sample(s) for s in seeds]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = RR.gather_rows.launches
+    if launches != len(seeds):
+        raise AssertionError(f"hot tier: {launches} gather launches for {len(seeds)} draws")
+    max_abs = 0.0
+    for s, batch in zip(seeds, got):
+        _, want, info = replay.sample(state, torch.Generator(device="cuda").manual_seed(s))
+        plain = RR.gather_rows_plain(hot._state.storage, info["idx"])
+        for k in want:
+            if not (torch.equal(batch[k], want[k]) and torch.equal(batch[k], plain[k])):
+                raise AssertionError(f"hot tier sample != UniformReplay / plain gather for leaf {k}")
+            max_abs = max(max_abs, float((batch[k].double() - plain[k].double()).abs().max()))
+    idx = torch.randint(0, XP_CAPACITY, (XP_BS,), generator=gen, device="cuda", dtype=torch.int32)
+    leaves = hot._state.storage
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    row_bytes = sum(x[0].numel() * x.element_size() for x in leaves.values())
+    result = {
+        "phase": "kernels", "kernel": "replay_gather", "path": "xp_hot_pendulum", "draws": len(seeds),
+        "launches": launches, "sync_debug_mode": "error", "tolerance": "exact (0)", "max_abs_err": max_abs,
+        "row_bytes": row_bytes, "capacity": XP_CAPACITY, "rows": XP_BS,
+        "sample_ms": time_cuda_ms(lambda: hot.sample(7), runs=30, flush=flush, spin=True),
+        "ms": time_cuda_ms(lambda: RR.gather_rows(leaves, idx), runs=30, flush=flush, spin=True),
+        "plain_ms": time_cuda_ms(lambda: RR.gather_rows_plain(leaves, idx), runs=30, flush=flush, spin=False),
+        "library_ms": sum(time_cuda_ms(lambda x=x: x.index_select(0, idx), runs=30, flush=flush, spin=True)
+                          for x in leaves.values()),
+        "bound_ms": (2 * XP_BS * row_bytes + idx.numel() * idx.element_size()) / H100_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+    emit(result)
+    return result
+
+
+def compute_app_pids() -> list[int] | None:
+    """The pids nvidia-smi lists with a CUDA context (None if it cannot
+    say)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if out.returncode != 0:
+        return None
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def xp_respawn(M, RR, env_source: dict) -> dict:
+    """Uniform remote DDPG on 2 process shards with a ``kill_shard`` fault:
+    the plan reaches each shard on its first spawn, so both die at their
+    31st loop pass and are respawned at their addresses while the learner
+    waits; iterations paced at 100 ms. Checks: respawns >= 1 and 2 shards
+    live at the end, finite training past the kills, no
+    /dev/shm/surreal_pt_xp_* left, and no shard process with a CUDA
+    context (their stats, and nvidia-smi's compute apps during the run)."""
+    import glob
+
+    from surreal_tpu_torch.experience.plane import ExperiencePlane
+
+    pids, listed = [], set()
+    done = threading.Event()
+
+    def recording(spawn):
+        def spawn_shard(self, i):
+            w = spawn(self, i)
+            pids.append(w.pid)
+            return w
+        return spawn_shard
+
+    def watch_compute_apps():
+        # which processes hold a CUDA context while the shards run
+        while not done.wait(1.0):
+            got = compute_app_pids()
+            if got is not None:
+                listed.update(got)
+
+    plan = [{"site": "experience.shard", "kind": "kill_shard", "at": XP_KILL_AT},
+            {"site": "trainer.iteration", "kind": "delay", "at": 0, "times": 10_000, "ms": XP_KILL_PACING_MS}]
+    watcher = threading.Thread(target=watch_compute_apps, daemon=True)
+    watcher.start()
+    try:
+        with Patched(ExperiencePlane, "_spawn_shard", recording):
+            res = xp_run(M, RR, "xp_respawn_process", dict(kind="remote", remote_kind="uniform"), 0,
+                         iters=(2, XP_KILL_ITERS - 2), env_source=env_source, plan=plan, shard_mode="process",
+                         transport="shm", ack_timeout_s=0.5, sample_timeout_s=1.0, watermark_timeout_s=0.5,
+                         respawn_backoff_s=0.05)
+    finally:
+        done.set()
+        watcher.join()
+    xp = res["experience"]
+    shards = (res["plane_event"] or {}).get("shards") or {}
+    residue = glob.glob("/dev/shm/surreal_pt_xp_*")
+    checks = {
+        "respawned": xp.get("experience/respawns", 0.0) >= 1.0,
+        "shards_live": xp.get("experience/shards_live") == float(XP_SHARDS),
+        "trained": all(math.isfinite(res["final"][k]) for k in XP_LOSS_KEYS),
+        "no_slab_residue": not residue,
+        "shards_never_opened_the_card": bool(shards) and all(s.get("cuda_initialized") is False
+                                                            for s in shards.values()),
+        "no_shard_in_compute_apps": not set(pids) & listed,
+    }
+    out = {"phase": "experience", "path": "xp_respawn_checks", "shard_pids": pids, "compute_apps": sorted(listed),
+           "trainer_pid": os.getpid(), "residue": residue, "checks": checks}
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"experience respawn checks failed: {checks}")
+    return res
+
+
+def phase_experience(M, RR, ops_gae, ops_vtrace, RS, env_source: dict) -> dict:
+    """The sharded experience plane on the card: uniform remote DDPG over
+    thread shards on shm, tcp and pickle in turns with the in-process host
+    DDPG (A, shm, tcp, pickle, A); the strict loop twice (equal final
+    losses and grad norm); prioritized shards (one PRIO frame per shard
+    per iteration that learned); the hot tier (the gather kernel once per
+    update on a hit, its first request a counted miss) beside its
+    warm-only strict run; process shards killed by a fault and respawned;
+    SEED through the relay (IMPALA CartPole, PPO cheetah; V-trace or GAE
+    once a learn). Returns each kernel's launches by path."""
+    iters = XP_WARMUP_ITERS + XP_TIMED_ITERS
+    uniform = dict(kind="remote", remote_kind="uniform")
+    runs = {}
+    for tag, replay, gathers, plane in (
+        ("xp_inproc_a", dict(kind="uniform"), XP_K * iters, {}),
+        ("xp_remote_shm", uniform, 0, dict(transport="shm")),
+        ("xp_remote_tcp", uniform, 0, dict(transport="tcp")),
+        ("xp_remote_pickle", uniform, 0, dict(transport="pickle")),
+        ("xp_inproc_b", dict(kind="uniform"), XP_K * iters, {}),
+    ):
+        runs[tag] = xp_run(M, RR, tag, replay, gathers, env_source=env_source, **plane)
+        if tag.startswith("xp_remote"):
+            got = runs[tag]["experience"]
+            transports = runs[tag]["plane_event"]["transports"]
+            if got["experience/dropped_rows"] != 0.0 or transports != [plane["transport"]] * XP_SHARDS:
+                raise AssertionError(f"{tag}: dropped {got['experience/dropped_rows']}, transports {transports}")
+    strict = [xp_run(M, RR, f"xp_strict_{i}", uniform, 0, env_source=env_source, overlap=False, transport="shm")
+              for i in range(2)]
+    equal = {k: strict[0]["final"][k] == strict[1]["final"][k] for k in XP_LOSS_KEYS}
+    emit({"phase": "experience", "path": "xp_strict_determinism", "equal": equal,
+          "finals": [s["final"] for s in strict]})
+    if not all(equal.values()):
+        raise AssertionError(f"strict remote runs differ: {[s['final'] for s in strict]}")
+    prio = xp_run(M, RR, "xp_remote_prioritized", dict(kind="remote", remote_kind="prioritized"), 0,
+                  env_source=env_source, transport="shm")
+    prio_frames = prio["plane_event"]["sampler"]["prio_frames"]
+    if prio_frames != XP_SHARDS * (iters - 1):
+        raise AssertionError(f"prioritized: {prio_frames} PRIO frames, expected {XP_SHARDS * (iters - 1)}")
+    hot = xp_run(M, RR, "xp_hot_pendulum", dict(uniform, tiers=dict(hot=dict(
+        enabled=True, capacity=XP_CAPACITY, min_fill=XP_HOT_MIN_FILL))), XP_K * (iters - 1),
+        env_source=env_source, overlap=False, transport="shm")
+    tier = hot["experience"]
+    if tier["tier/hot_hits"] != XP_K * (iters - 1) or tier["tier/hot_misses"] != XP_K:
+        raise AssertionError(f"hot tier: hits {tier['tier/hot_hits']}, misses {tier['tier/hot_misses']}")
+    emit({"phase": "experience", "path": "xp_hot_vs_warm", "hot_sample_wait_ms": tier["experience/sample_wait_ms"],
+          "warm_sample_wait_ms": [s["experience"]["experience/sample_wait_ms"] for s in strict],
+          "hot_iter_ms_median": hot["iter_ms_median"], "warm_iter_ms_median": [s["iter_ms_median"] for s in strict],
+          "hits": tier["tier/hot_hits"], "misses": tier["tier/hot_misses"],
+          "gather_launches": hot["replay_gather_launches"]})
+    trainer = M.OffPolicyTrainer(xp_config(M, "xp_hot_example", dict(uniform)))
+    hot_check = check_hot_gather(M, RR, trainer._replay_example())
+    trainer.env.close()
+    respawn = xp_respawn(M, RR, env_source)
+    gae = {"gae": (ops_gae.gae_advantages_masked, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    vtrace = {"vtrace": (ops_vtrace.vtrace_fused, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    relay = dict(enabled=True, num_shards=XP_SHARDS, shard_mode="thread", transport="tcp")
+    impala = phase_seed_train(M, "seed_relay_impala_cartpole", dict(name="impala", horizon=CARTPOLE_T,
+                                                                    precision="mixed"),
+                              "gym:CartPole-v1", 2, SEED_CARTPOLE_ENVS, "thread", vtrace, env_source,
+                              phase="experience", iters=XP_RELAY_ITERS, xp=relay)
+    ppo = phase_seed_train(M, "seed_relay_ppo_cheetah", dict(name="ppo", horizon=CHEETAH_T, epochs=4,
+                                                             num_minibatches=4, precision="mixed"),
+                           "dm_control:cheetah-run", 2, SEED_PPO_ENVS, "thread", gae, env_source,
+                           phase="experience", iters=XP_RELAY_ITERS, xp=relay)
+    for res in (impala, ppo):
+        rows = res["metrics"].get("experience/rows", 0.0)
+        if not rows or res["metrics"].get("experience/dropped_rows") != 0.0:
+            raise AssertionError(f"{res['path']}: relay rows {rows}, dropped {res['metrics'].get('experience/dropped_rows')}")
+    return {
+        "replay_gather": {"xp_inproc_a": runs["xp_inproc_a"]["replay_gather_launches"],
+                          "xp_inproc_b": runs["xp_inproc_b"]["replay_gather_launches"],
+                          "xp_hot_pendulum": hot["replay_gather_launches"]},
+        "replay_gather_check": hot_check,
+        "gae": {"seed_relay_ppo_cheetah": ppo["gae_launches"]},
+        "vtrace": {"seed_relay_impala_cartpole": impala["vtrace_launches"]},
+        "runs": {**runs, "strict": strict, "prioritized": prio, "hot": hot, "respawn": respawn},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -4115,23 +4414,26 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     publish = phase_publish(M, ops_gae.gae_advantages_masked, RR)
     fleet = phase_fleet(M, ops_gae, ops_vtrace, RS, host["env_source"])
     fanout = phase_fanout(M, ops_gae.gae_advantages_masked, ops_vtrace.vtrace_fused, publish["ppo"]["publish_ms_p50"])
+    experience = phase_experience(M, RR, ops_gae, ops_vtrace, RS, host["env_source"])
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
     gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
                                **host["gae"], **seed["gae"], "profile_ppo_lift": profile["gae_launches"],
                                "precision_ppo_lift": precision["gae_launches"], **publish["gae"], **fleet["gae"],
-                               **fanout["gae"]}
+                               **fanout["gae"], **experience["gae"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
                                   "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
                                   **seed["vtrace"], "precision_impala_pong": precision["vtrace_launches"],
-                                  **fleet["vtrace"], **fanout["vtrace"]}
+                                  **fleet["vtrace"], **fanout["vtrace"], **experience["vtrace"]}
     gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"],
                                   "precision_ddpg_lift": precision["replay_gather_launches"],
-                                  **publish["replay_gather"]}
+                                  **publish["replay_gather"], **experience["replay_gather"]}
     gather["max_abs_err"] = max(gather["max_abs_err"], host["replay_gather_check"]["max_abs_err"],
-                                precision["gather"]["max_abs_err"])
+                                precision["gather"]["max_abs_err"], experience["replay_gather_check"]["max_abs_err"])
     gather["bf16_rows"] = {k: precision["gather"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "row_bytes")}
+    gather["hot_tier_rows"] = {k: experience["replay_gather_check"][k]
+                               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "row_bytes", "sample_ms")}
     scatter["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_scatter_launches"], **host["replay_scatter"],
                                    "precision_ddpg_lift": precision["replay_scatter_launches"],
                                    **publish["replay_scatter"]}

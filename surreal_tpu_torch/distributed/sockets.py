@@ -40,7 +40,17 @@ ROUTER/DEALER:
   dies into its supervisor's respawn, as with ``zmq.Again``; its
   receives wait behind ``poll``. A server that has gone away is not an
   error on either call: sends are dropped and polls find nothing, and the
-  worker's silence budget (or its stop event) ends it, as with zmq.
+  worker's silence budget (or its stop event) ends it, as with zmq;
+- ``Dealer(..., reconnect=True)`` is zmq's DEALER in full, for the
+  experience plane's shard links: ``connect`` only records the address,
+  the connection is made (and, after the server has gone, made again)
+  every ``_RECONNECT_S`` while the caller sends or polls, each time with
+  the identity frame first, and messages sent while no connection is up
+  wait for the next one (up to ``_RECONNECT_QUEUE``; beyond, the oldest
+  are dropped). A server that binds after its clients were built, or a
+  respawned one at the same address, is reached without any help from
+  the caller. SEED's workers keep the default, which never reconnects:
+  they time out into their supervisor's respawn.
 
 REQ/REP:
 
@@ -98,7 +108,8 @@ from collections import deque
 _LEN = struct.Struct("<I")
 _RECV_BYTES = 1 << 20
 _NOBLOCK_SEND_S = 0.1  # a non-blocking DEALER send: what the kernel takes at once, or this long
-_RECONNECT_S = 0.05    # a Req's pause between connection attempts while it waits
+_RECONNECT_S = 0.05    # a Req's or reconnecting Dealer's pause between connection attempts
+_RECONNECT_QUEUE = 1000  # a reconnecting Dealer's messages held while no connection is up
 
 
 class Again(Exception):
@@ -594,20 +605,71 @@ class _Client:
 
 
 class Dealer(_Client):
-    """The worker side of ROUTER/DEALER: one connection, identity first."""
+    """The worker side of ROUTER/DEALER: one connection, identity first.
+    With ``reconnect``, the connection is made lazily and remade after the
+    server has gone (see the module docstring)."""
 
-    def __init__(self, identity: bytes, send_timeout_s: float):
+    def __init__(self, identity: bytes, send_timeout_s: float, reconnect: bool = False):
         super().__init__()
         self.identity = bytes(identity)
         self._send_timeout = send_timeout_s
+        self._reconnect = reconnect
+        self._address: str | None = None
+        self._queued: deque[bytes] = deque(maxlen=_RECONNECT_QUEUE)
+        self._next_attempt = 0.0
+        self.connects = 0  # connections made (a reconnecting Dealer's first, then one a server restart)
 
     def connect(self, address: str) -> None:
+        if self._reconnect:
+            parse_tcp(address)  # malformed addresses raise here
+            self._address = address
+            self._try_connect()
+            return
         self._open(address, self._send_timeout)
         self.send(self.identity)
+        self.connects += 1
+
+    def _try_connect(self) -> bool:
+        """A reconnecting Dealer's attempt to (re)connect, at most one every
+        ``_RECONNECT_S``; on success the identity, then the queued
+        messages, go first."""
+        if self._sock is not None and not self._gone:
+            return True
+        now = time.monotonic()
+        if now < self._next_attempt:
+            return False
+        self._next_attempt = now + _RECONNECT_S
+        self.close()
+        self._gone = False
+        arrived = self._frames.frames
+        self._frames = _Frames()  # a partial frame of the old connection is lost with it,
+        self._frames.frames = arrived  # what arrived whole is still delivered
+        try:
+            self._open(self._address, max(self._send_timeout, 1e-3))
+        except OSError:
+            self.close()  # nothing bound there (yet): the next send or poll tries again
+            return False
+        self.connects += 1
+        self._sock.settimeout(self._send_timeout)
+        try:
+            self._sock.sendall(_frame(self.identity))
+            while self._queued:
+                self._sock.sendall(self._queued[0])
+                self._queued.popleft()
+        except OSError:
+            self._gone = True
+            return False
+        return True
 
     def send(self, payload: bytes, noblock: bool = False) -> None:
         """Send one message; raises ``TimeoutError`` when the server takes
         none of it for ``send_timeout_s`` (0.1 s with ``noblock``)."""
+        if self._reconnect:
+            if self._sock is not None and not self._gone:
+                self._receive(0.0)  # a server that closed since: noticed now, not after the send
+            if not self._try_connect():
+                self._queued.append(_frame(payload))
+                return
         if self._gone:
             return  # the server is gone: dropped; the silence budget decides
         timeout = _NOBLOCK_SEND_S if noblock else self._send_timeout
@@ -615,25 +677,42 @@ class Dealer(_Client):
         try:
             self._sock.sendall(_frame(payload))
         except TimeoutError:
-            raise TimeoutError(f"send to the inference server timed out after {timeout}s") from None
+            raise TimeoutError(f"send to {self._address or 'the inference server'} timed out after {timeout}s") from None
         except (BrokenPipeError, ConnectionResetError):
             self._gone = True
 
     def poll(self, timeout_ms: float) -> bool:
-        """True once a message is waiting, or False after ``timeout_ms``."""
+        """True once a message is waiting, or False after ``timeout_ms``
+        (``poll(0)`` reads what has already arrived, without waiting)."""
         deadline = time.monotonic() + max(0.0, timeout_ms) / 1e3
         while not self._frames.frames:
-            wait = deadline - time.monotonic()
-            if wait <= 0:
-                return False
-            self._receive(wait)
-        return True
+            if self._reconnect and not self._try_connect():
+                wait = deadline - time.monotonic()
+                if wait <= 0:
+                    return False
+                time.sleep(min(_RECONNECT_S, wait))
+                continue
+            self._receive(max(0.0, deadline - time.monotonic()))
+            if time.monotonic() >= deadline:
+                break
+        return bool(self._frames.frames)
 
     def recv(self) -> bytes:
         """The oldest waiting message; ``Again`` if none (poll first)."""
         if not self._frames.frames:
             raise Again
         return self._frames.frames.popleft()
+
+    def refresh(self) -> None:
+        """Read what has arrived, without waiting, whatever is already
+        waiting (so a server that closed the connection is noticed), and
+        for a reconnecting Dealer make the new connection now."""
+        for _ in range(64):  # bounded: a peer that keeps sending cannot hold the caller
+            if self._sock is None or self._gone or not self._sel.select(0):
+                break
+            self._receive(0.0)
+        if self._reconnect:
+            self._try_connect()
 
 
 class Push(_Client):

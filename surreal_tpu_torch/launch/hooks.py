@@ -20,7 +20,9 @@ both, so a publish stays one sync. Its ``param/*`` gauges ride the
 metrics row.
 
 The serving tier (a SEED fleet) records one ``serving_tier`` event a
-metrics row through :meth:`SessionHooks.serving_event`.
+metrics row through :meth:`SessionHooks.serving_event`, and the
+experience plane one ``experience_plane`` event through
+:meth:`SessionHooks.experience_event`.
 
 Restore: ``checkpoint.auto_resume`` (on by default) resumes from the
 session's own newest finite checkpoint; ``checkpoint.restore_from`` names
@@ -445,6 +447,14 @@ class SessionHooks:
         ``data_plane`` telemetry event."""
         self.log.info("data plane: %s", " ".join(f"{k}={v}" for k, v in sorted(info.items())))
         self.tracer.event("data_plane", **info)
+
+    def experience_event(self, **info) -> None:
+        """Record the experience plane's settled shape (shard transports,
+        per-shard fill and ingest, wire bytes a step, sample wait) as one
+        ``experience_plane`` telemetry event a metrics row; ``diag``'s
+        "Experience plane" section renders the last one. (The reference
+        also pushes it to the ops plane, which the port does not have.)"""
+        self.tracer.event("experience_plane", **info)
 
     def serving_event(self, **info) -> None:
         """Record the serving tier's per-replica snapshot (liveness,

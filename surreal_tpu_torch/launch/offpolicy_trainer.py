@@ -44,13 +44,30 @@ updates behind). The warm-up actions, the OU normals (kept on the host,
 as the reference keeps the noise) and the per-update sample draws each
 have an explicit input for the parity tests.
 
-Not ported yet: the remote experience plane (``replay.kind='remote'``),
-the dp mesh and the autotuner.
+Remote mode (``replay.kind='remote'`` on a host env;
+``_run_host_remote``, the twin of the reference's): the replay lives in
+the shard servers of the sharded experience plane (``experience/``).
+The collector folds each chunk on the card as the host path does, copies
+the folded rows to the host once, and the ExperienceSender hash-routes
+them to the shards; the learner trains on the batches the ShardedSampler
+prefetched during the previous iteration's drain (one chunk of sampling
+staleness), and prioritized runs send their priorities back as one PRIO
+frame per shard per iteration. ``replay.remote_kind`` picks uniform or
+prioritized shards; ``replay.tiers.hot.enabled`` (uniform only) puts the
+device hot tier (``replay/tiers.py``) in front of the shards, fed with
+the fold's rows on the card and drawn through the replay gather kernel.
+With ``overlap_rollouts=false`` the training record is the same from run
+to run (the shards defer each sample to its watermark).
+
+Not ported yet: the disk spill tier (``replay.tiers.spill``), the
+learner group (``topology.learner_group``), the dp mesh and the
+autotuner.
 """
 
 from __future__ import annotations
 
 import functools
+import queue
 from collections import deque
 from typing import Any, Callable, NamedTuple
 
@@ -61,6 +78,7 @@ from surreal_tpu_torch.engine import (
     EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, overlap_collect, sideband_stages,
 )
 from surreal_tpu_torch.envs import is_jax_env, make_env
+from surreal_tpu_torch.experience.plane import refuse_spill
 from surreal_tpu_torch.launch.hooks import HOST_METRICS_WINDOW, SessionHooks, host_metrics, training_env_config
 from surreal_tpu_torch.launch.rollout import successor_and_termination
 from surreal_tpu_torch.launch.trainer import derive_seed
@@ -111,6 +129,31 @@ def _step_slice(draws: torch.Tensor | None, t: int) -> torch.Tensor | None:
     return None if draws is None else draws[t]
 
 
+def _tiers_config(replay_cfg) -> dict | None:
+    """``replay.tiers`` as a plain dict (None when absent)."""
+    tiers = replay_cfg.get("tiers", None)
+    if tiers is None:
+        return None
+    return tiers.to_dict() if hasattr(tiers, "to_dict") else dict(tiers)
+
+
+def host_rows(trans: dict, example: dict) -> dict[str, np.ndarray]:
+    """The folded rows on the host in ONE device->host copy, each leaf cast
+    on its device to its replay dtype (``example``'s); a bfloat16 leaf
+    arrives as its 16-bit words (uint16), as ``experience/wire.py`` moves
+    it."""
+    n = next(iter(trans.values())).shape[0]
+    leaves = {k: trans[k].to(example[k].dtype).contiguous().reshape(n, -1) for k in example}
+    flat = torch.cat([x.view(torch.uint8) for x in leaves.values()], dim=1).cpu().numpy()
+    out, off = {}, 0
+    for k, x in leaves.items():
+        dtype = np.dtype(np.uint16) if x.dtype == torch.bfloat16 else np.dtype(str(x.dtype).removeprefix("torch."))
+        width = x.shape[1] * dtype.itemsize
+        out[k] = flat[:, off:off + width].copy().view(dtype).reshape(n, *example[k].shape)
+        off += width
+    return out
+
+
 class OffPolicyTrainer:
     """DDPG trainer with device replay on one device; ``device`` defaults to
     the card and raises without it."""
@@ -123,27 +166,41 @@ class OffPolicyTrainer:
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
         algo = self.learner.config.algo
         self.algo = algo
-        if self.learner.config.replay.kind == "remote":
-            if self.device_mode:
-                raise ValueError(
-                    "replay.kind='remote' (the sharded experience plane) runs "
-                    "the host off-policy path; device (jax:*) envs keep "
-                    "in-process device-resident replay — use a host env, or "
-                    "replay.kind='uniform'|'prioritized'"
-                )
-            raise NotImplementedError(
-                "replay.kind='remote': the sharded experience plane is not ported to PyTorch yet"
+        replay_cfg = self.learner.config.replay
+        # remote experience plane (experience/): the replay lives in shard
+        # servers, so there is no in-process replay object; host path only,
+        # since the device path's replay IS device memory
+        self.remote = replay_cfg.kind == "remote"
+        if self.remote and self.device_mode:
+            raise ValueError(
+                "replay.kind='remote' (the sharded experience plane) runs "
+                "the host off-policy path; device (jax:*) envs keep "
+                "in-process device-resident replay — use a host env, or "
+                "replay.kind='uniform'|'prioritized'"
             )
+        if replay_cfg.kind == "fifo":
+            raise ValueError(
+                "replay.kind='fifo' is the on-policy trajectory queue; DDPG samples transitions: use "
+                "replay.kind='uniform'|'prioritized'|'remote'"
+            )
+        if self.remote:
+            refuse_spill(_tiers_config(replay_cfg))
+            if config.session_config.topology.get("learner_group", None) is not None:
+                raise NotImplementedError(
+                    "session_config.topology.learner_group: the learner group is not ported to PyTorch yet"
+                )
         # the rollout and update scans' unrolls in the JAX package: accepted,
         # nothing to unroll in the port's loops (learners/base.py)
         check_scan_unroll(algo, "rollout_unroll")
         check_scan_unroll(algo, "update_unroll")
         # replay_gather is injected into the replay build config so the
         # replay layer stays algo-agnostic (both values reach the kernel)
-        self.replay = build_replay(
-            Config(gather_impl=algo.get("replay_gather", "xla")).extend(self.learner.config.replay)
+        self.replay = None if self.remote else build_replay(
+            Config(gather_impl=algo.get("replay_gather", "xla")).extend(replay_cfg)
         )
-        self.prioritized = self.learner.config.replay.kind == "prioritized"
+        self.prioritized = replay_cfg.kind == "prioritized" or (
+            self.remote and replay_cfg.get("remote_kind", "uniform") == "prioritized"
+        )
         self._batched_sampling = (
             not self.prioritized
             and bool(algo.get("batched_uniform_sampling", True))
@@ -372,7 +429,8 @@ class OffPolicyTrainer:
             state, iteration, env_steps = hooks.restore(state)
             hooks.begin_run(iteration, env_steps)
             if not self.device_mode:
-                return self._run_host(total, on_metrics, hooks, state, iteration, env_steps)
+                run_host = self._run_host_remote if self.remote else self._run_host
+                return run_host(total, on_metrics, hooks, state, iteration, env_steps)
             generator = torch.Generator(device=self.device).manual_seed(self.seed)
             carry, replay_state = self.init_loop_state(generator)
             include_replay = bool(cfg.checkpoint.get("include_replay", False)) and hooks.ckpt is not None
@@ -550,12 +608,12 @@ class OffPolicyTrainer:
             "terminated": torch.ones((n - 1, B), dtype=torch.bool, device=dev),
         }
 
-    def _fold_insert(self, state, replay_state, tail, traj: dict, first: bool):
-        """Fold a [H, B] trajectory into n-step transitions behind the
-        previous chunk's ``tail`` (so the n-1 steps at every chunk boundary
-        still become window starts; the run's first chunk has its fake
-        windows scrubbed), insert them, and fold the fresh obs into the
-        obs filter once. Returns (state, replay_state, the new tail)."""
+    def _fold(self, tail, traj: dict, first: bool):
+        """Fold a [H, B] trajectory on its device into n-step transitions
+        behind the previous chunk's ``tail`` (so the n-1 steps at every
+        chunk boundary still become window starts; the run's first chunk
+        has its fake windows scrubbed). Returns (flat [H * B] transitions,
+        the new tail); row ``s * B + b`` is env slot ``b``'s."""
         n = self.algo.n_step
         chunk = {k: traj[k] for k in TRANS_KEYS}
         full = chunk
@@ -565,8 +623,15 @@ class OffPolicyTrainer:
         trans = nstep_transitions(full, self.algo.gamma, n)
         if tail is not None and first:
             trans = scrub_fake_prefix_windows(trans, n, chunk["reward"].shape[1])
+        return trans, tail
+
+    def _fold_insert(self, state, replay_state, tail, traj: dict, first: bool):
+        """``_fold``, the insert of its transitions, and the fresh obs
+        folded into the obs filter once. Returns (state, replay_state, the
+        new tail)."""
+        trans, tail = self._fold(tail, traj, first)
         replay_state = self.replay.insert(replay_state, trans)
-        state = self.learner.update_obs_stats(state, chunk["obs"])
+        state = self.learner.update_obs_stats(state, traj["obs"])
         return state, replay_state, tail
 
     def _host_update(
@@ -720,6 +785,210 @@ class OffPolicyTrainer:
         finally:
             if prefetch is not None:
                 prefetch.close()
+
+    # -- remote experience plane (host path) ---------------------------------
+    def _run_host_remote(self, total, on_metrics, hooks, state, iteration, env_steps):
+        """Host loop over the sharded experience plane: the collector (the
+        staging thread under ``overlap_rollouts``) folds each chunk on the
+        card, copies the rows to the host once and hash-routes them to the
+        shard servers through the ExperienceSender; the learner consumes
+        batches the ShardedSampler prefetched from ALL shards during the
+        PREVIOUS iteration's updates (the residue is the
+        ``experience/sample_wait_ms`` gauge).
+
+        Pipeline: iteration k requests its batches (watermarked at chunk
+        k's per-shard row counts) and trains on the batches requested at
+        iteration k-1, one chunk of bounded sampling staleness. Under
+        ``overlap_rollouts=false`` the record is the same from run to run
+        (the shards defer each sample to its watermark)."""
+        from surreal_tpu_torch.experience import ExperiencePlane, TieredSampler
+
+        cfg = self.config.session_config
+        replay_cfg = self.learner.config.replay
+        tiers_cfg = _tiers_config(replay_cfg)
+        if cfg.checkpoint.get("include_replay", False):
+            hooks.log.warning(
+                "checkpoint.include_replay is not supported with replay.kind='remote' (the buffer lives in the "
+                "shard servers); resumes refill through warmup"
+            )
+        explo = self.algo.exploration
+        B, steps_per_iter = self.num_envs, self.steps_per_iter
+        example = self._replay_example()
+        plane = ExperiencePlane(
+            kind="prioritized" if self.prioritized else "uniform",
+            example=example,
+            capacity=int(replay_cfg.capacity),
+            batch_size=int(replay_cfg.batch_size),
+            updates_per_iter=int(self.algo.updates_per_iter),
+            num_slots=B,
+            # the most rows one chunk routes to ONE shard: every folded
+            # window (the tail prepend keeps the window count at horizon)
+            max_insert_rows=self.horizon * B,
+            priority_alpha=float(replay_cfg.priority_alpha),
+            priority_beta0=float(replay_cfg.priority_beta0),
+            priority_eps=float(replay_cfg.priority_eps),
+            cfg=cfg.topology.get("experience_plane", None),
+            base_seed=derive_seed(self.seed, 2),
+            trace_id=hooks.trace_id,
+            device=self.device,
+            tiers=tiers_cfg,
+        )
+        tiered = None
+        hot_cfg = dict((tiers_cfg or {}).get("hot") or {})
+        if hot_cfg.get("enabled"):
+            if self.prioritized:
+                hooks.log.warning("replay.tiers.hot ignored: it requires uniform replay")
+            else:
+                from surreal_tpu_torch.replay.tiers import HotTier
+
+                hot = HotTier(
+                    capacity=int(hot_cfg.get("capacity", replay_cfg.capacity)),
+                    batch_size=int(replay_cfg.batch_size),
+                    gather_impl=hot_cfg.get("gather_impl"),
+                    min_fill=hot_cfg.get("min_fill"),
+                    # storage in the replay's staging dtypes: a hot sample
+                    # has a warm fan-in batch's dtypes
+                    example=example,
+                )
+                tiered = TieredSampler(plane.sampler, hot)
+                plane.attach_tiers(tiered)
+        sampler = plane.sampler
+        recent_returns: deque = deque(maxlen=HOST_METRICS_WINDOW)
+        overlap = overlap_collect(cfg)
+        roll = self.host_roll_state(self.env.reset(seed=self.config.env_config.seed), self.seed,
+                                    self.learner.acting_copy() if overlap else None)
+        fold = {"tail": self._fake_tail(), "first": True}
+        act_holder = [state]
+        steps_holder = [env_steps]
+        row_slots = np.arange(self.horizon * B, dtype=np.int64) % B  # flat fold row s*B+b is env slot b's
+        learn = functools.partial(hooks.count_program, "learn", self.learner.learn, phase="learn")
+
+        def collect_and_send():
+            """One exploration chunk: rollout, its copy to the card, the
+            n-step fold there, one copy of the rows to the host, the
+            hash-routed send, and the hot tier's append of the card rows.
+            Returns (per-shard watermarks after this chunk, the chunk's obs
+            on the card, the finished episodes' returns)."""
+            traj, chunk_returns = self._explore_rollout(
+                roll, act_holder[0], steps_holder[0] < explo.warmup_steps, tracer=hooks.tracer,
+            )
+            with hooks.tracer.span("h2d-transfer"):
+                chunk = to_device({k: traj[k] for k in TRANS_KEYS}, self.device)
+            trans, fold["tail"] = self._fold(fold["tail"], chunk, fold["first"])
+            fold["first"] = False
+            with hooks.tracer.span("experience-send"):
+                wm = plane.sender.send_rows(host_rows(trans, example), row_slots)
+            if tiered is not None:
+                tiered.append(trans)
+            return wm, chunk["obs"], chunk_returns
+
+        prefetch = Prefetcher(collect_and_send, name="offpolicy-xp-stage") if overlap else None
+        pending_jobs = [0]
+
+        def wait_supervised(prefetcher):
+            """The staged chunk, with the shards supervised while the staging
+            thread's sends wait on a dead one."""
+            while True:
+                try:
+                    return prefetcher.get(timeout=0.25)
+                except queue.Empty:
+                    plane.supervise()
+
+        stages = (
+            StageSpec("collect", donate=False, overlap=overlap),
+            StageSpec("stage", donate=False, overlap=overlap),
+            StageSpec("learn", donate=False),
+        ) + sideband_stages()
+        ls = LoopState(
+            state=state, key=torch.Generator(device=self.device).manual_seed(self.seed),
+            iteration=iteration, env_steps=env_steps, extras={"nonce": 0},
+        )
+
+        def step(ls):
+            # consume the batches prefetched during the PREVIOUS iteration;
+            # in strict mode this runs before the next chunk is sent, so the
+            # shard serves every sample at the ring state its watermark names
+            staged = None
+            if pending_jobs[0]:
+                with hooks.tracer.span("sample-wait"):
+                    # a shard that died is respawned while the learner waits
+                    staged = sampler.get_iteration(on_wait=plane.supervise)
+                pending_jobs[0] -= 1
+            if prefetch is not None:
+                with hooks.tracer.span("chunk-wait"):
+                    wm, obs_chunk, ep_returns = wait_supervised(prefetch)
+            else:
+                wm, obs_chunk, ep_returns = collect_and_send()
+            recent_returns.extend(ep_returns)
+            ls.state = self.learner.update_obs_stats(ls.state, obs_chunk)
+            if sum(wm) >= int(replay_cfg.start_sample_size):
+                sampler.request_iteration(wm, self._beta(ls.env_steps, total))
+                pending_jobs[0] += 1
+            metrics: dict = {}
+            if staged:
+                infos, tds = [], []
+                for batch, _seed, info in staged:
+                    with hooks.tracer.span("learn"):
+                        ls.state, metrics = learn(ls.state, batch)
+                    infos.append(info)
+                    tds.append(metrics.pop("priority/td_abs"))
+                if self.prioritized:
+                    # ONE batched priority frame per shard per iteration,
+                    # after one read of every update's |td|
+                    sampler.update_priorities(infos, torch.stack(tds).cpu().numpy())
+            plane.supervise()
+            act_holder[0] = ls.state
+            steps_holder[0] = ls.env_steps + steps_per_iter
+            base = host_metrics(metrics, recent_returns)
+
+            def build_metrics():
+                # plane.gauges() polls the shards' stats over the wire: run
+                # only when the metrics cadence fires
+                return dict(base(), **plane.gauges())
+
+            return Outcome(
+                metrics=build_metrics, steps=steps_per_iter,
+                hook_key=derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1),
+                post_metrics=lambda m_row: hooks.experience_event(**plane.telemetry_event()),
+            )
+
+        def apply_fault(ls, f):
+            ls.state = faults.apply_trainer_fault(f, ls.state)
+            act_holder[0] = ls.state
+
+        def on_rollback(ls):
+            rb = hooks.recovery.rollback(ls.state, fresh=self._fresh_init)
+            ls.state, ls.iteration, ls.env_steps = rb.state, rb.iteration, rb.env_steps
+            # shard contents are data, kept; the restored state re-arms
+            # acting and the generator chain re-seeds
+            act_holder[0] = ls.state
+            steps_holder[0] = ls.env_steps
+            ls.extras["nonce"] = rb.nonce
+            ls.key = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, rb.nonce))
+
+        try:
+            engine = LoopEngine(
+                hooks, total, step, stages, EngineConfig.from_session(cfg),
+                on_metrics=on_metrics, apply_fault=apply_fault, on_rollback=on_rollback,
+            )
+            ls = engine.run(ls)
+            hooks.final_checkpoint(ls.iteration, ls.env_steps, ls.state)
+            return ls.state, hooks.last_metrics
+        finally:
+            # the exactly-once accounting before the plane stops; it is
+            # quiesced only when the sends ran on this thread (a staging
+            # thread may still be inside send_rows)
+            try:
+                hooks.tracer.event("experience_close", quiesced=float(prefetch is None), **plane.accounting())
+            except Exception:
+                hooks.log.warning("experience_close accounting failed", exc_info=True)
+            # unblock any bounded sender or sampler wait on the staging
+            # thread FIRST, so its join succeeds before plane.close() closes
+            # the sockets that thread uses
+            plane._stop.set()
+            if prefetch is not None:
+                prefetch.close()
+            plane.close()
 
     def _fresh_init(self, nonce: int):
         """The divergence guard's fallback when no finite checkpoint exists."""

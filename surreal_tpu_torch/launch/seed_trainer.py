@@ -39,9 +39,16 @@ the ``lineage/*`` gauges under the reference's names; with a fleet, its
 supervision beside the workers', one autoscale decision and one
 ``serving_tier`` event a metrics row, and the ``fleet/*`` gauges in it.
 
+The experience plane's chunk relay (``topology.experience_plane.enabled``):
+a relay thread ships every chunk the server assembles through the
+ExperienceSender into the shards' FIFO arm (``experience/``), and the
+staging thread pops chunks from the shards instead of the server's queue
+(locally a loop-through; across hosts the seam between an actor fleet
+and the learner). The relay thread's death is raised on the main thread,
+and the ``experience/*`` gauges ride the metrics row.
+
 Not carried, and refused with ``NotImplementedError`` naming the key: the
-session gateway (``topology.gateway.enabled``), the experience plane
-(``topology.experience_plane.enabled``), a dp mesh
+session gateway (``topology.gateway.enabled``), a dp mesh
 (``topology.mesh.dp > 1``) and the learner group
 (``topology.learner_group``). DDPG and the trajectory encoder are refused
 with the reference's messages.
@@ -103,9 +110,6 @@ def _check_topology(topo) -> None:
     gateway = topo.get("gateway", None)
     if gateway is not None and bool(gateway.get("enabled", False)):
         refuse("gateway.enabled", "the session gateway")
-    xp = topo.get("experience_plane", None)
-    if xp is not None and bool(xp.get("enabled", False)):
-        refuse("experience_plane.enabled", "the experience plane")
     mesh = topo.get("mesh", None)
     if mesh is not None and int(mesh.get("dp", -1)) > 1:
         refuse("mesh.dp", "a data-parallel SEED learner")
@@ -304,6 +308,9 @@ class SEEDTrainer:
             raise ValueError(f"topology.transport {transport!r} not in auto|shm|pickle")
         self.worker_transport = "pickle" if transport == "auto" and worker_mode == "thread" else transport
         self.worker_silence_s = float(topo.get("worker_silence_s", 120.0))
+        # the experience plane's FIFO chunk relay (see the module docstring)
+        xp = topo.get("experience_plane", None)
+        self.experience_plane_enabled = bool(xp.get("enabled", False)) if xp is not None else False
         # worker indices whose first process spawn already carried the
         # fault plan (see _spawn_one)
         self._fault_plan_sent: set[int] = set()
@@ -482,6 +489,8 @@ class SEEDTrainer:
         hooks = SessionHooks(self.config, self.learner)
         plane = None
         prefetch = None
+        xplane = None
+        relay_thread = None
         stop = threading.Event()
         try:
             state, iteration, env_steps = hooks.restore(state)
@@ -504,7 +513,10 @@ class SEEDTrainer:
             plane = self._start_data_plane(slots.at(state), stop, first_chunk_timeout=600.0)
             server = self._server = plane.server
             self._workers = plane.workers  # exposed for tests and fault injection
-            prefetch = Prefetcher(lambda: self._stage(plane.next_chunk(), hooks.tracer), name="seed-stage")
+            next_chunk = plane.next_chunk
+            if self.experience_plane_enabled:
+                xplane, relay_thread, next_chunk = self._start_relay(plane, stop, hooks)
+            prefetch = Prefetcher(lambda: self._stage(next_chunk(), hooks.tracer), name="seed-stage")
 
             dropped_stale = 0
             discarded_steps = 0
@@ -585,6 +597,9 @@ class SEEDTrainer:
                     **(lineage_reducer.reduce(server.version, versions) if self._lineage else {}),
                     **(hooks.tracer.trace_gauges() if self._trace_sample_n > 0 else {}),
                     **data_plane_extras(),
+                    # the relay's gauges as of the last cadence (the wire
+                    # poll runs in post_metrics, not every iteration)
+                    **(xplane.gauges(poll=False) if xplane is not None else {}),
                 )
 
                 def post_metrics(m_row):
@@ -597,6 +612,9 @@ class SEEDTrainer:
                         # snapshot
                         server.maybe_autoscale()
                         hooks.serving_event(**server.tier_event())
+                    if xplane is not None:
+                        xplane._poll_stats()
+                        hooks.experience_event(**xplane.telemetry_event())
 
                 return Outcome(
                     metrics=metrics, hook_key=derive_seed(self.seed, ls.extras["nonce"], ls.iteration + 1),
@@ -639,9 +657,86 @@ class SEEDTrainer:
             stop.set()
             if prefetch is not None:
                 prefetch.close()
+            if xplane is not None:
+                self._close_relay(xplane, relay_thread, hooks)
             if plane is not None:
                 plane.close()
             hooks.close()
+
+    def _start_relay(self, plane: _DataPlane, stop, hooks):
+        """The experience plane's FIFO arm and its relay thread, which ships
+        every chunk the server assembles through the ExperienceSender.
+        Returns (the plane, the thread, the staging thread's chunk source:
+        a pop from the shards that supervises both planes while it waits,
+        as ``_DataPlane.next_chunk`` does, and raises the relay's death)."""
+        from surreal_tpu_torch.experience import ExperiencePlane
+
+        xplane = ExperiencePlane(
+            kind="fifo", cfg=self.config.session_config.topology.get("experience_plane", None),
+            trace_id=hooks.trace_id,
+        )
+        server = plane.server
+        relay_error: list[Exception] = []
+
+        def relay_chunks():
+            while not stop.is_set():
+                try:
+                    chunk = server.chunks.get(timeout=0.5)
+                except queue.Empty:
+                    continue
+                chunk = dict(chunk)
+                chunk.pop("_t_ready", None)
+                # chunk metadata, not a wire column: an adopted exemplar
+                # ends its tree at the relay hop (the lineage columns still
+                # cross the wire as spec fields)
+                ex = chunk.pop("_exemplar", None)
+                if ex is not None and self._span_sink is not None:
+                    self._span_sink.emit_span(
+                        "xplane.relay",
+                        TraceContext(ex["exemplar"], self._span_sink.next_span_id(), ex["parent"]),
+                        tier="experience",
+                    )
+                try:
+                    xplane.sender.send_chunk(chunk)
+                except Exception as e:  # raised on the main thread by the pop below
+                    relay_error.append(e)
+                    return
+
+        relay_thread = threading.Thread(target=relay_chunks, daemon=True, name="xp-relay")
+        relay_thread.start()
+
+        def next_chunk() -> dict:
+            deadline = time.monotonic() + plane._timeout
+            plane._timeout = plane.steady_timeout
+            while True:
+                if stop.is_set():
+                    raise TimeoutError("data plane stopped") from None
+                if relay_error:
+                    raise RuntimeError("experience-plane relay thread died") from relay_error[0]
+                got = xplane.sampler.pop_chunk(timeout_s=2.0)
+                if got is not None:
+                    return got[0]
+                plane.supervise()
+                xplane.supervise()
+                if time.monotonic() >= deadline:
+                    raise TimeoutError("no experience chunks arriving through the experience plane") from None
+
+        return xplane, relay_thread, next_chunk
+
+    def _close_relay(self, xplane, relay_thread, hooks) -> None:
+        """Quiesce the relay (the run's stop is set) so the close
+        accounting reads a settled ledger, record it (``quiesced`` says
+        whether the relay had stopped), then stop and close the plane."""
+        relay_thread.join(timeout=5)
+        try:
+            hooks.tracer.event("experience_close", quiesced=float(not relay_thread.is_alive()), **xplane.accounting())
+        except Exception:
+            hooks.log.warning("experience_close accounting failed", exc_info=True)
+        # unblock a relay wedged in a bounded sender wait, and JOIN before
+        # close() touches the sockets it uses
+        xplane._stop.set()
+        relay_thread.join(timeout=5)
+        xplane.close()
 
     def _fresh_init(self, nonce: int):
         """The divergence guard's fallback when no finite checkpoint exists:

@@ -71,11 +71,12 @@ class Prefetcher:
             if item[0] is not None:
                 return
 
-    def get(self) -> Any:
-        """Next staged item (blocks until one is ready). Re-raises the
+    def get(self, timeout: float | None = None) -> Any:
+        """Next staged item (blocks until one is ready, or raises
+        ``queue.Empty`` after ``timeout`` seconds). Re-raises the
         producer's exception if it died — the prefetcher is unusable
         after that (close() and handle the error)."""
-        exc, val = self._q.get()
+        exc, val = self._q.get(timeout=timeout)
         if exc is not None:
             raise exc
         return val

@@ -8,9 +8,9 @@ from __future__ import annotations
 
 
 def build_replay(replay_config):
-    """Dispatch on ``replay.kind``: 'uniform' and 'prioritized' are ported;
-    'fifo' raises until a later slice; 'remote' raises as in the reference
-    (the sharded experience plane has no in-process replay object)."""
+    """Dispatch on ``replay.kind``: 'fifo', 'uniform' and 'prioritized'
+    build their replay; 'remote' raises as in the reference (the sharded
+    experience plane, ``experience/``, has no in-process replay object)."""
     kind = replay_config.kind
     if kind == "uniform":
         from surreal_tpu_torch.replay.uniform import UniformReplay
@@ -21,7 +21,9 @@ def build_replay(replay_config):
 
         return PrioritizedReplay(replay_config)
     if kind == "fifo":
-        raise NotImplementedError("replay.kind='fifo' is not ported to PyTorch yet; have uniform | prioritized")
+        from surreal_tpu_torch.replay.fifo import FIFOReplay
+
+        return FIFOReplay(replay_config)
     if kind == "remote":
         raise ValueError(
             "replay.kind='remote' is the sharded experience plane; the trainer "

@@ -20,12 +20,14 @@ Events are one JSON object per line with ``type``, ``t`` (unix seconds),
 ``trace`` (the run's trace id) and ``seq``. The types the port writes:
 ``session``, ``phases``, ``span``, ``metrics``, ``precision``,
 ``recovery``, ``fault``, ``engine``, ``data_plane`` and ``hops`` (the
-SEED trainer), ``program_cost`` (``session/costs.py``), ``profile``
+SEED trainer), ``serving_tier`` (the inference fleet),
+``experience_plane`` and ``experience_close`` (the experience plane),
+``program_cost`` (``session/costs.py``), ``profile``
 (``session/profile.py``) and ``unported`` (the subsystems a session's
 config turns on that the port does not have; see ``launch/hooks.py``).
 The readers also render the reference's event types the port does not
-write yet (serving tier, experience plane, gateway, tune, compile
-cache): a section whose events are absent renders nothing.
+write yet (gateway, tune, compile cache): a section whose events are
+absent renders nothing.
 
 Causal spans (the SEED path): the inference server head-samples 1 in
 ``telemetry.trace.sample_n`` worker steps (:func:`head_sampled`), emits a
@@ -34,8 +36,8 @@ and the learn that consumes the chunk closes the tree. The reference's
 ``trace.emit`` fault site is not ported.
 
 Not ported yet: the flight recorder's exemplar ring, the incident brief
-at the end of the reference's ``diag`` report (the watchdog is Queue 1
-item 7), and the ``top`` and ``why`` readers.
+at the end of the reference's ``diag`` report (the watchdog comes with
+the ops plane), and the ``top`` and ``why`` readers.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Deterministic fault injection for the trainer, SEED data-plane,
-serving-tier and parameter-service sites, the port of ``surreal_tpu/utils/faults.py``'s registry
+serving-tier, parameter-service and experience-plane sites, the port of ``surreal_tpu/utils/faults.py``'s registry
 (``FaultInjector``, ``configure_from``, ``fire``, ``drain_fired``,
 ``sleep_ms``, ``corrupt_array``, ``FaultInjected``, ``poison_state``,
 ``apply_trainer_fault``).
@@ -38,12 +38,23 @@ port has:
                         ``delay_publish``: sleep ``ms``; ``drop_frame``:
                         swallow the frame on the wire (the stale acks
                         re-key the next publish with a full frame)
+    experience.shard    once per replay-shard server loop pass
+                        ``kill_shard``: raise FaultInjected (the shard
+                        dies; the plane respawns it at the same address);
+                        ``delay``: sleep ``ms``
+    experience.sample   once per sample or pop a shard serves
+                        ``delay_sample``: sleep ``ms`` before serving
+    experience.send     once per ExperienceSender wire frame
+                        ``corrupt_wire_frame``: scramble the frame (the
+                        shard counts and drops it, the sender resends);
+                        ``drop_frame``: swallow it; ``delay_frame``
 
 The reference's other sites belong to subsystems the port does not have
-yet (the experience plane, the gateway, the ops plane, causal-span
-emission, the learner group): a plan entry for one of them raises
-``NotImplementedError`` naming the site. A spawned env worker starts
-with an empty registry; the SEED trainer forwards the plan to it. ``session_config.faults.plan`` (a list, or a JSON
+yet (the spill tier, the gateway, the ops plane, causal-span emission,
+the learner group): a plan entry for one of them raises
+``NotImplementedError`` naming the site. A spawned env worker or
+experience shard starts with an empty registry; its trainer or plane
+forwards the plan to it. ``session_config.faults.plan`` (a list, or a JSON
 string for ``--set``) configures the registry at run start, which also
 resets it. ``SessionHooks`` drains the record of fired faults into
 ``fault`` telemetry events.
@@ -71,12 +82,14 @@ SITE_KINDS: dict[str, frozenset[str]] = {
     "param_service.reply": frozenset({"delay_reply"}),
     "fleet.replica": frozenset({"kill_replica", "delay"}),
     "param.publish": frozenset({"delay_publish", "drop_frame"}),
+    "experience.shard": frozenset({"kill_shard", "delay"}),
+    "experience.sample": frozenset({"delay_sample"}),
+    "experience.send": frozenset({"corrupt_wire_frame", "drop_frame", "delay_frame"}),
 }
 SITES = frozenset(SITE_KINDS)
 # the reference's sites on paths the port does not have yet
 UNPORTED_SITES = frozenset({
-    "experience.shard", "experience.sample", "experience.send", "experience.spill", "gateway.session", "ops.push",
-    "trace.emit", "watchdog.eval", "lgroup.member",
+    "experience.spill", "gateway.session", "ops.push", "trace.emit", "watchdog.eval", "lgroup.member",
 })
 
 

@@ -109,7 +109,7 @@ UNPORTED_OPTIONS = {
     "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
     "session_config.topology.mesh": {"session_config": {"topology": {"mesh": {"dp": 2}}}},
     "session_config.topology.multihost": {"session_config": {"topology": {"multihost": {"coordinator": "h:1"}}}},
-    "experience.send": {"session_config": {"faults": {"plan": [{"site": "experience.send", "kind": "drop_frame"}]}}},
+    "experience.spill": {"session_config": {"faults": {"plan": [{"site": "experience.spill", "kind": "enospc"}]}}},
 }
 
 

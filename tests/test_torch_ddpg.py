@@ -236,7 +236,8 @@ def test_ddpg_learn_matches_jax(target):
 def test_ddpg_rejects_unported_options():
     """Options the port does not carry raise instead of being ignored."""
     jcfg, tcfg = _slice_configs("fifo")
-    with pytest.raises(NotImplementedError):
+    # the FIFO queue is ported, but holds trajectories, not transitions
+    with pytest.raises(ValueError, match="fifo"):
         OffPolicyTrainer(tcfg, device="cpu")
 
 

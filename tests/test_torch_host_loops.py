@@ -499,11 +499,13 @@ def test_host_paths_refuse_what_the_port_does_not_carry(tmp_path, monkeypatch, c
     device_seed.session_config.topology.num_env_workers = 2
     with pytest.raises(ValueError, match="needs a HOST env"):
         torch_launch.select_trainer(device_seed, "cpu")
-    with pytest.raises(NotImplementedError, match="experience plane"):
-        OffPolicyTrainer(cfg("ddpg", "gym:Pendulum-v1", replay=dict(kind="remote")), device="cpu")
+    # the remote experience plane runs on a host env (tests/test_torch_experience.py), with no
+    # in-process replay object; a device env keeps its device-resident replay
+    remote = OffPolicyTrainer(cfg("ddpg", "gym:Pendulum-v1", replay=dict(kind="remote")), device="cpu")
+    assert remote.remote and remote.replay is None
     with pytest.raises(ValueError, match="device-resident replay"):
         OffPolicyTrainer(cfg("ddpg", "jax:lift", replay=dict(kind="remote")), device="cpu")
-    with pytest.raises(NotImplementedError, match="fifo"):
+    with pytest.raises(ValueError, match="fifo"):
         OffPolicyTrainer(cfg("ddpg", "gym:Pendulum-v1", replay=dict(kind="fifo")), device="cpu")
     with pytest.raises(ValueError, match="device env"):
         Trainer(cfg(model=dict(encoder=dict(kind="trajectory"))), device="cpu")

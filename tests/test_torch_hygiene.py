@@ -1,7 +1,8 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX, of the JAX
-package, of zmq or of msgpack (its SEED and parameter wires are the
-standard library's sockets, and the parameter service's bytes are
-decoded without pickle), its
+package, of zmq or of msgpack (its SEED, parameter and experience wires
+are the standard library's sockets, the parameter service's bytes are
+decoded without pickle, and the experience plane imports pickle in its
+wire codec only), its
 entry points never fall back to the CPU on their own, and every gauge
 literal it emits is documented in its ``GAUGE_REGISTRY`` with a unit (the
 reference's lint, ``tests/test_import_hygiene.py``)."""
@@ -20,7 +21,7 @@ from surreal_tpu_torch.session.default_configs import base_config
 
 _PKG = pathlib.Path(surreal_tpu_torch.__file__).parent
 _REPO = _PKG.parent
-_BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "surreal_tpu", "zmq", "msgpack")
+_BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "surreal_tpu", "zmq", "msgpack", "ml_dtypes")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -57,11 +58,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     }
     perf = {"session/costs.py", "session/profile.py"}
     serving = {"distributed/fleet.py", "distributed/param_fanout.py", "utils/net.py"}
+    experience = {
+        "experience/__init__.py", "experience/wire.py", "experience/link.py", "experience/shard.py",
+        "experience/sender.py", "experience/sampler.py", "experience/plane.py", "replay/tiers.py",
+        "replay/fifo.py",
+    }
     publish = {
         "agents/__init__.py", "agents/base.py", "agents/ppo_agent.py", "agents/ddpg_agent.py",
         "distributed/param_service.py", "distributed/module_dict.py", "envs/video.py",
     }
-    wanted = session_runtime | trajectory | host | seed | perf | publish | serving
+    wanted = session_runtime | trajectory | host | seed | perf | publish | serving | experience
     assert wanted <= scanned, f"not scanned: {sorted(wanted - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
@@ -69,13 +75,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for line, root in _imported_roots(path)
         if root in _BANNED
     ]
-    assert not bad, "the port must not import JAX, the JAX package, zmq or msgpack:\n" + "\n".join(bad)
+    assert not bad, "the port must not import JAX, the JAX package, zmq, msgpack or ml_dtypes:\n" + "\n".join(bad)
     # nothing on the parameter wire unpickles: bytes from a socket are decoded by their header
     wire = ("distributed/sockets.py", "distributed/module_dict.py", "distributed/param_service.py",
             "distributed/param_fanout.py")
     unpickling = [f"{name}: import {root}" for name in wire for _, root in _imported_roots(_PKG / name)
                   if root in ("pickle", "cloudpickle", "dill", "marshal")]
     assert not unpickling, unpickling
+    # the experience plane's pickle fallback lives in its wire codec only
+    pickling = sorted(str(path.relative_to(_PKG)) for path in _PKG.rglob("*.py")
+                      if path.parent.name in ("experience", "replay")
+                      and any(root == "pickle" for _, root in _imported_roots(path)))
+    assert pickling == ["experience/wire.py"], pickling
 
 
 def _tiny_config():

@@ -444,8 +444,7 @@ def test_prioritized_sample_matches_jax_up_to_cdf_boundaries():
 def test_build_replay_kinds():
     assert type(build_replay(_replay_cfg("uniform")[1])).__name__ == "UniformReplay"
     assert type(build_replay(_replay_cfg("prioritized")[1])).__name__ == "PrioritizedReplay"
-    with pytest.raises(NotImplementedError):
-        build_replay(_replay_cfg("fifo")[1])
+    assert type(build_replay(_replay_cfg("fifo")[1])).__name__ == "FIFOReplay"
     with pytest.raises(ValueError, match="remote"):
         build_replay(_replay_cfg("remote")[1])
     with pytest.raises(ValueError, match="unknown"):

@@ -525,7 +525,6 @@ def test_seed_trainer_refuses_what_it_does_not_carry(tmp_path):
         SEEDTrainer(traj, device="cpu")
     for key, over in [
         ("gateway.enabled", dict(gateway=dict(enabled=True))),
-        ("experience_plane.enabled", dict(experience_plane=dict(enabled=True))),
         ("mesh.dp", dict(mesh=dict(dp=2))),
         ("learner_group", dict(learner_group=dict(members=2))),
     ]:
