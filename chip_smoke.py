@@ -27,7 +27,8 @@ publishing with the processes that consume it (``actor``, ``eval
 (SEED behind a replicated, autoscaled inference fleet; the versioned
 parameter fanout with a subscriber process), and the sharded experience
 plane (remote DDPG over shard servers, the device hot tier, SEED's chunk
-relay). Five kernels are built
+relay), the disk spill tier with replay from its log, and the session
+gateway with its load generator. Five kernels are built
 and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
@@ -256,7 +257,26 @@ and checked. Phases, each printing one JSON line:
              the end, no slab left, no shard with a CUDA context); SEED
              through the relay (``train impala gym:CartPole-v1`` and
              ``train ppo dm_control:cheetah-run``, 2 thread workers each;
-             V-trace or GAE once a learn).
+             V-trace or GAE once a learn);
+15. spill  - the disk spill tier (``replay.tiers.spill``) at the
+             experience phase's geometry with the hot tier on: one log a
+             shard under the session folder, the ``tier/spill_*`` gauges
+             equal to the segments, rows and bytes on disk; runs with an
+             ``experience.spill`` ``enospc`` plan (errors counted,
+             training on) and ``truncate_segment`` (the tear counted by
+             the reader); ``OffPolicyTrainer.replay_from_log`` twice over
+             the first log on the card (equal digests, the gather kernel
+             once per update, every gather of the second bit-equal to its
+             plain version);
+16. gateway - the session gateway (``topology.gateway.enabled``) in front
+             of 2 replicas of ``train impala gym:CartPole-v1`` with 2
+             thread workers: the tenant side reads ``gateway.json`` and
+             runs ``LoadGenerator(default_mix())`` for 10 s beside a
+             probe session; a ``gateway.session`` ``kill_replica`` 5 s in
+             (every session of the dead replica migrated, no tenant
+             thread died or timed out, the hostile frames counted, the
+             replica respawned); V-trace once a learn; the act round trip
+             p50/p99 server-side and on the probe, acts/s, cache hits.
 
 Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
@@ -4091,8 +4111,8 @@ def xp_run(M, RR, tag: str, replay: dict, gathers: int, iters: tuple[int, int] =
     planes = [e for e in events if e["type"] == "experience_plane"]
     closes = [e for e in events if e["type"] == "experience_close"]
     result = {
-        "phase": "experience", "path": tag, "env": "gym:Pendulum-v1", "env_source": (env_source or {}).get(
-            "gym:Pendulum-v1"), "replay": replay, "num_envs": XP_B, "horizon": XP_H, "updates_per_iter": XP_K,
+        "phase": "experience", "path": tag, "folder": cfg.session_config.folder, "env": "gym:Pendulum-v1",
+        "env_source": (env_source or {}).get("gym:Pendulum-v1"), "replay": replay, "num_envs": XP_B, "horizon": XP_H, "updates_per_iter": XP_K,
         "batch_size": XP_BS, "capacity": XP_CAPACITY, "iter_ms_median": timing["iter_ms_median"],
         "env_steps_per_s": timing["env_steps_per_s"], "iter_ms": timing["iter_ms"],
         "first_iter_ms": timing["first_iter_ms"], "peak_mem_gb": timing["peak_mem_gb"],
@@ -4321,6 +4341,304 @@ def phase_experience(M, RR, ops_gae, ops_vtrace, RS, env_source: dict) -> dict:
     }
 
 
+# -- the disk spill tier and replay from its log ----------------------------------
+
+SPILL_FAULT_ITERS = (1, 3)  # warm-up and timed iterations of each fault run
+
+
+def spill_on_disk(folder: str) -> dict:
+    """The spill log under ``folder``/spill as the port's reader sees it."""
+    from surreal_tpu_torch.experience.spill import SpillLog
+
+    d = os.path.join(folder, "spill")
+    log = SpillLog(d)
+    sizes = [n for _h, _rows, n in log.segments()]
+    return {"dir": d, "files": sorted(os.listdir(d)), "segments": len(sizes), "rows": sum(sizes), "sizes": sizes,
+            "bytes": sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)),
+            "torn_segments": log.torn_segments}
+
+
+def spill_gauges(run: dict) -> dict:
+    return {k: v for k, v in run["experience"].items() if k.startswith("tier/spill") or k == "tier/cold_bytes_per_row"}
+
+
+def replay_log(M, RR, trainer, log_dir: str, sizes: list[int], check: bool) -> dict:
+    """``trainer.replay_from_log(log_dir)`` on the card, fenced and timed,
+    the gather kernel launched once per update (the updates the log's
+    segment sizes give); with ``check``, every gather also held against
+    its plain version on the same ring and indices, exactly."""
+    import surreal_tpu_torch.replay.base as replay_base
+
+    cfg = trainer.learner.config.replay
+    size, updates = 0, 0
+    for n in sizes:
+        size = min(size + n, int(cfg.capacity))
+        updates += int(trainer.algo.updates_per_iter) if size >= int(cfg.start_sample_size) else 0
+    errs = []
+
+    def checking(gather):
+        def gather_rows(leaves, idx):
+            out = gather(leaves, idx)
+            plain = RR.gather_rows_plain(leaves, idx)
+            errs.append(max(float((out[k].double() - plain[k].double()).abs().max()) if out[k].numel() else 0.0
+                            for k in out))
+            return out
+        return gather_rows
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if check:
+        with Patched(replay_base, "gather_rows", checking):
+            out, launches = count_launches({"replay_gather": (RR.gather_rows, updates)},
+                                           lambda: trainer.replay_from_log(log_dir))
+    else:
+        out, launches = count_launches({"replay_gather": (RR.gather_rows, updates)},
+                                       lambda: trainer.replay_from_log(log_dir))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if out["updates"] != updates:
+        raise AssertionError(f"replay_from_log ran {out['updates']} updates, the log gives {updates}")
+    return {"updates": out["updates"], "rows": out["rows"], "segments": out["segments"],
+            "torn_segments": out["torn_segments"], "params_digest": out["params_digest"],
+            "gather_launches": launches["replay_gather"], "seconds": seconds, "ms_per_update": seconds * 1e3 / updates,
+            "checked_gathers": len(errs), "max_abs_err": max(errs) if errs else 0.0, "metrics": out["metrics"]}
+
+
+def phase_spill(M, RR, env_source: dict) -> dict:
+    """The disk spill tier on the card: remote DDPG at the experience
+    phase's geometry (fixture gym:Pendulum-v1, 8 envs x 32 steps, 8
+    updates of 256 from 100,000 rows over 2 thread shards, the hot tier
+    on, strict loop) with ``replay.tiers.spill`` on: one log a shard under
+    the session folder, the ``tier/spill_*`` gauges equal to the segments,
+    rows and bytes on disk, no error, no tear, the hot tier's gathers once
+    a hit; a run with an ``experience.spill`` ``enospc`` plan (3 appends
+    fail: counted, the log without them, training on) and one with
+    ``truncate_segment`` (the tear skipped and counted by the reader);
+    then ``OffPolicyTrainer.replay_from_log`` twice over the first run's
+    log on the card: equal digests, the gather kernel once per update, and
+    in the second every gather bit-equal to its plain version."""
+    iters = XP_WARMUP_ITERS + XP_TIMED_ITERS
+    uniform = dict(kind="remote", remote_kind="uniform")
+    hot = dict(enabled=True, capacity=XP_CAPACITY, min_fill=XP_HOT_MIN_FILL)
+    run = xp_run(M, RR, "spill_hot_pendulum", dict(uniform, tiers=dict(hot=hot, spill=dict(enabled=True))),
+                 XP_K * (iters - 1), env_source=env_source, overlap=False, transport="shm")
+    disk, g = spill_on_disk(run["folder"]), run["experience"]
+    checks = {
+        "files": disk["files"] == [f"shard{i}.log" for i in range(XP_SHARDS)],
+        "segments": g["tier/spill_segments"] == disk["segments"] > 0,
+        "rows": g["tier/spill_rows"] == disk["rows"] == g["experience/rows"],
+        "bytes": g["tier/spill_bytes"] == disk["bytes"],
+        "no_errors": g["tier/spill_errors"] == 0.0 and g["tier/spill_failed"] == 0.0,
+        "no_tear": disk["torn_segments"] == 0,
+        "hot_hits": g["tier/hot_hits"] == XP_K * (iters - 1),
+    }
+    faulted = {}
+    for kind, at, times in (("enospc", 2, 3), ("truncate_segment", 3, 1)):
+        res = xp_run(M, RR, f"spill_{kind}", dict(uniform, tiers=dict(spill=dict(enabled=True))), 0,
+                     iters=SPILL_FAULT_ITERS, env_source=env_source, overlap=False, transport="shm",
+                     plan=[{"site": "experience.spill", "kind": kind, "at": at, "times": times}])
+        fd, fg = spill_on_disk(res["folder"]), res["experience"]
+        faulted[kind] = {"gauges": spill_gauges(res), "disk": {k: v for k, v in fd.items() if k != "sizes"},
+                         "final": res["final"], "iter_ms_median": res["iter_ms_median"]}
+        checks[f"{kind}_trained"] = all(math.isfinite(v) for v in res["final"].values())
+        checks[f"{kind}_segments"] = fg["tier/spill_segments"] == fd["segments"] > 0
+        if kind == "enospc":
+            checks["enospc_counted"] = fg["tier/spill_errors"] == float(times) and fg["tier/spill_failed"] == 0.0
+            checks["enospc_rows_missing"] = fd["rows"] < fg["experience/rows"] and fd["torn_segments"] == 0
+        else:
+            checks["truncate_torn_counted"] = fd["torn_segments"] >= 1 and fg["tier/spill_errors"] == 0.0
+    trainer = M.OffPolicyTrainer(xp_config(M, "spill_replay", dict(uniform)))
+    trainer.env.close()
+    replays = [replay_log(M, RR, trainer, disk["dir"], disk["sizes"], check) for check in (False, True)]
+    checks["replay_digests_equal"] = replays[0]["params_digest"] == replays[1]["params_digest"]
+    checks["replay_rows"] = all(r["rows"] == disk["rows"] and r["torn_segments"] == 0 for r in replays)
+    checks["replay_gather_exact"] = replays[1]["checked_gathers"] == replays[1]["updates"] and replays[1][
+        "max_abs_err"] == 0.0
+    out = {"phase": "spill", "path": "spill_checks", "run": {"gauges": spill_gauges(run), "disk": {
+        k: v for k, v in disk.items() if k != "sizes"}, "iter_ms_median": run["iter_ms_median"],
+        "gather_launches": run["replay_gather_launches"]}, "faulted": faulted,
+        "replay_from_log": replays, "checks": checks}
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"spill checks failed: {checks}")
+    return {
+        "replay_gather": {"spill_hot_pendulum": run["replay_gather_launches"],
+                          "spill_replay_from_log": replays[0]["gather_launches"] + replays[1]["gather_launches"]},
+        "max_abs_err": replays[1]["max_abs_err"],
+    }
+
+
+# -- the session gateway behind the fleet -----------------------------------------
+
+GATEWAY_ITERS = 80        # learns of the gateway run (IMPALA CartPole, chunks [32, 8]), 2 of them warm-up
+GATEWAY_WARM_LEARNS = 3   # learns before the load starts (the first ones count costs and warm the card up)
+GATEWAY_PACING_MS = 200   # each learn at least this long: the run outlasts the load
+GATEWAY_LOAD_S = 10.0     # the load generator's run, from the discovery file's appearance
+GATEWAY_KILL_AT_S = 5.0   # the gateway.session kill_replica, this far into the load
+GATEWAY_PROBE_HZ = 50     # the probe session's acts a second
+
+
+def phase_gateway(M, vtrace, RS, env_source: dict) -> dict:
+    """The session gateway on the card: ``train impala gym:CartPole-v1``
+    (fixture) with 2 thread workers behind 2 replicas and
+    ``topology.gateway.enabled``, each learn paced to at least 200 ms. A
+    tenant side, as a user runs it, finds the gateway through
+    ``<folder>/gateway.json`` and, once the run has learned 3 times,
+    drives it with ``LoadGenerator(default_mix())`` (2 steady tenants, an
+    attach storm, a hot key, act bursts and hostile frames) for 10 s
+    beside a probe
+    session timing its own round trips; 5 s in, a ``gateway.session``
+    ``kill_replica``. Checks: every session the killed replica held
+    migrated (the migrations gauge equals them, none left on a dead
+    replica after the heal), no tenant thread died or timed out, the
+    hostile frames counted and the serve thread never respawned, the
+    replica respawned in place, V-trace once a learn, the discovery file
+    gone at the end. Prints the act round trip p50/p99 server-side and on
+    the probe, the load generator's mean, acts/s and cache hits."""
+    from surreal_tpu_torch.gateway import GatewaySession, GatewayServer
+    from surreal_tpu_torch.gateway.loadgen import LoadGenerator, default_mix
+    from surreal_tpu_torch.utils import faults
+
+    folder = scratch_dir("gateway")
+    pace = [{"site": "trainer.iteration", "kind": "delay", "at": 0, "times": 10**6, "ms": GATEWAY_PACING_MS}]
+    cfg = seed_config(M, dict(name="impala", horizon=CARTPOLE_T, precision="mixed"), "gym:CartPole-v1", 2,
+                      SEED_CARTPOLE_ENVS, "thread", fleet=dict(replicas=2, respawn_backoff_s=0.05))
+    cfg.session_config.folder = folder
+    cfg.session_config.faults = M.Config(plan=pace)
+    topo = cfg.session_config.topology
+    topo.gateway.enabled = True
+    topo.worker_silence_s = 5.0  # the killed replica's workers respawn against a survivor
+    topo.respawn_backoff_s = 0.05
+    trainer = M.SEEDTrainer(cfg)
+    tenant = {}
+    kills, heals = [], []
+
+    def recording_fault(apply):
+        def apply_fault(self, f):
+            if f["kind"] == "kill_replica":
+                # the acting session's replica: the probe's, so the victim
+                # holds at least one long-lived session
+                self._last_replica = tenant["probe_replica"]
+                before = [(r.tenant, r.replica) for r in self.table.records()]
+            apply(self, f)
+            if f["kind"] == "kill_replica":
+                victim = tenant["probe_replica"]
+                srv = self.fleet._replicas[victim]
+                deadline = time.monotonic() + 10
+                while srv.alive and time.monotonic() < deadline:
+                    time.sleep(0.01)  # a serve thread mid-forward ends after close's join
+                kills.append({"at_s": time.monotonic() - tenant["t0"], "dead": [] if srv.alive else [victim],
+                              "sessions_on_dead": sum(1 for _, r in before if r == victim),
+                              "tenants_on_dead": sorted(t for t, r in before if r == victim),
+                              "sessions": len(before), "migrations_before": self.table.migrations})
+        return apply_fault
+
+    def recording_heal(heal):
+        def heal_after_kill(self, sock):
+            heal(self, sock)
+            if kills and not heals:
+                # the first heal after the kill: no session left on a dead replica
+                heals.append(sum(1 for r in self.table.records() if r.replica in kills[0]["dead"]))
+        return heal_after_kill
+
+    def tenant_side():
+        try:
+            path = os.path.join(folder, "gateway.json")
+            deadline = time.monotonic() + 300
+            while not os.path.exists(path):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("no gateway.json")
+                time.sleep(0.05)
+            with open(path) as f:
+                address = json.load(f)["address"]
+            while len(learns) < GATEWAY_WARM_LEARNS:  # the load meets a warm run, as a live deployment's would
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the run never learned")
+                time.sleep(0.05)
+            gen = LoadGenerator(address, tenants=default_mix(), obs_shape=(1, 4), timeout_s=10.0, retries=5)
+            probe = GatewaySession(address, tenant="probe", obs_shape=(1, 4), timeout_s=10.0, retries=5)
+            tenant["probe_replica"] = probe.replica
+            rng = np.random.default_rng(7)
+            rtt = []
+            gen.start()
+            t0 = tenant["t0"] = time.monotonic()
+            tenant["window"] = [time.perf_counter()]
+            while time.monotonic() - t0 < GATEWAY_LOAD_S:
+                if not kills and not tenant.get("kill_at") and time.monotonic() - t0 >= GATEWAY_KILL_AT_S:
+                    tenant["kill_at"] = time.monotonic() - t0
+                    faults.configure(pace + [{"site": "gateway.session", "kind": "kill_replica", "at": 0}])
+                a = time.perf_counter()
+                probe.act(rng.standard_normal((1, 4)).astype(np.float32))
+                rtt.append((time.perf_counter() - a) * 1e3)
+                time.sleep(1.0 / GATEWAY_PROBE_HZ)
+            tenant["report"] = gen.stop()
+            tenant["window"].append(time.perf_counter())
+            tenant["load_s"] = time.monotonic() - t0
+            tenant["probe_ms"] = rtt
+            probe.close()
+        except Exception as e:  # raised on the main thread after the run
+            tenant["error"] = f"{type(e).__name__}: {e}"
+
+    learns = []  # (host clock at the call, the learn's dispatch ms)
+    learn = trainer._learn
+
+    def timed_learn(*args, **kwargs):
+        t = time.perf_counter()
+        out = learn(*args, **kwargs)
+        learns.append((t, (time.perf_counter() - t) * 1e3))
+        return out
+
+    trainer._learn = timed_learn
+    watcher = threading.Thread(target=tenant_side, daemon=True)
+    watcher.start()
+    counters = {"vtrace": (vtrace, 1), "rev_scan": (RS.reverse_linear_scan, 0)}
+    with Patched(GatewayServer, "_apply_fault", recording_fault), Patched(GatewayServer, "_heal", recording_heal):
+        _, timing = timed_run(trainer, counters, 2, GATEWAY_ITERS - 2)
+    watcher.join(timeout=60)
+    if "error" in tenant or "report" not in tenant:
+        raise AssertionError(f"gateway tenant side failed: {tenant.get('error', 'did not finish')}")
+    gateway = trainer._gateway
+    g, m, rep = gateway.gauges(), timing["metrics"], tenant["report"]
+    hops = gateway.hop_stats()
+    probe = tenant["probe_ms"]
+    kill = kills[0] if kills else {}
+    lo, hi = tenant["window"]
+    under = [ms for t, ms in learns[2:] if lo <= t <= hi]
+    after = [ms for t, ms in learns[2:] if t > hi]
+    checks = {
+        "kill_fired": len(kills) == 1 and len(kill["dead"]) == 1 and kill["sessions_on_dead"] >= 1
+        and kill["at_s"] < GATEWAY_LOAD_S,
+        "every_session_migrated": bool(kills) and g["gateway/migrations"] == kill["sessions_on_dead"] + kill[
+            "migrations_before"] and heals == [0],
+        "no_tenant_died": all(t["error"] is None for t in rep["tenants"].values()),
+        "no_timeouts": rep["loadgen/timeouts"] == 0.0,
+        "served": rep["loadgen/acts"] > 0 and g["gateway/acts"] > 0 and g["gateway/cache_hits"] > 0,
+        "hostile_counted": rep["loadgen/hostile_frames"] > 0 and g["gateway/bad_frames"] > 0,
+        "serve_thread_never_died": g["gateway/respawns"] == 0.0,
+        "replica_respawned": m["fleet/respawns"] >= 1.0 and m["fleet/replicas_live"] == 2.0,
+        "discovery_file_gone": not os.path.exists(os.path.join(folder, "gateway.json")),
+    }
+    result = {
+        "phase": "gateway", "path": "gateway_impala_cartpole", "env_source": env_source.get("gym:CartPole-v1"),
+        "workers": 2, "replicas": 2, "chunk": [CARTPOLE_T, SEED_CARTPOLE_ENVS // 2], "learns": GATEWAY_ITERS,
+        "pacing_ms": GATEWAY_PACING_MS, "load_s": tenant["load_s"], "kill_at_s": tenant.get("kill_at"),
+        "kill": kill, "vtrace_launches": timing["vtrace_launches"],
+        "learn_dispatch_ms_under_load": {"median": statistics.median(under) if under else None, "n": len(under)},
+        "learn_dispatch_ms_after_load": {"median": statistics.median(after) if after else None, "n": len(after)},
+        "act_ms_server": hops.get("gateway_act_ms"), "transit_ms": hops.get("gateway_transit_ms"),
+        "attach_ms": hops.get("gateway_attach_ms"),
+        "act_ms_probe": {"p50": float(np.percentile(probe, 50)), "p99": float(np.percentile(probe, 99)),
+                         "n": len(probe)},
+        "act_ms_loadgen_mean": rep["loadgen/act_rtt_ms"], "acts_per_s": rep["loadgen/acts"] / tenant["load_s"],
+        "gateway": g, "loadgen": rep, "fleet": {k: v for k, v in m.items() if k.startswith(("fleet/", "workers/"))},
+        "checks": checks,
+    }
+    emit(result)
+    if not all(checks.values()):
+        raise AssertionError(f"gateway checks failed: {checks}")
+    return {"vtrace": {"gateway_impala_cartpole": timing["vtrace_launches"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -4415,6 +4733,8 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     fleet = phase_fleet(M, ops_gae, ops_vtrace, RS, host["env_source"])
     fanout = phase_fanout(M, ops_gae.gae_advantages_masked, ops_vtrace.vtrace_fused, publish["ppo"]["publish_ms_p50"])
     experience = phase_experience(M, RR, ops_gae, ops_vtrace, RS, host["env_source"])
+    spill = phase_spill(M, RR, host["env_source"])
+    gateway = phase_gateway(M, ops_vtrace.vtrace_fused, RS, host["env_source"])
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
@@ -4425,12 +4745,13 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
                                   "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
                                   **seed["vtrace"], "precision_impala_pong": precision["vtrace_launches"],
-                                  **fleet["vtrace"], **fanout["vtrace"], **experience["vtrace"]}
+                                  **fleet["vtrace"], **fanout["vtrace"], **experience["vtrace"], **gateway["vtrace"]}
     gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"],
                                   "precision_ddpg_lift": precision["replay_gather_launches"],
-                                  **publish["replay_gather"], **experience["replay_gather"]}
+                                  **publish["replay_gather"], **experience["replay_gather"], **spill["replay_gather"]}
     gather["max_abs_err"] = max(gather["max_abs_err"], host["replay_gather_check"]["max_abs_err"],
-                                precision["gather"]["max_abs_err"], experience["replay_gather_check"]["max_abs_err"])
+                                precision["gather"]["max_abs_err"], experience["replay_gather_check"]["max_abs_err"],
+                                spill["max_abs_err"])
     gather["bf16_rows"] = {k: precision["gather"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "row_bytes")}
     gather["hot_tier_rows"] = {k: experience["replay_gather_check"][k]
                                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "row_bytes", "sample_ms")}

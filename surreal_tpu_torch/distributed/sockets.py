@@ -30,6 +30,12 @@ ROUTER/DEALER:
   connected replaces the old connection and closes it (a respawned worker
   reuses its dead predecessor's identity, and a SIGKILLed one never said
   goodbye);
+- a peer whose bytes are not this framing is dropped: an identity frame
+  longer than ``IDENTITY_MAX_BYTES`` (zmq's limit, 255), or, with
+  ``Router(max_frame_bytes=N)``, any frame longer than N (zmq's
+  ``MAXMSGSIZE``), closes its connection and nothing it sent after the
+  last whole frame is delivered. A raw TCP peer writing text or random
+  bytes is dropped at its first four bytes;
 - the ROUTER never blocks: receives are non-blocking behind ``poll`` with
   a timeout, and a reply the kernel cannot take at once waits in the
   connection's buffer until the socket is writable, so a worker that
@@ -110,6 +116,7 @@ _RECV_BYTES = 1 << 20
 _NOBLOCK_SEND_S = 0.1  # a non-blocking DEALER send: what the kernel takes at once, or this long
 _RECONNECT_S = 0.05    # a Req's or reconnecting Dealer's pause between connection attempts
 _RECONNECT_QUEUE = 1000  # a reconnecting Dealer's messages held while no connection is up
+IDENTITY_MAX_BYTES = 255  # a ROUTER peer's first frame, as zmq bounds routing ids
 
 
 class Again(Exception):
@@ -128,23 +135,36 @@ def parse_tcp(address: str) -> tuple[str, int]:
 
 
 class _Frames:
-    """Incremental decoder of length-prefixed frames."""
+    """Incremental decoder of length-prefixed frames. ``limits`` (first
+    frame, later frames; None for no bound) bound the lengths a peer may
+    declare: one above its bound sets ``bad``, and nothing more is
+    decoded."""
 
-    __slots__ = ("_buf", "frames")
+    __slots__ = ("_buf", "frames", "limits", "decoded", "bad")
 
-    def __init__(self):
+    def __init__(self, limits: tuple[int | None, int | None] = (None, None)):
         self._buf = bytearray()
         self.frames: deque[bytes] = deque()
+        self.limits = limits
+        self.decoded = 0
+        self.bad = False
 
     def feed(self, data: bytes) -> None:
+        if self.bad:
+            return
         buf = self._buf
         buf += data
         off = 0
         with memoryview(buf) as view:
             while len(buf) - off >= _LEN.size:
                 (n,) = _LEN.unpack_from(buf, off)
+                limit = self.limits[0 if self.decoded == 0 else 1]
+                if limit is not None and n > limit:
+                    self.bad = True
+                    break
                 if len(buf) - off - _LEN.size < n:
                     break
+                self.decoded += 1
                 self.frames.append(bytes(view[off + _LEN.size:off + _LEN.size + n]))
                 off += _LEN.size + n
         if off:
@@ -256,7 +276,7 @@ class _Server:
         # what arrived before a close is delivered, as zmq delivers it
         while peer.frames.frames:
             self._deliver(peer, peer.frames.frames.popleft())
-        if closed:
+        if closed or peer.frames.bad:
             self._drop(peer)
 
     def _deliver(self, peer: _Peer, payload: bytes) -> None:
@@ -339,10 +359,14 @@ class Router(_Inbox):
     """The server side of ROUTER/DEALER: many identified peers, one
     non-blocking loop."""
 
-    def __init__(self, bind: str = "tcp://127.0.0.1:*"):
+    def __init__(self, bind: str = "tcp://127.0.0.1:*", max_frame_bytes: int | None = None):
         super().__init__()
         self.bind(bind)
         self._routes: dict[bytes, _Peer] = {}
+        self._limits = (IDENTITY_MAX_BYTES, max_frame_bytes)
+
+    def _accepted(self, peer: _Peer) -> None:
+        peer.frames.limits = self._limits
 
     def recv_multipart(self) -> tuple[bytes, bytes]:
         """The oldest waiting (identity, payload); ``Again`` if none."""

@@ -20,9 +20,10 @@ Modules:
               through ``learners/prefetch.py::Prefetcher``; and
               ``TieredSampler``, the device hot tier in front of it;
 - ``plane``   ``ExperiencePlane``: spawn, supervise, respawn with
-              backoff, close, and the ``experience/*`` gauges.
-
-Not ported yet: the disk spill tier (``experience/spill.py``).
+              backoff, close, and the ``experience/*`` and spill
+              ``tier/*`` gauges;
+- ``spill``   the disk spill tier: each ring shard's write-ahead log of
+              cold-encoded segments, and its reader.
 """
 
 from surreal_tpu_torch.experience.plane import ExperiencePlane

@@ -17,9 +17,10 @@ forwards the fault plan on the first spawn of each index only (a
 respawned shard restarts its call counters at zero and would re-fire a
 one-shot kill forever).
 
-Not ported yet, and refused naming the key: the disk spill tier
-(``replay.tiers.spill``) and the ops plane's per-shard push
-(``ops_address``).
+The plane owns the spill tier's sub-config (``replay.tiers.spill``,
+forwarded to every shard, respawns included) and sums the shards' spill
+counters into the ``tier/spill_*`` gauges. Not ported yet, and refused
+naming the key: the ops plane's per-shard push (``ops_address``).
 """
 
 from __future__ import annotations
@@ -39,14 +40,6 @@ from surreal_tpu_torch.distributed import sockets
 from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.net import alloc_address
 from surreal_tpu_torch.utils.respawn import RespawnSchedule
-
-
-def refuse_spill(tiers: Mapping[str, Any] | None) -> None:
-    """``replay.tiers.spill.enabled`` raises, naming the key: the disk
-    spill tier is the next slice of the port."""
-    spill = dict((tiers or {}).get("spill") or {})
-    if spill.get("enabled"):
-        raise NotImplementedError("replay.tiers.spill: the disk spill tier is not ported to PyTorch yet")
 
 
 class ExperiencePlane:
@@ -79,7 +72,6 @@ class ExperiencePlane:
                 "ops_address: the ops plane (per-shard gauge pushes to the run aggregator) is not ported to "
                 "PyTorch yet"
             )
-        refuse_spill(tiers)
         cfg = dict(cfg or {})
         self.kind = kind
         self.num_shards = max(1, int(cfg.get("num_shards", 2)))
@@ -107,6 +99,9 @@ class ExperiencePlane:
             "watermark_timeout_s": float(cfg.get("watermark_timeout_s", 5.0)),
             "fifo_depth": int(cfg.get("fifo_depth", 64)),
         }
+        spill_cfg = dict((tiers or {}).get("spill") or {})
+        if spill_cfg.get("enabled"):
+            self._shard_cfg["spill"] = spill_cfg
         self.addresses = [alloc_address() for _ in range(S)]
         self._stop = threading.Event()
         self._fault_plan_sent: set[int] = set()
@@ -262,14 +257,20 @@ class ExperiencePlane:
             out.update(hot.gauges())
             out["tier/hot_hits"] = float(self.sampler.hot_hits)
             out["tier/hot_misses"] = float(self.sampler.hot_misses)
+        spills = [s for s in stats if s and "spill_segments" in s]
+        if spills:
+            for k in ("spill_segments", "spill_rows", "spill_bytes", "spill_errors", "spill_failed"):
+                out[f"tier/{k}"] = sum(float(s.get(k, 0)) for s in spills)
+            out["tier/cold_bytes_per_row"] = float(np.mean([float(s.get("cold_bytes_per_row", 0.0)) for s in spills]))
         return out
 
     def tier_table(self) -> dict:
-        """Per-shard tier table: each shard's warm fill beside the
-        learner-side hot tier."""
+        """Per-shard tier table: each shard's warm fill beside its spill
+        progress, and the learner-side hot tier."""
         hot = getattr(self.sampler, "hot", None)
         shards = {
-            str(i): {"warm_size": s.get("size", 0), "warm_fill": s.get("fill", 0.0)}
+            str(i): {"warm_size": s.get("size", 0), "warm_fill": s.get("fill", 0.0),
+                     **{k: v for k, v in s.items() if k.startswith("spill_") or k == "cold_bytes_per_row"}}
             for i, s in enumerate(self._stats_cache) if s
         }
         return {

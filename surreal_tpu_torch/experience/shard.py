@@ -36,14 +36,22 @@ or pop (``delay_sample``). A SIGKILLed shard leaks nothing: slab cleanup
 is client-owned (``wire.create_slab``), and the respawned shard binds the
 same address, so its clients re-negotiate in place.
 
+Spill tier (``cfg["spill"]``, the plane's ``replay.tiers.spill``): a
+ring shard builds its ``experience/spill.py`` writer with the ring, on the
+first spec a sender's hello carries, and appends every ingested insert to
+its own ``shard{i}.log`` after the ring (a failing disk degrades the
+writer, counted, never the ring). Its counters join the stats. The writer
+is closed when the serve loop ends, and on SIGTERM in a process shard.
+
 A shard is a host-memory service: it imports torch only for the CPU
 generator and never touches the card (its stats report
-``cuda_initialized``). The reference's disk spill tier and ops-plane push
-are not ported; a ``spill`` entry in the config raises.
+``cuda_initialized``). The reference's ops-plane push is not ported.
 """
 
 from __future__ import annotations
 
+import signal
+import threading
 import time
 from collections import deque
 from typing import Any, Mapping, Sequence
@@ -52,9 +60,13 @@ import numpy as np
 import torch
 
 from surreal_tpu_torch.distributed import sockets
-from surreal_tpu_torch.experience import wire
+from surreal_tpu_torch.experience import spill, wire
 from surreal_tpu_torch.session.telemetry import latency_percentiles
 from surreal_tpu_torch.utils import faults
+
+
+def _raise_system_exit(signum, frame):
+    raise SystemExit(128 + signum)
 
 
 def seeds_from_bytes(buf: bytes, nkeys: int) -> list[int]:
@@ -263,14 +275,19 @@ def run_shard_server(
     fifo_depth). ``untrack_slabs`` is set for PROCESS shards so the
     trainer-side plane owns every unlink (``wire.create_slab``'s rule).
     """
-    if cfg.get("spill") is not None:
-        raise NotImplementedError("replay.tiers.spill: the disk spill tier is not ported to PyTorch yet")
     if fault_plan:
         faults.configure(fault_plan)
 
     kind = cfg.get("kind", "uniform")
     watermark_timeout_s = float(cfg.get("watermark_timeout_s", 5.0))
     ring = build_ring(cfg, None) if kind == "fifo" else None
+    # the spill tier's writer, built with the ring at the first spec; ring
+    # kinds only (fifo chunks carry a spec each, a log holds one)
+    spill_writer = None
+    if stop_event is None and threading.current_thread() is threading.main_thread():
+        # a process shard: SIGTERM (the plane's terminate) unwinds the
+        # serve loop through the finally below, which closes the log
+        signal.signal(signal.SIGTERM, _raise_system_exit)
     peers: dict[bytes, _Peer] = {}
     ingested_rows = 0
     stats = {
@@ -289,7 +306,7 @@ def run_shard_server(
         sock.send_multipart([ident, payload])
 
     def grant(ident: bytes, info: dict) -> None:
-        nonlocal ring
+        nonlocal ring, spill_writer
         peer = peers.setdefault(ident, _Peer())
         if peer.applied:
             # re-hello compaction: a sender re-helloes only after clearing
@@ -312,6 +329,8 @@ def run_shard_server(
         peer.spec = spec
         if ring is None and spec is not None and kind != "fifo":
             ring = build_ring(cfg, spec)
+        if spill_writer is None and spec is not None and kind != "fifo":
+            spill_writer = spill.build_writer(cfg.get("spill"), spec, shard_id)
         requested = info.get("transport", "tcp")
         if requested == "pickle":
             peer.transport = "pickle"
@@ -363,6 +382,11 @@ def run_shard_server(
             ring.insert(peer.spec, rows, n)
         else:
             ring.insert(rows, n)
+        if spill_writer is not None:
+            # after the ring: the ring is the availability tier, and a
+            # failing disk degrades (counted) without stalling ingest; the
+            # codec copies the rows, which may view a transient frame
+            spill_writer.append(rows, n)
         peer.mark_applied(seq)
         ingested_rows += n
         now = time.monotonic()
@@ -432,6 +456,8 @@ def run_shard_server(
         out["cuda_initialized"] = bool(torch.cuda.is_initialized())
         if ring is not None:
             out.update(ring.gauges())
+        if spill_writer is not None:
+            out.update(spill_writer.stats())
         p = latency_percentiles(transit_ms)
         if p is not None:
             out["ingest_transit_ms"] = p
@@ -523,6 +549,8 @@ def run_shard_server(
         # mappings only, the client owns the unlink. A graceful stop also
         # unlinks: a grant the client never attached has no other reaper,
         # and unlink_slab tolerates a segment already gone
+        if spill_writer is not None:
+            spill_writer.close()
         graceful = stop_event is not None and stop_event.is_set()
         for peer in peers.values():
             peer.views = []

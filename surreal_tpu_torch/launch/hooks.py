@@ -243,6 +243,13 @@ class SessionHooks:
         )
 
     @property
+    def fanout(self):
+        """The live ``ParameterFanout`` (None unless
+        ``publish.fanout.enabled``): the gateway's publisher-side holds of
+        pinned versions need it."""
+        return self._fanout
+
+    @property
     def last_metrics(self) -> dict[str, float]:
         """Latest synced train metrics merged with latest eval metrics."""
         return {**self._last_train, **self._last_eval}
@@ -462,6 +469,13 @@ class SessionHooks:
         telemetry event a metrics row; ``diag``'s "Serving tier" section
         renders the last one."""
         self.tracer.event("serving_tier", **info)
+
+    def gateway_event(self, **info) -> None:
+        """Record the session gateway's tenant-facing snapshot (sessions,
+        admission counters, cache hit rate, pinned versions) as one
+        ``gateway`` telemetry event a metrics row; ``diag``'s "Gateway"
+        section renders the last one."""
+        self.tracer.event("gateway", **info)
 
     @property
     def interrupted(self) -> bool:

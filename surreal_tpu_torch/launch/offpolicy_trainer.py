@@ -58,15 +58,27 @@ device hot tier (``replay/tiers.py``) in front of the shards, fed with
 the fold's rows on the card and drawn through the replay gather kernel.
 With ``overlap_rollouts=false`` the training record is the same from run
 to run (the shards defer each sample to its watermark).
+``replay.tiers.spill.enabled`` makes every shard append its ingested
+rows to a write-ahead log (``experience/spill.py``), under
+``<folder>/spill`` unless ``replay.tiers.spill.dir`` names another place.
 
-Not ported yet: the disk spill tier (``replay.tiers.spill``), the
-learner group (``topology.learner_group``), the dp mesh and the
-autotuner.
+Replay from the log (``replay_from_log``): the spill tier's segments, in
+their global ``(seq, shard)`` order, streamed into a ``UniformReplay``
+ring on the trainer's device, with ``updates_per_iter`` sample + learn
+steps after each segment once the ring holds ``start_sample_size`` rows.
+Its draws come from one generator seeded from the session seed (or are
+given), so two runs over one log give equal parameters; on the card each
+sample launches the replay gather kernel.
+
+Not ported yet: the learner group (``topology.learner_group``), the dp
+mesh and the autotuner.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
+import os
 import queue
 from collections import deque
 from typing import Any, Callable, NamedTuple
@@ -78,7 +90,7 @@ from surreal_tpu_torch.engine import (
     EngineConfig, LoopEngine, LoopState, Outcome, StageSpec, overlap_collect, sideband_stages,
 )
 from surreal_tpu_torch.envs import is_jax_env, make_env
-from surreal_tpu_torch.experience.plane import refuse_spill
+from surreal_tpu_torch.experience import wire
 from surreal_tpu_torch.launch.hooks import HOST_METRICS_WINDOW, SessionHooks, host_metrics, training_env_config
 from surreal_tpu_torch.launch.rollout import successor_and_termination
 from surreal_tpu_torch.launch.trainer import derive_seed
@@ -184,7 +196,6 @@ class OffPolicyTrainer:
                 "replay.kind='uniform'|'prioritized'|'remote'"
             )
         if self.remote:
-            refuse_spill(_tiers_config(replay_cfg))
             if config.session_config.topology.get("learner_group", None) is not None:
                 raise NotImplementedError(
                     "session_config.topology.learner_group: the learner group is not ported to PyTorch yet"
@@ -806,6 +817,10 @@ class OffPolicyTrainer:
         cfg = self.config.session_config
         replay_cfg = self.learner.config.replay
         tiers_cfg = _tiers_config(replay_cfg)
+        spill_cfg = dict((tiers_cfg or {}).get("spill") or {})
+        if spill_cfg.get("enabled") and not spill_cfg.get("dir"):
+            # beside telemetry and checkpoints, where replay_from_log finds it
+            tiers_cfg["spill"] = dict(spill_cfg, dir=os.path.join(cfg.folder, "spill"))
         if cfg.checkpoint.get("include_replay", False):
             hooks.log.warning(
                 "checkpoint.include_replay is not supported with replay.kind='remote' (the buffer lives in the "
@@ -989,6 +1004,73 @@ class OffPolicyTrainer:
             if prefetch is not None:
                 prefetch.close()
             plane.close()
+
+    # -- replay from the spill tier's log ------------------------------------
+    def replay_from_log(self, log_path: str, max_updates: int | None = None, state=None, sample_draws=None) -> dict:
+        """Offline training from the spill tier's write-ahead log.
+
+        Reads every ``shard*.log`` under ``log_path`` (or one file) in the
+        global segment order ``(seq, shard)``, streams the rows into a
+        ``UniformReplay`` ring on the trainer's device, and once the ring
+        holds ``start_sample_size`` rows follows each segment with
+        ``updates_per_iter`` sample + learn steps. The draws come from one
+        generator seeded from the session seed, and the parameters from
+        ``learner.init`` on the session seed, so two runs over one log give
+        equal ``params_digest``. ``state`` replaces the initial state and
+        ``sample_draws`` [updates, batch_size] the sample indices (the
+        tests inject JAX's; the DDPG learn draws nothing). On the card each
+        sample launches the replay gather kernel.
+
+        Torn segments are skipped by the reader and counted in
+        ``torn_segments``. Returns {"state", "params_digest", "updates",
+        "rows", "segments", "torn_segments", "metrics"}.
+        """
+        from surreal_tpu_torch.experience.sampler import batch_to_device
+        from surreal_tpu_torch.experience.spill import SpillLog
+        from surreal_tpu_torch.replay.uniform import UniformReplay
+        from surreal_tpu_torch.utils.tree import tree_flatten
+
+        if self.device_mode:
+            raise ValueError("replay-from-log is a host-path mode (the log is written by the remote plane's shard servers)")
+        replay = UniformReplay(Config(gather_impl=self.algo.get("replay_gather", "xla")).extend(self.learner.config.replay))
+        rstate = replay.init(self._replay_example())
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        if state is None:
+            state = self.learner.init(torch.Generator().manual_seed(self.seed))
+        log = SpillLog(log_path)
+        upi = int(self.algo.updates_per_iter)
+        updates = rows = segments = 0
+        metrics: dict = {}
+        for header, flat, n in log.segments():
+            spec = wire.PlaneSpec.from_json(header["spec"])
+            rstate = replay.insert(rstate, batch_to_device(flat, spec, self.device))
+            rows += n
+            segments += 1
+            if not replay.can_sample(rstate):
+                continue
+            done = False
+            for _ in range(upi):
+                if max_updates is not None and updates >= max_updates:
+                    done = True
+                    break
+                rstate, batch, _ = replay.sample(rstate, generator, idx=_step_slice(sample_draws, updates))
+                state, metrics = self.learner.learn(state, batch)
+                updates += 1
+            if done:
+                break
+        digest = hashlib.sha256()
+        for leaf in tree_flatten(state).values():
+            if isinstance(leaf, torch.Tensor):
+                digest.update(leaf.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        return {
+            "state": state,
+            "params_digest": digest.hexdigest(),
+            "updates": updates,
+            "rows": rows,
+            "segments": segments,
+            "torn_segments": int(log.torn_segments),
+            "metrics": {k: float(v.float().mean()) for k, v in metrics.items()},
+        }
 
     def _fresh_init(self, nonce: int):
         """The divergence guard's fallback when no finite checkpoint exists."""

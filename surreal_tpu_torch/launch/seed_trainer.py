@@ -47,9 +47,18 @@ staging thread pops chunks from the shards instead of the server's queue
 and the learner). The relay thread's death is raised on the main thread,
 and the ``experience/*`` gauges ride the metrics row.
 
-Not carried, and refused with ``NotImplementedError`` naming the key: the
-session gateway (``topology.gateway.enabled``), a dp mesh
-(``topology.mesh.dp > 1``) and the learner group
+The session gateway (``topology.gateway.enabled``, with a fleet): a
+``gateway/server.py::GatewayServer`` in front of the fleet serves external
+tenants' sessions while the run trains, acting through
+``InferenceFleet.serve_act`` on the live policy (or a pinned older
+snapshot). Its address goes into ``<folder>/gateway.json`` (an atomic
+rename, unlinked at close), its serve thread is supervised with the
+workers, its ``gateway/*`` gauges ride the metrics row, its hop windows
+join the ``hops`` event, and a ``gateway`` event is written each metrics
+row. It is closed before the fleet.
+
+Not carried, and refused with ``NotImplementedError`` naming the key: a dp
+mesh (``topology.mesh.dp > 1``) and the learner group
 (``topology.learner_group``). DDPG and the trajectory encoder are refused
 with the reference's messages.
 """
@@ -58,6 +67,8 @@ from __future__ import annotations
 
 import copy
 import functools
+import json
+import os
 import queue
 import threading
 import time
@@ -85,11 +96,12 @@ from surreal_tpu_torch.utils.respawn import RespawnSchedule
 _FROM_CONFIG = object()  # sentinel: None is a meaningful max_staleness value
 
 
-def hop_event(server, plane, learn_ms) -> dict:
+def hop_event(server, plane, learn_ms, gateway=None) -> dict:
     """The per-hop latency percentiles of one ``hops`` telemetry event:
     worker step -> frame in flight -> serve batch -> queue dwell -> learn
     (the learn hop measures its dispatch, the span discipline of
-    session/telemetry.py)."""
+    session/telemetry.py). A live gateway adds its act, transit and attach
+    windows."""
     hops = dict(server.hop_stats())
     p = latency_percentiles(list(plane.dwell_ms))
     if p is not None:
@@ -97,6 +109,8 @@ def hop_event(server, plane, learn_ms) -> dict:
     p = latency_percentiles(list(learn_ms))
     if p is not None:
         hops["learn_dispatch_ms"] = p
+    if gateway is not None:
+        hops.update(gateway.hop_stats())
     return hops
 
 
@@ -107,9 +121,6 @@ def _check_topology(topo) -> None:
     def refuse(key: str, what: str):
         raise NotImplementedError(f"session_config.topology.{key}: {what} is not ported to PyTorch yet")
 
-    gateway = topo.get("gateway", None)
-    if gateway is not None and bool(gateway.get("enabled", False)):
-        refuse("gateway.enabled", "the session gateway")
     mesh = topo.get("mesh", None)
     if mesh is not None and int(mesh.get("dp", -1)) > 1:
         refuse("mesh.dp", "a data-parallel SEED learner")
@@ -491,6 +502,7 @@ class SEEDTrainer:
         prefetch = None
         xplane = None
         relay_thread = None
+        gateway = None
         stop = threading.Event()
         try:
             state, iteration, env_steps = hooks.restore(state)
@@ -513,6 +525,7 @@ class SEEDTrainer:
             plane = self._start_data_plane(slots.at(state), stop, first_chunk_timeout=600.0)
             server = self._server = plane.server
             self._workers = plane.workers  # exposed for tests and fault injection
+            gateway = self._start_gateway(server, hooks)
             next_chunk = plane.next_chunk
             if self.experience_plane_enabled:
                 xplane, relay_thread, next_chunk = self._start_relay(plane, stop, hooks)
@@ -587,6 +600,8 @@ class SEEDTrainer:
                 with hooks.tracer.span("param-publish"):
                     server.set_act_fn(acts(ls.state))
                 plane.supervise()
+                if gateway is not None:
+                    gateway.supervise()
                 if not dp_event_emitted:
                     # the negotiated data-plane shape, once the fleet settled
                     data_plane_event()
@@ -600,18 +615,21 @@ class SEEDTrainer:
                     # the relay's gauges as of the last cadence (the wire
                     # poll runs in post_metrics, not every iteration)
                     **(xplane.gauges(poll=False) if xplane is not None else {}),
+                    **(gateway.gauges() if gateway is not None else {}),
                 )
 
                 def post_metrics(m_row):
                     # the hop percentiles ride the metrics cadence (host-side
                     # deques only, no device work)
-                    hooks.tracer.event("hops", **hop_event(server, plane, learn_ms))
+                    hooks.tracer.event("hops", **hop_event(server, plane, learn_ms, gateway))
                     if fleet:
                         # one scale decision a cadence (cooldown-bounded,
                         # from the serve-latency EWMA) and the per-replica
                         # snapshot
                         server.maybe_autoscale()
                         hooks.serving_event(**server.tier_event())
+                    if gateway is not None:
+                        hooks.gateway_event(**gateway.event())
                     if xplane is not None:
                         xplane._poll_stats()
                         hooks.experience_event(**xplane.telemetry_event())
@@ -659,9 +677,54 @@ class SEEDTrainer:
                 prefetch.close()
             if xplane is not None:
                 self._close_relay(xplane, relay_thread, hooks)
+            if gateway is not None:
+                # sessions end with the run; before the fleet, so the gateway
+                # never serves into closed replicas
+                gateway.close()
+                try:
+                    os.unlink(os.path.join(cfg.folder, "gateway.json"))
+                except OSError:
+                    pass  # never written, or already gone
             if plane is not None:
                 plane.close()
             hooks.close()
+
+    def _start_gateway(self, server, hooks):
+        """The session gateway in front of the fleet, under
+        ``topology.gateway.enabled`` (None otherwise, and for a single
+        server, which has no version-aware ``serve_act``), and its
+        discovery file ``<folder>/gateway.json``: written to a temporary
+        name and renamed, since tenants poll it."""
+        gw_cfg = self.config.session_config.topology.get("gateway", None)
+        if gw_cfg is None or not bool(gw_cfg.get("enabled", False)) or not hasattr(server, "serve_act"):
+            return None
+        from surreal_tpu_torch.gateway import GatewayServer
+
+        quotas = gw_cfg.get("tenant_quotas", None)
+        gateway = GatewayServer(
+            server,
+            bind=gw_cfg.get("bind", None),
+            max_sessions=int(gw_cfg.get("max_sessions", 256)),
+            lease_s=float(gw_cfg.get("lease_s", 30.0)),
+            tenant_quotas=quotas.to_dict() if hasattr(quotas, "to_dict") else quotas,
+            act_cache=int(gw_cfg.get("act_cache", 256)),
+            pin_versions=bool(gw_cfg.get("pin_versions", True)),
+            # the hooks' ParameterFanout: a session's pin also holds the
+            # pinned version's full frame publisher-side
+            fanout=hooks.fanout,
+            trace_id=hooks.trace_id,
+            respawn_backoff_s=float(gw_cfg.get("respawn_backoff_s", 0.5)),
+            respawn_backoff_cap_s=float(gw_cfg.get("respawn_backoff_cap_s", 30.0)),
+            span_sink=self._span_sink,
+            trace_sample_n=self._trace_sample_n,
+        )
+        self._gateway = gateway  # exposed for tests
+        hooks.log.info("session gateway live at %s", gateway.address)
+        path = os.path.join(self.config.session_config.folder, "gateway.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump({"address": gateway.address, "lease_s": float(gw_cfg.get("lease_s", 30.0))}, f)
+        os.replace(path + ".tmp", path)
+        return gateway
 
     def _start_relay(self, plane: _DataPlane, stop, hooks):
         """The experience plane's FIFO arm and its relay thread, which ships

@@ -26,8 +26,8 @@ SEED trainer), ``serving_tier`` (the inference fleet),
 (``session/profile.py``) and ``unported`` (the subsystems a session's
 config turns on that the port does not have; see ``launch/hooks.py``).
 The readers also render the reference's event types the port does not
-write yet (gateway, tune, compile cache): a section whose events are
-absent renders nothing.
+write yet (tune, compile cache): a section whose events are absent renders
+nothing.
 
 Causal spans (the SEED path): the inference server head-samples 1 in
 ``telemetry.trace.sample_n`` worker steps (:func:`head_sampled`), emits a

@@ -1,5 +1,6 @@
 """Deterministic fault injection for the trainer, SEED data-plane,
-serving-tier, parameter-service and experience-plane sites, the port of ``surreal_tpu/utils/faults.py``'s registry
+serving-tier, parameter-service, experience-plane, spill-tier and
+gateway sites, the port of ``surreal_tpu/utils/faults.py``'s registry
 (``FaultInjector``, ``configure_from``, ``fire``, ``drain_fired``,
 ``sleep_ms``, ``corrupt_array``, ``FaultInjected``, ``poison_state``,
 ``apply_trainer_fault``).
@@ -48,10 +49,26 @@ port has:
                         ``corrupt_wire_frame``: scramble the frame (the
                         shard counts and drops it, the sender resends);
                         ``drop_frame``: swallow it; ``delay_frame``
+    experience.spill    once per spill-tier segment append
+                        (``experience/spill.py``)
+                        ``truncate_segment``: write only a prefix of the
+                        segment (a crash mid-write; the reader skips the
+                        torn frame by resyncing on the next magic, and
+                        counts it); ``enospc``: raise ENOSPC at the
+                        append (the writer counts the error and degrades,
+                        the ring keeps serving); ``delay_fsync``: sleep
+                        ``ms`` before the fsync
+    gateway.session     once per gateway serve-loop pass
+                        ``drop_frame``: swallow the next act reply (the
+                        client's bounded resend re-serves the same
+                        session and seq); ``kill_replica``: kill the
+                        acting session's bound fleet replica (the gateway
+                        rebinds every session it held to survivors,
+                        counted as migrations); ``delay``: sleep ``ms``
 
 The reference's other sites belong to subsystems the port does not have
-yet (the spill tier, the gateway, the ops plane, causal-span emission,
-the learner group): a plan entry for one of them raises
+yet (the ops plane, causal-span emission, the watchdog, the learner
+group): a plan entry for one of them raises
 ``NotImplementedError`` naming the site. A spawned env worker or
 experience shard starts with an empty registry; its trainer or plane
 forwards the plan to it. ``session_config.faults.plan`` (a list, or a JSON
@@ -85,12 +102,12 @@ SITE_KINDS: dict[str, frozenset[str]] = {
     "experience.shard": frozenset({"kill_shard", "delay"}),
     "experience.sample": frozenset({"delay_sample"}),
     "experience.send": frozenset({"corrupt_wire_frame", "drop_frame", "delay_frame"}),
+    "experience.spill": frozenset({"truncate_segment", "enospc", "delay_fsync"}),
+    "gateway.session": frozenset({"drop_frame", "kill_replica", "delay"}),
 }
 SITES = frozenset(SITE_KINDS)
 # the reference's sites on paths the port does not have yet
-UNPORTED_SITES = frozenset({
-    "experience.spill", "gateway.session", "ops.push", "trace.emit", "watchdog.eval", "lgroup.member",
-})
+UNPORTED_SITES = frozenset({"ops.push", "trace.emit", "watchdog.eval", "lgroup.member"})
 
 
 class FaultInjected(RuntimeError):

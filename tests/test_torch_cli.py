@@ -109,7 +109,7 @@ UNPORTED_OPTIONS = {
     "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
     "session_config.topology.mesh": {"session_config": {"topology": {"mesh": {"dp": 2}}}},
     "session_config.topology.multihost": {"session_config": {"topology": {"multihost": {"coordinator": "h:1"}}}},
-    "experience.spill": {"session_config": {"faults": {"plan": [{"site": "experience.spill", "kind": "enospc"}]}}},
+    "ops.push": {"session_config": {"faults": {"plan": [{"site": "ops.push", "kind": "drop_frame"}]}}},
 }
 
 

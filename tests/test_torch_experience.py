@@ -658,18 +658,12 @@ def test_remote_refusals_name_their_keys(tmp_path):
         OffPolicyTrainer(Config(learner_config=Config(algo=Config(name="ddpg"), replay=Config(kind="remote")),
                                 env_config=Config(name="jax:pendulum", num_envs=4),
                                 session_config=Config(folder=str(tmp_path))).extend(base_config()), device="cpu")
-    spill = _remote_cfg(tmp_path)
-    spill.learner_config.replay.tiers = Config(spill=Config(enabled=True))
-    with pytest.raises(NotImplementedError, match="replay.tiers.spill"):
-        OffPolicyTrainer(spill, device="cpu")
     group = _remote_cfg(tmp_path)
     group.session_config.topology.learner_group = Config(members=1)
     with pytest.raises(NotImplementedError, match="learner_group"):
         OffPolicyTrainer(group, device="cpu")
     with pytest.raises(NotImplementedError, match="ops"):
         ExperiencePlane(kind="fifo", ops_address="tcp://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="replay.tiers.spill"):
-        shard.run_shard_server({"kind": "uniform", "spill": {"enabled": True}}, "tcp://127.0.0.1:1", 0)
     from surreal_tpu_torch.replay import build_replay
 
     with pytest.raises(ValueError, match="experience"):

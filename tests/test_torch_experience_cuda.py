@@ -10,7 +10,11 @@ defined here, so it collects on any machine with the port and a card:
   replay gather kernel make no host sync, and the kernel equals its plain
   version on the hot ring's rows;
 - a remote DDPG run with ``replay.tiers.hot.enabled`` launches the replay
-  gather kernel once per update on a hot hit.
+  gather kernel once per update on a hot hit;
+- with ``replay.tiers.spill.enabled`` its shards write the log, and
+  ``replay_from_log`` over it on the card launches the gather once per
+  update, gives equal digests twice, and with the CPU's draws injected
+  lands within 1% of the CPU's update of every leaf.
 """
 
 import numpy as np
@@ -120,3 +124,52 @@ def test_remote_ddpg_hot_tier_launches_the_gather_once_per_update(tmp_path, monk
     assert hits > 0 and metrics["tier/hot_misses"] == 0.0
     assert RR.gather_rows.launches == hits == K * iters
     assert np.isfinite(metrics["loss/critic"]) and metrics["experience/dropped_rows"] == 0.0
+
+
+def _spill_run_cfg(folder, iters):
+    return Config(
+        learner_config=Config(
+            algo=Config(name="ddpg", horizon=16, updates_per_iter=4, precision="f32",
+                        exploration=Config(warmup_steps=0)),
+            replay=Config(kind="remote", remote_kind="uniform", capacity=4096, start_sample_size=128,
+                          batch_size=128, tiers=Config(spill=Config(enabled=True))),
+        ),
+        env_config=Config(name="gym:Pendulum-v1", num_envs=8),
+        session_config=Config(
+            folder=str(folder), total_env_steps=16 * 8 * iters,
+            metrics=Config(every_n_iters=1, tensorboard=False, console=False),
+            checkpoint=Config(every_n_iters=0), eval=Config(every_n_iters=0),
+            topology=Config(overlap_rollouts=False, experience_plane=Config(num_shards=2, transport="shm")),
+        ),
+    ).extend(base_config())
+
+
+@pytest.mark.cuda
+def test_replay_from_log_on_the_card(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(offpolicy_mod, "make_env", lambda cfg, device: EpisodeStatsWrapper(PushEnv(cfg.num_envs)))
+    cfg = _spill_run_cfg(tmp_path, 4)
+    trainer = offpolicy_mod.OffPolicyTrainer(cfg)
+    _state, metrics = trainer.run()
+    log = str(tmp_path / "spill")
+    outs = []
+    for _ in range(2):
+        RR.gather_rows.launches = 0
+        outs.append(trainer.replay_from_log(log))
+        assert RR.gather_rows.launches == outs[-1]["updates"] > 0
+    assert outs[0]["params_digest"] == outs[1]["params_digest"]
+    assert outs[0]["rows"] == metrics["tier/spill_rows"] == metrics["experience/rows"]
+    # the card against the CPU on one log, the CPU's draws injected
+    cpu = offpolicy_mod.OffPolicyTrainer(cfg, device="cpu")
+    start = cpu.learner.init(torch.Generator().manual_seed(cfg.session_config.seed))
+    draws = torch.randint(0, 128, (outs[0]["updates"], 128), generator=torch.Generator().manual_seed(5),
+                          dtype=torch.int32)
+    want = cpu.replay_from_log(log, state=start, sample_draws=draws)
+    got = trainer.replay_from_log(log, state=trainer.learner.init(torch.Generator().manual_seed(cfg.session_config.seed)),
+                                  sample_draws=draws)
+    for name in ("actor_params", "critic_params"):
+        g, w, s0 = dict(getattr(got["state"], name)), dict(getattr(want["state"], name)), dict(getattr(start, name))
+        for k in w:
+            moved = (w[k] - s0[k]).norm()
+            assert (g[k].cpu() - w[k]).norm() <= 1e-2 * moved, (name, k)

@@ -61,13 +61,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     experience = {
         "experience/__init__.py", "experience/wire.py", "experience/link.py", "experience/shard.py",
         "experience/sender.py", "experience/sampler.py", "experience/plane.py", "replay/tiers.py",
-        "replay/fifo.py",
+        "replay/fifo.py", "experience/spill.py",
+    }
+    gateway = {
+        "gateway/__init__.py", "gateway/protocol.py", "gateway/table.py", "gateway/admission.py",
+        "gateway/server.py", "gateway/loadgen.py",
     }
     publish = {
         "agents/__init__.py", "agents/base.py", "agents/ppo_agent.py", "agents/ddpg_agent.py",
         "distributed/param_service.py", "distributed/module_dict.py", "envs/video.py",
     }
-    wanted = session_runtime | trajectory | host | seed | perf | publish | serving | experience
+    wanted = session_runtime | trajectory | host | seed | perf | publish | serving | experience | gateway
     assert wanted <= scanned, f"not scanned: {sorted(wanted - scanned)}"
     bad = [
         f"{path.relative_to(_REPO)}:{line}: import {root}"
@@ -87,6 +91,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                       if path.parent.name in ("experience", "replay")
                       and any(root == "pickle" for _, root in _imported_roots(path)))
     assert pickling == ["experience/wire.py"], pickling
+    # the gateway unpickles only in its codec, behind the server's session
+    # and transport gate
+    pickling = sorted(str(path.relative_to(_PKG)) for path in (_PKG / "gateway").rglob("*.py")
+                      if any(root in ("pickle", "cloudpickle", "dill", "marshal") for _, root in _imported_roots(path)))
+    assert pickling == ["gateway/protocol.py"], pickling
 
 
 def _tiny_config():

@@ -524,7 +524,6 @@ def test_seed_trainer_refuses_what_it_does_not_carry(tmp_path):
     with pytest.raises(ValueError, match="trajectory"):
         SEEDTrainer(traj, device="cpu")
     for key, over in [
-        ("gateway.enabled", dict(gateway=dict(enabled=True))),
         ("mesh.dp", dict(mesh=dict(dp=2))),
         ("learner_group", dict(learner_group=dict(members=2))),
     ]:

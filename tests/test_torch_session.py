@@ -226,8 +226,8 @@ def test_fault_plans_match_jax(plan):
         return fired, mod.drain_fired(), inj.counts()
 
     assert record(torch_faults, Config) == record(jax_faults, JaxConfig)
-    with pytest.raises(NotImplementedError, match="experience.spill"):
-        torch_faults.configure([{"site": "experience.spill", "kind": "enospc"}])
+    with pytest.raises(NotImplementedError, match="ops.push"):
+        torch_faults.configure([{"site": "ops.push", "kind": "drop_frame"}])
 
 
 # -- checkpoints --------------------------------------------------------------
