@@ -28,9 +28,10 @@ publishing with the processes that consume it (``actor``, ``eval
 parameter fanout with a subscriber process), and the sharded experience
 plane (remote DDPG over shard servers, the device hot tier, SEED's chunk
 relay), the disk spill tier with replay from its log, the session
-gateway with its load generator, and the ops plane with its control loop
+gateway with its load generator, the ops plane with its control loop
 (the aggregator, SLOs, the watchdog, incidents and remediation, on in
-every session as by default). Five kernels are built
+every session as by default), the program autotuner and chaos campaigns.
+Five kernels are built
 and checked. Phases, each printing one JSON line:
 
 1. device  - the card as nvidia-smi and torch name it;
@@ -58,8 +59,8 @@ and checked. Phases, each printing one JSON line:
 5. train   - ``Trainer(config).run`` / ``OffPolicyTrainer(config).run``
              (the session runtime: ``SessionHooks`` around a
              ``LoopEngine``, in a fresh folder, metrics read every
-             iteration, checkpoint and eval off) with four warm-up
-             iterations and eight timed ones (two and four at 'assoc');
+             iteration, checkpoint and eval off) with one warm-up
+             iteration and three timed ones (one and two at 'assoc');
              checks finite metrics and that every iteration launched its
              path's kernels as often as the path says:
              PPO at the north-star geometry (MLP 64x64, jax:lift, 4096
@@ -108,7 +109,7 @@ and checked. Phases, each printing one JSON line:
              card against the CPU, one alternate iteration at 'xla' and at
              'assoc' (the reverse scan); PPO on cheetah-run at the JAX
              package's perf_report.py:672-735 geometry (32 envs x 64
-             steps, 4 x 4, 'mixed'; 2 warm-up and 4 timed iterations)
+             steps, 4 x 4, 'mixed'; 1 warm-up and 3 timed iterations)
              under the alternate loop, with one more iteration whose host
              syncs are counted against its 64 action reads, and under the
              overlap loop; IMPALA and PPO on CartPole (32 x 32); the
@@ -123,7 +124,7 @@ and checked. Phases, each printing one JSON line:
              bit-equal resume; the nut pixels on the card against the CPU,
              bit for bit; PPO on jax:nut_pixels at perf_report.py:441-470's
              geometry (512 envs x 32 steps, 2 x 4, the default NatureCNN,
-             'mixed'; 4 + 8 iterations); and ``train ppo
+             'mixed'; 1 + 3 iterations); and ``train ppo
              dm_control:cheetah-run --num-envs 32`` with the host
              evaluator and checkpoints, then an auto-resume;
 8. seed    - the SEED topology (the probe also reports ale_py and zmq;
@@ -131,7 +132,7 @@ and checked. Phases, each printing one JSON line:
              last lines, which a spawned child runs as __mp_main__): one
              SEED learn on a fixed chunk on the card against the CPU (f32,
              IMPALA on CartPole [32, 8], PPO on cheetah-run [64, 4]);
-             ``SEEDTrainer.run`` with 4 warm-up and 16 timed learns (one
+             ``SEEDTrainer.run`` with 3 warm-up and 6 timed learns (one
              chunk a learn) for PPO on cheetah-run over 4 worker processes
              x 8 envs on shared-memory slabs (perf_report.py:808-816, chunks
              [64, 4], 4 x 4, 'mixed'; GAE once a learn), IMPALA on CartPole
@@ -170,7 +171,7 @@ and checked. Phases, each printing one JSON line:
              and draws, parameters within 1e-5 (the reference's
              'mixed'-vs-'bf16' rule), loss scale 32768, no overflow, GAE
              once each; the north-star through ``Trainer.run`` at
-             'mixed', 'bf16' and 'bf16_fp8' (2 + 4 iterations each, in
+             'mixed', 'bf16' and 'bf16_fp8' (1 + 2 iterations each, in
              turns), with the aten ops counted in an iteration and the
              rollout and the learn each fenced and one learn profiled
              (its launches and device busy time); (b) IMPALA on pong at
@@ -300,8 +301,27 @@ and checked. Phases, each printing one JSON line:
              bit-equal to ``vtrace_fused_plain``; then the north-star PPO
              iteration with the ops plane and its loop on and off, in turns
              on, off, off, on (GAE once an iteration).
+18. tune   - the program autotuner: ``tune ppo jax:lift`` through the CLI
+             at the north-star geometry over the port's space (precision,
+             gae_impl, shuffle; 2 warm-up, 2 throwaway and 4 measured
+             iterations a trial), each trial's ms and launches (GAE once a
+             learn at 'xla', the reverse scan at 'assoc'); the same command
+             again, a pure hit (nothing measured or launched); ``train ppo
+             jax:lift`` with ``algo.autotune=cache`` on that cache for 3
+             iterations, built with the winner, one ``tune`` event in its
+             folder, shown by ``diag``; the default point and the winner
+             through ``Trainer.run`` in turns (default, winner, winner,
+             default; 1 + 3 iterations each); ``tune impala
+             gym:CartPole-v1`` (32 x 32) on the learn surface, V-trace
+             once a learn at 'xla'. Artifacts in a temporary folder.
+19. chaos  - ``chaos all --seeds 3`` through the CLI: one seeded schedule
+             a profile (seed_gateway, seed_experience, ddpg_spill) on the
+             fixture envs, every invariant oracle clean, no failure; per
+             schedule its seconds, faults injected, sites fired and
+             V-trace's launches, once a learn in the SEED profiles.
 
-Then the kernels summary line (each kernel's launches summed over the
+Each phase's line carries ``elapsed_s``, the seconds since the script
+started. Then the kernels summary line (each kernel's launches summed over the
 timed train phases of every path that launches it, itemised under
 ``launches_by_path``), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -353,8 +373,9 @@ SCAN_EDGE_SHAPES = [(1000, 33), (MAIN_T - 1, MAIN_B), (MAIN_T, 5), (PONG_T, PONG
 # GAE's shapes on the host PPO and nut_pixels paths
 HOST_GAE_SHAPES = [(CHEETAH_T, CHEETAH_B), (NUT_T, NUT_B), (CARTPOLE_T, CARTPOLE_B)]
 # a SEED iteration learns one chunk: with 4 pipelined workers a round of
-# the fleet is 8 chunks, so the timed window spans two rounds
-SEED_WARMUP_ITERS, SEED_TIMED_ITERS = 4, 16
+# the fleet is 8 chunks, so the timed window spans one round (two before
+# the script's time limit asked for a cut)
+SEED_WARMUP_ITERS, SEED_TIMED_ITERS = 3, 6  # cut from 4, 8 for the time limit
 # the JAX package's perf_report.py:808-816 SEED geometry: 4 worker
 # processes x 8 envs (the 32-env fleet of host-ppo-cheetah), chunks [64, 4]
 SEED_PPO_WORKERS, SEED_PPO_ENVS = 4, 8
@@ -387,9 +408,9 @@ DDPG_B, DDPG_H, DDPG_K, DDPG_BS = 2048, 16, 64, 256
 DDPG_CAPACITY = 200_000
 DDPG_ROW_SHAPES = {"obs": (17,), "next_obs": (17,), "action": (4,), "reward": (), "discount": ()}
 DDPG_MANY_ROWS = 64 * 256       # uniform sample_many: 64 batches of 256 in one gather
-WARMUP_ITERS, TIMED_ITERS = 4, 8
+WARMUP_ITERS, TIMED_ITERS = 1, 3  # cut from 4, 8 (then 2, 4) to keep the script inside its time limit
 TRAIN_ITERS = WARMUP_ITERS + TIMED_ITERS
-ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS = 2, 4  # the 'assoc' train phases, shorter
+ASSOC_WARMUP_ITERS, ASSOC_TIMED_ITERS = 1, 2  # the 'assoc' train phases, shorter
 SPIN_CYCLES = 1_000_000         # about 0.5 ms of the card's clock, see time_cuda_ms
 KERNEL_SOURCES = ["gae", "vtrace", "replay_rows", "rev_scan"]  # csrc/<name>.cu
 KERNEL_REPLACES = {  # the TPU kernel body each CUDA kernel replaces
@@ -401,6 +422,7 @@ KERNEL_REPLACES = {  # the TPU kernel body each CUDA kernel replaces
 }
 
 _SCRATCH: list[str] = []  # the run's one temporary root, removed at exit
+_T0 = time.perf_counter()
 
 
 def scratch_dir(tag: str) -> str:
@@ -411,6 +433,10 @@ def scratch_dir(tag: str) -> str:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1422,16 +1448,19 @@ def phase_parity_ddpg(Config, base_config, OffPolicyTrainer) -> None:
 
 def device_profile(fn) -> dict:
     """Device busy share and launch count of one call of ``fn``, from a
-    torch.profiler trace: the sum of CUDA kernel times over the fenced
-    host time of the call (the profiler's own overhead lengthens the call,
-    so the share is a lower bound), and the kernels with the most time.
-    Returns {"error": ...} where the trace holds no device time."""
+    torch.profiler trace of CUDA activity only (the CPU ops' events, which
+    nothing here reads, took about half a minute to process at DDPG's
+    67,000 launches an iteration): the sum of CUDA kernel times over the
+    fenced host time of the call (the profiler's own overhead lengthens
+    the call, so the share is a lower bound), and the kernels with the
+    most time. Returns {"error": ...} where the trace holds no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall_ms = fenced_ms(fn)
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1448,7 +1477,7 @@ def device_profile(fn) -> dict:
     }
 
 
-def ddpg_breakdown(trainer, state, reps: int = 2) -> dict:
+def ddpg_breakdown(trainer, state, reps: int = 1) -> dict:
     """After the counted run (these launches are not counted): one
     iteration to fill a fresh ring to its sampling threshold; one
     iteration under torch.cuda.set_sync_debug_mode("error"), which raises
@@ -1544,15 +1573,20 @@ class Patched:
         setattr(self.owner, self.name, self.orig)
 
 
-def run_cli(M, argv: list[str]) -> dict:
-    """``python -m surreal_tpu_torch train ...`` in process; the final
-    metrics line it prints."""
+def cli_lines(M, argv: list[str]) -> list[str]:
+    """``python -m surreal_tpu_torch ...`` in process, rc 0; its stdout lines."""
     out = io.StringIO()
     with redirect_stdout(out):
         rc = M.launch.main(argv)
     if rc != 0:
-        raise AssertionError(f"train CLI exited {rc}")
-    return json.loads(out.getvalue().strip().splitlines()[-1])
+        raise AssertionError(f"{argv[0]} CLI exited {rc}")
+    return out.getvalue().strip().splitlines()
+
+
+def run_cli(M, argv: list[str]) -> dict:
+    """``python -m surreal_tpu_torch ...`` in process; the JSON of the last
+    line it prints (``train``'s final metrics, ``tune``'s summary)."""
+    return json.loads(cli_lines(M, argv)[-1])
 
 
 def session_cli_ppo(M, gae_counters: dict) -> dict:
@@ -1924,7 +1958,7 @@ HOST_ENV_PACKAGES = {"gym:CartPole-v1": ("gymnasium",), "gym:Pendulum-v1": ("gym
 # SEED pixel phase always runs a fixture with jax:pong's specs
 PONG_HOST_ENV = "gym:ALE/Pong-v5"
 FIXTURE_ENV_VAR = "CHIP_SMOKE_FIXTURE_ENVS"  # spawned env workers read it at import
-HOST_WARMUP_ITERS, HOST_TIMED_ITERS = 2, 4
+HOST_WARMUP_ITERS, HOST_TIMED_ITERS = 1, 3  # cut from 2, 4 for the time limit
 
 
 def phase_env_probe() -> dict:
@@ -2093,8 +2127,9 @@ def install_fixture_envs(env_source: dict) -> None:
     import surreal_tpu_torch.launch.offpolicy_trainer as offpolicy_trainer
     import surreal_tpu_torch.launch.seed_trainer as seed_trainer
     import surreal_tpu_torch.launch.trainer as trainer
+    import surreal_tpu_torch.tune.search as tune_search
 
-    patch_make_env(missing, (trainer, offpolicy_trainer, evaluator, seed_trainer, env_worker))
+    patch_make_env(missing, (trainer, offpolicy_trainer, evaluator, seed_trainer, env_worker, tune_search))
     os.environ[FIXTURE_ENV_VAR] = json.dumps(sorted(missing))
 
 
@@ -2854,12 +2889,19 @@ def phase_seed(M, ops_gae, ops_vtrace, RS, env_source: dict) -> dict:
 # -- profiling and cost accounting -------------------------------------------
 
 # run A: iterations 1-8 with the session.profiler window at iteration 3 for
-# 2 (it captures iterations 4 and 5); run B: iterations 9-18 in the same
+# 2 (it captures iterations 4 and 5); run B: iterations 9-14 in the same
 # folder, resumed, profiled through the `profile` subcommand
-PROFILE_ITERS, PROFILE_START, PROFILE_WINDOW, PROFILE_RESUMED_ITERS = 8, 3, 2, 10
+PROFILE_ITERS, PROFILE_START, PROFILE_WINDOW, PROFILE_RESUMED_ITERS = 8, 3, 2, 6  # B cut from 10
 PROFILE_GAUGE_ITERS = (6, 7, 8)  # run A's iterations after the window, timed against the gauges
 COUNT_B, COUNT_T = 256, 32       # the geometry of the card-versus-CPU counts
 TOP_KERNELS = 8
+
+
+# the cost counter off: a run's first iteration is then not counted under
+# the OpCounter (about 14 s at the north-star geometry), for the sessions
+# that time only later iterations; phases train, session, profile and
+# precision's first turns keep it on, as by default
+PERF_OFF = "session_config.perf.enabled=false"
 
 
 def north_star_argv(folder: str, iters: int, *sets: str) -> list[str]:
@@ -3099,7 +3141,7 @@ def phase_profile(M, gae, env_source: dict) -> dict:
 # -- precision: the 'bf16' and 'bf16_fp8' policies -----------------------------
 
 PRECISION_POLICIES = ("mixed", "bf16", "bf16_fp8")
-PRECISION_WARMUP_ITERS, PRECISION_TIMED_ITERS = 2, 4
+PRECISION_WARMUP_ITERS, PRECISION_TIMED_ITERS = 1, 2  # cut from 2, 4 for the time limit
 # the reference's own 'mixed'-vs-'bf16' rule (tests/test_precision.py:289-294)
 PRECISION_PARAM_ATOL = 1e-5
 LS_INIT, LS_MIN = 2.0**15, 1.0  # the loss-scale schedule's defaults
@@ -3185,26 +3227,25 @@ def profiled_learn(trainer, state, kernel_name: str) -> dict:
 
 
 def precision_timed(M, gae) -> dict:
-    """North-star at each policy through ``Trainer.run`` (2 warm-up, 4 timed
-    iterations, one GAE launch each), in turns ('mixed', 'bf16',
-    'bf16_fp8', then back), with the aten ops the cost counter counted in
-    its first iteration and, after the first turn, the rollout and the
-    learn each fenced (three of each) and one learn profiled. A policy's
-    figure is the mean of its two medians."""
+    """North-star at each policy through ``Trainer.run`` (1 warm-up, 2 timed
+    iterations, one GAE launch each), one turn a policy ('mixed', 'bf16',
+    'bf16_fp8'; the turns back were cut for the script's time limit), with
+    the aten ops the cost counter counted in its first iteration and,
+    after the run, the rollout and the learn each fenced once and one
+    learn profiled."""
     rows = {p: {"iter_ms_medians": [], "iter_ms": [], "gae_launches": 0} for p in PRECISION_POLICIES}
-    for turn, precision in enumerate((*PRECISION_POLICIES, *reversed(PRECISION_POLICIES))):
+    for precision in PRECISION_POLICIES:
         cfg = north_star_policy_config(M, precision)
         trainer = M.Trainer(cfg)
         state, timing = timed_run(trainer, {"gae": (gae, 1)}, PRECISION_WARMUP_ITERS, PRECISION_TIMED_ITERS)
         last, row = timing["metrics"], rows[precision]
-        if turn < len(PRECISION_POLICIES):
-            row.update(breakdown(trainer, state, reps=3))
-            row["profiled_learn"] = profiled_learn(trainer, state, "gae")
+        row.update(breakdown(trainer, state, reps=1))
+        row["profiled_learn"] = profiled_learn(trainer, state, "gae")
+        row["counted_ops_per_iter"] = program_ops(cfg.session_config.folder, M.iter_jsonl)
         row["iter_ms_medians"].append(timing["iter_ms_median"])
         row["iter_ms"].append(timing["iter_ms"])
         row["gae_launches"] += timing["gae_launches"]
         row["peak_mem_gb"] = timing["peak_mem_gb"]
-        row["counted_ops_per_iter"] = program_ops(cfg.session_config.folder, M.iter_jsonl)
         row["loss_scale"], row["overflows"] = last.get("precision/loss_scale"), last.get("precision/overflows")
         if precision != "mixed" and row["loss_scale"] != LS_INIT:
             raise AssertionError(f"{precision}: loss scale {row['loss_scale']} after the run")
@@ -3398,7 +3439,7 @@ PUBLISH_MIN_ITERS, PUBLISH_MAX_ITERS = 4, 40  # a live session's iterations: at 
 PUBLISH_ACTOR_ENVS, PUBLISH_ACTOR_EPISODES = 64, 768  # the actor: 64 jax:lift envs, 12 episodes each
 PUBLISH_EVAL_EPISODES = 64
 PUBLISH_CONSUMER_S = 240  # each consumer's --wait, and this script's wait for it to exit
-PUBLISH_TIMED_ITERS = 8  # the on/off timing run: publish every 2nd of 2 warm-up + 8 timed iterations
+PUBLISH_TIMED_ITERS = 4  # the on/off timing run: publish every 2nd of 2 warm-up + 4 timed iterations (cut from 8)
 
 
 def port_process(argv: list[str], log: str) -> subprocess.Popen:
@@ -3662,8 +3703,9 @@ def publish_timing(M, gae) -> dict:
     """The north-star through ``Trainer.run`` with publishing every 2nd
     iteration and no consumer: metrics every iteration (a fence), so each
     iteration's time is fenced; the publishing iterations' median against
-    the others', in one run (2 warm-up, 8 timed: 4 of each)."""
-    cfg = north_star_config(M, scratch_dir("publish_timing"), publish=M.Config(enabled=True, every_n_iters=2))
+    the others', in one run (2 warm-up, 6 timed: 3 of each)."""
+    cfg = north_star_config(M, scratch_dir("publish_timing"), publish=M.Config(enabled=True, every_n_iters=2),
+                            perf=M.Config(enabled=False))
     _, timing = timed_run(M.Trainer(cfg), {"gae": (gae, 1)}, warmup=2, timed=PUBLISH_TIMED_ITERS)
     # iter_ms[i] is iteration i + 2; iterations 2, 4, ... publish
     timed = [(i + 2, ms) for i, ms in enumerate(timing["iter_ms"])][1:]
@@ -3694,7 +3736,7 @@ FLEET_KILL_AT = 40        # the kill: the 41st serve-loop turn of the two replic
 FLEET_PACING_MS = 50      # each kill-run iteration at least this long: the run outlasts the orphan's 2 s budget
 FLEET_KILL_ITERS = 32     # learns of the kill run: IMPALA CartPole chunks [32, 8]
 FLEET_TURNS = (1, 2, 2, 1)  # replicas of the pixels256 runs, in turns
-FLEET_SEED_ITERS = (2, 6)   # warm-up and timed learns of each fleet SEED run (process workers start in ~10 s)
+FLEET_SEED_ITERS = (2, 3)   # warm-up and timed learns of each fleet SEED run (process workers start in ~10 s)
 FANOUT_NS_ITERS = 5       # north-star iterations an arm, each publishing
 FANOUT_PONG_ITERS = 8     # pong iterations an arm
 FANOUT_DROP_AT = 3        # the drop run swallows its 4th frame
@@ -4084,14 +4126,15 @@ def phase_fanout(M, gae, vtrace, publish_ref_ms: float | None) -> dict:
     arms = [("ns_f32_full", "f32", False, None), ("ns_f32_delta", "f32", True, None),
             ("ns_bf16_delta", "bf16", True, None)]
     pong = [("pong_f32_delta_drop", "f32", True, FANOUT_DROP_AT), ("pong_bf16_delta", "bf16", True, None)]
-    argvs = {tag: north_star_argv(scratch_dir(tag), FANOUT_NS_ITERS) for tag, *_ in arms}
+    argvs = {tag: north_star_argv(scratch_dir(tag), FANOUT_NS_ITERS, PERF_OFF) for tag, *_ in arms}
     for tag, *_ in pong:
         argvs[tag] = ["train", "impala", "jax:pong", "--folder", scratch_dir(tag), "--num-envs", str(PONG_B),
                       "--total-steps", str(FANOUT_PONG_ITERS * PONG_B * PONG_T), "--set",
                       f"learner_config.algo.horizon={PONG_T}", "learner_config.algo.precision=mixed",
                       "learner_config.model.cnn.enabled=true", "session_config.metrics.every_n_iters=1",
                       "session_config.checkpoint.every_n_iters=1000", "session_config.eval.every_n_iters=0",
-                      "session_config.metrics.console=false", "session_config.metrics.tensorboard=false"]
+                      "session_config.metrics.console=false", "session_config.metrics.tensorboard=false",
+                      PERF_OFF]
     # every subscriber starts now and waits for its session: their start-up
     # overlaps the sessions before theirs
     subscribers = {tag: start_subscriber(argv[argv.index("--folder") + 1], tag) for tag, argv in argvs.items()}
@@ -4124,11 +4167,11 @@ def phase_fanout(M, gae, vtrace, publish_ref_ms: float | None) -> dict:
 # gym:Pendulum-v1, 8 updates of 256 an iteration from 100,000 rows over 2
 # shards
 XP_B, XP_H, XP_K, XP_BS, XP_CAPACITY, XP_SHARDS = 8, 32, 8, 256, 100_000, 2
-XP_WARMUP_ITERS, XP_TIMED_ITERS = 2, 6
+XP_WARMUP_ITERS, XP_TIMED_ITERS = 2, 4  # cut from 2, 6 for the time limit
 XP_HOT_MIN_FILL = 2 * XP_H * XP_B  # the first request misses (one chunk held), the rest hit
 XP_KILL_AT = 30                    # the kill: each process shard's 31st loop pass
 XP_KILL_ITERS, XP_KILL_PACING_MS = 30, 100
-XP_RELAY_ITERS = (2, 6)
+XP_RELAY_ITERS = (2, 4)
 XP_LOSS_KEYS = ("loss/critic", "loss/actor", "health/grad_norm")
 
 
@@ -4709,7 +4752,7 @@ OPS_TOTAL_STEPS = 1200     # the reference's acceptance run (tests/test_remediat
 OPS_KILL_AT = 40           # its fleet.replica kill_replica, the 41st serve-loop turn of the two replicas
 OPS_WATCHDOG = dict(warmup=4, sustain=1, mad_k=3.0, min_rel=0.2, close_windows=6, capture_cooldown_s=0.0)
 OPS_REMEDIATE = dict(cooldown_s=0.5, verify_windows=2)
-OPS_TURN_ITERS = (1, 3)    # warm-up and timed iterations of each north-star turn, ops on and off
+OPS_TURN_ITERS = (1, 2)    # warm-up and timed iterations of each north-star turn, ops on and off (cut from 1, 3)
 OPS_OFF = dict(ops=dict(enabled=False), slo=dict(enabled=False), watchdog=dict(enabled=False),
                remediate=dict(enabled=False))
 
@@ -4904,7 +4947,8 @@ def ops_on_off(M, gae, RS) -> dict:
     patches, sweeps = timed_sweeps(M)
     for arm in ("on", "off", "off", "on"):
         folder = scratch_dir(f"ops_{arm}")
-        trainer = M.Trainer(north_star_config(M, folder, **(OPS_OFF if arm == "off" else {})))
+        trainer = M.Trainer(north_star_config(M, folder, perf=M.Config(enabled=False),
+                                              **(OPS_OFF if arm == "off" else {})))
         with patches[0], patches[1], patches[2], patches[3]:
             _, timing = timed_run(trainer, counters, *OPS_TURN_ITERS)
         turns.append({"arm": arm, "iter_ms": timing["iter_ms"], "iter_ms_median": timing["iter_ms_median"],
@@ -4931,6 +4975,237 @@ def phase_ops(M, gae, vtrace, RS, env_source: dict) -> dict:
     on_off = ops_on_off(M, gae, RS)
     return {"vtrace": {"ops_seed_impala_cartpole": acceptance["vtrace_launches"]},
             "gae": {f"ops_ppo_lift_{i}_{tr['arm']}": tr["gae_launches"] for i, tr in enumerate(on_off["turns"])}}
+
+
+TUNE_WARMUP, TUNE_ITERS = 2, 4   # a north-star trial: 2 warm-up, 2 throwaway (search.THROWAWAY), 4 measured
+TUNE_IMPALA_ITERS = 8            # the reference's 8 measured learns a trial on the IMPALA learn surface
+TUNE_TURN_ITERS = (1, 3)         # warm-up and timed iterations of each default/winner turn
+TUNE_CACHE_ITERS = 3             # iterations of the cache-mode train session
+CHAOS_SEEDS = 3                  # seed i -> profile i % 3: one schedule a profile
+
+
+def tune_search(M, argv: list[str], wrappers: dict, per_learn) -> dict:
+    """``tune`` through the CLI with every kernel's launch count set to 0
+    just before and read just after, and each trial's own launches, config
+    and ms (``tune.search.measure_point`` wrapped). ``per_learn(point)``
+    gives each kernel's launches a learn at that point: every trial must
+    launch them once a learn of its warm-up, throwaway and measured
+    iterations."""
+    import surreal_tpu_torch.tune.search as search
+
+    trials = []
+
+    def wrap(measure):
+        def counted(config, point, warmup, throwaway, iters, **kw):
+            for w in wrappers.values():
+                w.launches = 0
+            ms = measure(config, point, warmup, throwaway, iters, **kw)
+            trials.append({"config": dict(point), "iter_ms": ms, "learns": warmup + throwaway + iters,
+                           "launches": {n: w.launches for n, w in wrappers.items()}})
+            return ms
+        return counted
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with Patched(search, "measure_point", wrap):
+        row = run_cli(M, argv)
+    seconds = time.perf_counter() - t0
+    for t in trials:
+        want = {n: per_learn(t["config"]).get(n, 0) * t["learns"] for n in wrappers}
+        if t["launches"] != want:
+            raise AssertionError(f"tune trial {t['config']} launched {t['launches']}, expected {want}")
+    if not row["cache_hit"] and [t["iter_ms"] for t in trials] != [t["iter_ms"] for t in row["trials"]]:
+        raise AssertionError("the tune CLI's trials are not the measured ones")
+    return {"row": row, "trials": trials, "seconds": seconds,
+            "launches": {n: sum(t["launches"][n] for t in trials) for n in wrappers}}
+
+
+def tune_turn(M, point: dict, counters: dict) -> dict:
+    """The north-star through ``Trainer.run`` with ``point`` pinned
+    (``timed_run``: metrics every iteration); the trainer and the card's
+    cached blocks are released after it."""
+    import gc
+
+    cfg = M.Config(learner_config=M.Config(algo=M.Config(point))).extend(
+        north_star_config(M, scratch_dir("tune_turn"), perf=M.Config(enabled=False)))
+    trainer = M.Trainer(cfg)
+    _, timing = timed_run(trainer, counters, *TUNE_TURN_ITERS)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timing
+
+
+def phase_tune(M, ops_gae, ops_vtrace, RS, env_source: dict) -> dict:
+    """The program autotuner on the card: ``tune ppo jax:lift`` at the
+    north-star geometry over the port's space (precision, gae_impl,
+    shuffle), each trial's ms and launches (GAE once a learn at 'xla', the
+    reverse scan at 'assoc'); the same command again, a pure hit (nothing
+    measured, nothing launched); ``train ppo jax:lift`` with
+    ``algo.autotune=cache`` on the tuned cache, built with the winner, one
+    ``tune`` event in its folder, rendered by ``diag``; the default point
+    and the winner through ``Trainer.run`` in turns (default, winner,
+    winner, default); then ``tune impala gym:CartPole-v1`` on the learn
+    surface (V-trace once a learn at 'xla'). Artifacts go to a temporary
+    folder."""
+    wrappers = {"gae": ops_gae.gae_advantages_masked, "rev_scan": RS.reverse_linear_scan,
+                "vtrace": ops_vtrace.vtrace_fused}
+    artifact = os.path.join(scratch_dir("tune_out"), "tune.json")
+    folder = scratch_dir("tune_ppo")
+    argv = ["tune", "ppo", "jax:lift", "--folder", folder, "--num-envs", str(MAIN_B), "--set",
+            f"learner_config.algo.horizon={MAIN_T}", "learner_config.algo.epochs=4",
+            "learner_config.algo.num_minibatches=4", "--warmup", str(TUNE_WARMUP), "--iters", str(TUNE_ITERS),
+            "--out", artifact]
+
+    def ppo_learn(point):
+        return {"gae": int(point["gae_impl"] == "xla"), "rev_scan": int(point["gae_impl"] == "assoc")}
+
+    search = tune_search(M, argv, wrappers, ppo_learn)
+    row = search["row"]
+    winner, default = row["config"], row["default"]
+    checks = {
+        "searched": not row["cache_hit"] and row["measured"] == len(search["trials"]) >= 5,
+        "port_space": set(default) == {"precision", "gae_impl", "shuffle"},
+        "assoc_trial": any(t["config"]["gae_impl"] == "assoc" for t in search["trials"]),
+        "on_the_card": row["platform"] == "gpu" and row["device_kind"] == torch.cuda.get_device_name(0),
+    }
+    emit({"phase": "tune", "step": "north_star_search", "num_envs": MAIN_B, "horizon": MAIN_T, "epochs": 4,
+          "num_minibatches": 4, "warmup": TUNE_WARMUP, "iters": TUNE_ITERS, "seconds": search["seconds"],
+          "trials": search["trials"], "default": default, "winner": winner, "default_ms": row["default_ms"],
+          "chosen_ms": row["chosen_ms"], "speedup": row["speedup"], "launches": search["launches"],
+          "checks": checks})
+
+    hit = tune_search(M, argv, wrappers, ppo_learn)
+    checks["pure_hit"] = (hit["row"]["cache_hit"] and hit["row"]["measured"] == 0 and not hit["trials"]
+                          and not any(hit["launches"].values()) and hit["row"]["config"] == winner)
+    emit({"phase": "tune", "step": "north_star_pure_hit", "seconds": hit["seconds"], "cache_hit": hit["row"]["cache_hit"],
+          "measured": hit["row"]["measured"], "launches": hit["launches"]})
+
+    train_folder = scratch_dir("tune_train")
+    counters = {n: (wrappers[n], k * TUNE_CACHE_ITERS) for n, k in ppo_learn(winner).items()}
+    t0 = time.perf_counter()
+    final, launches = count_launches(counters, lambda: run_cli(M, north_star_argv(
+        train_folder, TUNE_CACHE_ITERS, "learner_config.algo.autotune=cache",
+        f"session_config.tuning_cache_dir={folder}/tuning_cache", PERF_OFF)))
+    seconds = time.perf_counter() - t0
+    events = [e for e in M.iter_jsonl(os.path.join(train_folder, "telemetry", "events.jsonl")) if e["type"] == "tune"]
+    diag = "\n".join(cli_lines(M, ["diag", train_folder]))
+    checks["cache_train"] = (len(events) == 1 and events[0]["hit"] is True and events[0]["mode"] == "cache"
+                             and events[0]["config"] == winner and "Autotuner" in diag
+                             and final["time/env_steps"] == TUNE_CACHE_ITERS * MAIN_B * MAIN_T)
+    emit({"phase": "tune", "step": "cache_train", "seconds": seconds, "tune_event": events[0] if events else None,
+          "diag": [ln for ln in diag.splitlines() if "Autotuner" in ln or "tune" in ln.lower()][:4],
+          "launches": launches, "metrics": {k: final[k] for k in sorted(final) if k.startswith(("loss/", "time/"))}})
+
+    turns = []
+    for arm in ("default", "winner", "winner", "default"):
+        point = default if arm == "default" else winner
+        counters = {n: (wrappers[n], k) for n, k in ppo_learn(point).items()}
+        timing = tune_turn(M, point, counters)
+        turns.append({"arm": arm, "config": point, "iter_ms": timing["iter_ms"],
+                      "iter_ms_median": timing["iter_ms_median"],
+                      "gae_launches": timing["gae_launches"], "rev_scan_launches": timing["rev_scan_launches"]})
+    arm_ms = {a: [ms for t in turns if t["arm"] == a for ms in t["iter_ms"]] for a in ("default", "winner")}
+    emit({"phase": "tune", "step": "turns", "turns": turns,
+          "default_range": [min(arm_ms["default"]), max(arm_ms["default"])],
+          "winner_range": [min(arm_ms["winner"]), max(arm_ms["winner"])],
+          "median": {a: statistics.median(v) for a, v in arm_ms.items()},
+          "adopted": winner != default,
+          "holds_beyond_spread": max(arm_ms["winner"]) < min(arm_ms["default"])})
+
+    impala = tune_search(M, [
+        "tune", "impala", "gym:CartPole-v1", "--folder", scratch_dir("tune_impala"), "--num-envs", str(CARTPOLE_B),
+        "--set", f"learner_config.algo.horizon={CARTPOLE_T}", "--warmup", "2", "--iters", str(TUNE_IMPALA_ITERS),
+        "--out", artifact,
+    ], wrappers, lambda p: {"vtrace": int(p["vtrace_impl"] == "xla"), "rev_scan": int(p["vtrace_impl"] == "assoc")})
+    irow = impala["row"]
+    with open(artifact) as f:
+        written = json.load(f)
+    checks["impala_searched"] = (not irow["cache_hit"] and irow["measured"] == len(impala["trials"]) >= 4
+                                 and impala["launches"]["vtrace"] > 0)
+    checks["artifact"] = (len(written["workloads"]) == 2 and written["platform"] == "gpu")
+    emit({"phase": "tune", "step": "impala_search", "env": "gym:CartPole-v1",
+          "env_source": env_source.get("gym:CartPole-v1"), "num_envs": CARTPOLE_B, "horizon": CARTPOLE_T,
+          "seconds": impala["seconds"], "trials": impala["trials"], "default": irow["default"],
+          "winner": irow["config"], "surface": "learn", "launches": impala["launches"], "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"tune checks failed: {checks}")
+    return {
+        "gae": {"tune_ppo_lift": search["launches"]["gae"], "tune_cache_train": launches.get("gae", 0),
+                **{f"tune_turn_{i}_{t['arm']}": t["gae_launches"] for i, t in enumerate(turns)}},
+        "rev_scan": {"tune_ppo_lift": search["launches"]["rev_scan"], "tune_impala_cartpole":
+                     impala["launches"]["rev_scan"], "tune_cache_train": launches.get("rev_scan", 0),
+                     **{f"tune_turn_{i}_{t['arm']}": t["rev_scan_launches"] for i, t in enumerate(turns)}},
+        "vtrace": {"tune_impala_cartpole": impala["launches"]["vtrace"]},
+    }
+
+
+def phase_chaos(M, ops_vtrace, env_source: dict) -> dict:
+    """``chaos all --seeds 3`` through the CLI on the card: one schedule a
+    profile (seed_gateway, seed_experience, ddpg_spill) on the fixture
+    envs, every oracle clean, no failure; per schedule its seconds, the
+    faults injected, the sites fired and V-trace's launches, once a learn
+    in the SEED profiles (``chaos.campaign.run_once`` and
+    ``IMPALALearner.learn`` wrapped to count). The artifact goes to a
+    temporary folder."""
+    import surreal_tpu_torch.chaos.campaign as campaign
+    from surreal_tpu_torch.learners.impala import IMPALALearner
+
+    vtrace = ops_vtrace.vtrace_fused
+    learns = [0]
+    runs = []
+
+    def wrap_learn(learn):
+        def counted(self, *a, **kw):
+            learns[0] += 1
+            return learn(self, *a, **kw)
+        return counted
+
+    def wrap_run_once(run_once):
+        def counted(sched, folder, **kw):
+            vtrace.launches, learns[0] = 0, 0
+            t0 = time.perf_counter()
+            rec = run_once(sched, folder, **kw)
+            delivered = rec.delivered()
+            runs.append({
+                "seed": sched["seed"], "profile": sched["profile"], "seconds": time.perf_counter() - t0,
+                "plan": sched["plan"], "faults_injected": sum(
+                    min(rec.counts.get(e["site"], 0) - e["at"], e.get("times", 1)) for e in delivered),
+                "fired_sites": sorted({e["site"] for e in delivered}), "learns": learns[0],
+                "vtrace_launches": vtrace.launches, "error": rec.error,
+                "final": {k: rec.metrics.get(k) for k in ("time/env_steps", "fleet/replicas_live",
+                                                          "workers/respawns", "fleet/respawns")},
+            })
+            return rec
+        return counted
+
+    out = os.path.join(scratch_dir("chaos_out"), "campaign.json")
+    t0 = time.perf_counter()
+    with Patched(campaign, "run_once", wrap_run_once), Patched(IMPALALearner, "learn", wrap_learn):
+        lines = cli_lines(M, ["chaos", "all", "--seeds", str(CHAOS_SEEDS), "--dir", scratch_dir("chaos"),
+                              "--out", out])
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        artifact = json.load(f)
+    seed_runs = [r for r in runs if r["profile"] != "ddpg_spill"]
+    checks = {
+        "schedules": artifact["gauges"]["chaos/schedules"] == CHAOS_SEEDS == len(runs),
+        "every_profile": {r["profile"] for r in runs} == set(artifact["profiles"]) and len(artifact["profiles"]) == 3,
+        "zero_violations": artifact["gauges"]["chaos/violations"] == 0 and all(
+            s["violations"] == 0 for s in artifact["schedules"]),
+        "no_failures": artifact["failures"] == [] and not any(r["error"] for r in runs),
+        "vtrace_once_a_learn": all(r["vtrace_launches"] == r["learns"] > 0 for r in seed_runs),
+        "faults_injected": artifact["gauges"]["chaos/faults_injected"] > 0,
+    }
+    for r in runs:
+        emit({"phase": "chaos", "step": "schedule", **r,
+              "oracles": next(s["oracles"] for s in artifact["schedules"] if s["seed"] == r["seed"])})
+    emit({"phase": "chaos", "step": "campaign", "seconds": seconds, "gauges": artifact["gauges"],
+          "sites_covered": artifact["sites_covered"], "summary": lines[-1], "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"chaos checks failed: {checks}")
+    return {"vtrace": {f"chaos_{r['profile']}": r["vtrace_launches"] for r in seed_runs}}
 
 
 def main() -> int:
@@ -5030,18 +5305,20 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
     spill = phase_spill(M, RR, host["env_source"])
     gateway = phase_gateway(M, ops_vtrace.vtrace_fused, RS, host["env_source"])
     ops = phase_ops(M, ops_gae.gae_advantages_masked, ops_vtrace.vtrace_fused, RS, host["env_source"])
+    tune = phase_tune(M, ops_gae, ops_vtrace, RS, host["env_source"])
+    chaos = phase_chaos(M, ops_vtrace, host["env_source"])
 
     # each kernel's launches in the timed train phases of every path that
     # launches it (each phase counted from 0 just before it, read just after)
     gae["launches_by_path"] = {"ppo_lift": train["gae_launches"], "trajectory_ppo_pendulum": train_traj["gae_launches"],
                                **host["gae"], **seed["gae"], "profile_ppo_lift": profile["gae_launches"],
                                "precision_ppo_lift": precision["gae_launches"], **publish["gae"], **fleet["gae"],
-                               **fanout["gae"], **experience["gae"], **ops["gae"]}
+                               **fanout["gae"], **experience["gae"], **ops["gae"], **tune["gae"]}
     vtrace["launches_by_path"] = {"impala_pong": train_impala["vtrace_launches"],
                                   "trajectory_impala_cartpole": train_traj_impala["vtrace_launches"], **host["vtrace"],
                                   **seed["vtrace"], "precision_impala_pong": precision["vtrace_launches"],
                                   **fleet["vtrace"], **fanout["vtrace"], **experience["vtrace"], **gateway["vtrace"],
-                                  **ops["vtrace"]}
+                                  **ops["vtrace"], **tune["vtrace"], **chaos["vtrace"]}
     gather["launches_by_path"] = {"ddpg_lift": train_ddpg["replay_gather_launches"], **host["replay_gather"],
                                   "precision_ddpg_lift": precision["replay_gather_launches"],
                                   **publish["replay_gather"], **experience["replay_gather"], **spill["replay_gather"]}
@@ -5056,7 +5333,7 @@ def run_phases(Config, base_config, Trainer, OffPolicyTrainer, ops_gae, RR, RS, 
                                    **publish["replay_scatter"]}
     rev_scan["launches_by_path"] = {"ppo_lift_assoc": train_assoc["rev_scan_launches"],
                                     "impala_pong_assoc": train_impala_assoc["rev_scan_launches"], **host["rev_scan"],
-                                    **seed["rev_scan"]}
+                                    **seed["rev_scan"], **tune["rev_scan"]}
     for k in (gae, vtrace, gather, scatter, rev_scan):
         k["launches"] = sum(k["launches_by_path"].values())
 

@@ -28,7 +28,8 @@ record is the same from run to run.
 Resilience: sample requests are idempotent reads, so a silent shard costs
 bounded, backed-off re-requests; an exhausted budget marks the shard dead
 (revived under the sender's backoff) and its share is refetched from a
-surviving shard: batch composition degrades, availability does not.
+surviving shard, or, when none answers, from the first one the plane
+respawns: batch composition degrades, availability does not.
 
 Priority updates ride a DEDICATED main-thread socket (the sample socket
 belongs to the prefetch thread) as ONE batched PRIO frame per shard per
@@ -402,12 +403,7 @@ class ShardedSampler:
             # degrade composition, not availability: a surviving shard
             # covers the dead shard's share under distinct seeds
             self.refetches += 1
-            got = self._fetch_shard(self.links[alive[0]], [fold_seed(u, REFETCH_FOLD) for u in shard_seeds[s]],
-                                    beta, 0, self.bs_shard)
-            if got is None:
-                raise TimeoutError("experience shard refetch failed")
-            results[s] = got
-            srcs[s] = alive[0]
+            results[s], srcs[s] = self._refetch([fold_seed(u, REFETCH_FOLD) for u in shard_seeds[s]], beta, alive)
         out = []
         for u in range(K):
             parts = [(s, results[s][u]) for s in range(S)]
@@ -418,6 +414,26 @@ class ShardedSampler:
                 batch["is_weights"] = np.concatenate(ws, axis=0)
             out.append((batch, info))
         return out
+
+    def _refetch(self, seeds, beta: float, alive: list[int]):
+        """A dead shard's share and the shard that served it: asked of the
+        shards that answered this iteration first, then of any other back
+        at its address. A survivor can die in its turn between its answer
+        and the refetch (a fault plan that kills every shard at the same
+        loop pass does so): then wait, while the plane respawns the
+        shards, up to ``hello_timeout_s``."""
+        order = [*alive, *(s for s in range(len(self.links)) if s not in alive)]
+        give_up = None
+        while True:
+            for s in order:
+                got = self._fetch_shard(self.links[s], seeds, beta, 0, self.bs_shard)
+                if got is not None:
+                    return got, s
+            if give_up is None:
+                give_up = time.monotonic() + self.hello_timeout_s
+            if (self._stop is not None and self._stop.is_set()) or time.monotonic() >= give_up:
+                raise TimeoutError("experience shard refetch failed")
+            time.sleep(0.25)
 
     def _produce(self):
         """Prefetcher body: wait for the next iteration job, fetch all its

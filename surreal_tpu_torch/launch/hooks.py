@@ -2,7 +2,9 @@
 ``surreal_tpu/launch/hooks.py`` (``SessionHooks``, ``host_metrics``,
 ``training_env_config``): metrics writing, periodic checkpoints with
 keep-best, periodic eval, restore and auto-resume, the interrupt
-sentinel, the divergence guard and live parameter publishing.
+sentinel, the divergence guard, live parameter publishing, and the
+autotuner's ``tune`` event (:meth:`SessionHooks.tune_event`, which the
+trainers call at run start when ``algo.autotune`` is not 'off').
 
 Publishing (``session_config.publish.enabled``): the hooks start a
 ``ParameterPublisher`` and a ``ParameterServer`` (``distributed/param_service.py``),
@@ -106,7 +108,7 @@ def unported_subsystems(session_config) -> list[str]:
     return [name for name, sub in UNPORTED_SUBSYSTEMS.items() if _switch_on(session_config, sub["switch"])]
 
 
-def check_session_options(config, learner=None) -> None:
+def check_session_options(config) -> None:
     """Raise ``NotImplementedError`` naming the key for each session option
     that turns on a subsystem the port does not have (all off by
     default)."""
@@ -125,9 +127,6 @@ def check_session_options(config, learner=None) -> None:
         multihost = topo.get("multihost", None)
         if multihost is not None and multihost.get("coordinator", None):
             refuse("session_config.topology.multihost", "a multi-host topology")
-    algo = learner.config.algo if learner is not None else config.learner_config.get("algo", None)
-    if algo is not None and algo.get("autotune", "off") != "off":
-        refuse("learner_config.algo.autotune", "the program autotuner")
 
 
 class SessionHooks:
@@ -147,7 +146,7 @@ class SessionHooks:
     """
 
     def __init__(self, config, learner, name: str = "train"):
-        check_session_options(config, learner)
+        check_session_options(config)
         self.config = config
         cfg = config.session_config
         os.makedirs(cfg.folder, exist_ok=True)
@@ -547,6 +546,14 @@ class SessionHooks:
         diag, kept out of the gauges); ``calls_per_phase`` how often it runs
         in one span of that phase."""
         return self.costs.count_program(name, fn, *args, phase=phase, calls_per_phase=calls_per_phase, **kwargs)
+
+    def tune_event(self, **info) -> None:
+        """Record the autotuner's build-time decision (mode, cache hit or
+        miss, the chosen config) as one log line and one ``tune``
+        telemetry event, which ``diag`` renders: a session folder answers
+        "which program actually trained?" without reading configs."""
+        self.log.info("autotune: %s", " ".join(f"{k}={v}" for k, v in sorted(info.items())))
+        self.tracer.event("tune", **info)
 
     def data_plane_event(self, **info) -> None:
         """Record the SEED data plane's negotiated shape (transport mix,

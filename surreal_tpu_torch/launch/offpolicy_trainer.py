@@ -103,6 +103,7 @@ from surreal_tpu_torch.ops.precision import LOSS_SCALE_KEYS, torch_dtype
 from surreal_tpu_torch.replay import build_replay
 from surreal_tpu_torch.session.config import Config
 from surreal_tpu_torch.session.telemetry import Tracer
+from surreal_tpu_torch.tune import resolve_autotune
 from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.device import resolve_device
 
@@ -176,6 +177,11 @@ class OffPolicyTrainer:
         self.env = make_env(training_env_config(config.env_config), self.device)
         self.device_mode = is_jax_env(self.env)
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
+        # the program autotuner: the same build-time cache consult as
+        # Trainer's; applied knobs rewrite the learner overrides
+        self.tune_decision = resolve_autotune(config, self.learner.config, self.device)
+        if self.tune_decision.applied:
+            self.learner = build_learner(config.learner_config, self.env.specs, self.device)
         algo = self.learner.config.algo
         self.algo = algo
         replay_cfg = self.learner.config.replay
@@ -439,6 +445,8 @@ class OffPolicyTrainer:
         try:
             state, iteration, env_steps = hooks.restore(state)
             hooks.begin_run(iteration, env_steps)
+            if self.tune_decision.mode != "off":
+                hooks.tune_event(**self.tune_decision.telemetry())
             if not self.device_mode:
                 run_host = self._run_host_remote if self.remote else self._run_host
                 return run_host(total, on_metrics, hooks, state, iteration, env_steps)

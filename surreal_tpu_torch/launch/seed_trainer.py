@@ -95,6 +95,7 @@ from surreal_tpu_torch.learners import TRAINING, build_learner
 from surreal_tpu_torch.learners.aggregator import to_device
 from surreal_tpu_torch.learners.prefetch import Prefetcher
 from surreal_tpu_torch.session.telemetry import LineageReducer, TraceContext, latency_percentiles
+from surreal_tpu_torch.tune import resolve_autotune
 from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.device import resolve_device
 from surreal_tpu_torch.utils.respawn import RespawnSchedule
@@ -301,6 +302,13 @@ class SEEDTrainer:
         self.specs = probe.specs
         probe.close()
         self.learner = build_learner(config.learner_config, self.specs, self.device)
+        # the program autotuner: a host-env SEED workload has no device
+        # iteration, so its search surface is the LEARN program alone
+        # (tune/search.py LEARN_PHASE_DIMS); `tune <algo> <host-env>`
+        # populates exactly this fingerprint
+        self.tune_decision = resolve_autotune(config, self.learner.config, self.device)
+        if self.tune_decision.applied:
+            self.learner = build_learner(config.learner_config, self.specs, self.device)
         if getattr(self.learner, "requires_act_carry", False):
             # the server's micro-batches mix worker slices that advance
             # asynchronously, while the act carry keeps one segment
@@ -516,6 +524,8 @@ class SEEDTrainer:
         try:
             state, iteration, env_steps = hooks.restore(state)
             hooks.begin_run(iteration, env_steps)
+            if self.tune_decision.mode != "off":
+                hooks.tune_event(**self.tune_decision.telemetry())
             self._trace_id = hooks.trace_id
             self._ops_address = hooks.ops.address
             self._span_sink = hooks.tracer

@@ -30,7 +30,12 @@ The reference's guards hold: a trajectory policy (it threads an acting
 carry through the rollout) needs a device env, and a sequence-parallel
 mesh (``topology.mesh.sp > 1``) needs a trajectory policy. Not ported
 yet: the dp/sp meshes (an sp mesh over a trajectory policy raises at
-``rebind_mesh``) and the autotuner.
+``rebind_mesh``).
+
+``algo.autotune`` ('cache' | 'search') is consulted right after the
+learner is built (``tune.resolve_autotune``); a decision that applies
+tuned knobs rebuilds the learner, and ``run`` records it as a ``tune``
+event.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from surreal_tpu_torch.launch.rollout import RolloutCarry, device_rollout, host_
 from surreal_tpu_torch.learners import build_learner
 from surreal_tpu_torch.learners.base import check_scan_unroll
 from surreal_tpu_torch.session.telemetry import Tracer
+from surreal_tpu_torch.tune import resolve_autotune
 from surreal_tpu_torch.utils import faults
 from surreal_tpu_torch.utils.device import resolve_device
 
@@ -89,6 +95,12 @@ class Trainer:
         self.env = make_env(training_env_config(config.env_config), self.device)
         self.device_mode = is_jax_env(self.env)
         self.learner = build_learner(config.learner_config, self.env.specs, self.device)
+        # the program autotuner (tune/): consult the per-workload tuning
+        # cache (or search, algo.autotune='search'); a non-empty decision
+        # rewrites the learner overrides, so rebuild the learner from them
+        self.tune_decision = resolve_autotune(config, self.learner.config, self.device)
+        if self.tune_decision.applied:
+            self.learner = build_learner(config.learner_config, self.env.specs, self.device)
         topo = config.session_config.get("topology", None)
         mesh = topo.get("mesh", None) if topo is not None else None
         if mesh is not None and int(mesh.get("sp", 1)) > 1:
@@ -160,6 +172,8 @@ class Trainer:
         try:
             state, iteration, env_steps = hooks.restore(state)
             hooks.begin_run(iteration, env_steps)
+            if self.tune_decision.mode != "off":
+                hooks.tune_event(**self.tune_decision.telemetry())
             loop = self._device_loop
             if not self.device_mode:
                 loop = self._host_loop_overlap if overlap_collect(cfg) else self._host_loop_alternate

@@ -1,6 +1,7 @@
-"""Experiment launcher, the port of ``surreal_tpu/main/launch.py``'s
-``train``, ``eval`` and ``actor`` subcommands (``build_config``,
-``select_trainer``, ``run_train``, ``run_eval``, ``run_actor``, ``main``):
+"""Experiment launcher, the port of ``surreal_tpu/main/launch.py``
+(``build_config``, ``select_trainer``, ``run_train``, ``run_eval``,
+``run_actor``, ``run_tune``, ``run_chaos``, the offline readers,
+``main``):
 
     python -m surreal_tpu_torch train ppo jax:lift --folder /tmp/exp1
     python -m surreal_tpu_torch train ddpg jax:lift --folder /tmp/exp2 \\
@@ -46,10 +47,18 @@ live session on the card):
     python -m surreal_tpu_torch top /tmp/exp4 [--once]        # live ops snapshot, SLOs, incidents
     python -m surreal_tpu_torch why /tmp/exp4 [--incident N]  # incidents, causes, actions
 
+The program autotuner and chaos campaigns, on the session's backend
+(``tune``) or the card (``chaos``):
+
+    python -m surreal_tpu_torch tune ppo jax:lift --folder /tmp/tuned --num-envs 4096 \\
+        --set learner_config.algo.horizon=256 --iters 4   # search, cache the winner
+    python -m surreal_tpu_torch train ppo jax:lift --folder /tmp/tuned --num-envs 4096 \\
+        --set learner_config.algo.horizon=256 learner_config.algo.autotune=cache
+    python -m surreal_tpu_torch chaos all --seeds 3 --out /tmp/campaign.json
+
 Refused with exit code 2: ``--workers`` with ddpg or a ``jax:`` env (the
 reference's rule and message), and, not ported yet, ``--local-procs``
-(process groups, with the multi-host SEED trainer) and the other
-subcommands (tune, chaos).
+(process groups, with the multi-host SEED trainer).
 """
 
 from __future__ import annotations
@@ -66,7 +75,6 @@ from surreal_tpu_torch.session.default_configs import base_config
 
 PROG = "surreal_tpu_torch"
 ALGOS = ("ppo", "ddpg", "impala")
-UNPORTED_COMMANDS = ("tune", "chaos")
 BACKENDS = {"tpu": "cuda", "cpu": "cpu"}
 
 
@@ -533,10 +541,163 @@ def run_trace(args) -> int:
     return 0
 
 
-def _not_ported(args) -> int:
-    print(f"surreal_tpu_torch: the {args.cmd!r} subcommand is not ported to PyTorch yet; "
-          "use python -m surreal_tpu for it", file=sys.stderr)
-    return 2
+def _parse_dims(spec: str) -> list:
+    """``--dims`` spec -> [(name, [values])]; e.g.
+    ``precision=f32,mixed;gae_impl=xla,assoc``. Values parse as JSON when
+    possible (ints), else stay strings (impl names)."""
+    dims = []
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        name, sep, vals = part.partition("=")
+        if not sep or not vals:
+            raise ValueError(f"--dims entry {part!r} is not name=v1,v2,...")
+        values = []
+        for v in vals.split(","):
+            v = v.strip()
+            try:
+                values.append(json.loads(v))
+            except json.JSONDecodeError:
+                values.append(v)
+        dims.append((name.strip(), values))
+    return dims
+
+
+def _merge_tune_artifact(path: str, row: dict) -> None:
+    """Append/replace ``row`` (keyed by fingerprint) in a shared
+    ``tune`` artifact, atomically: repeated ``tune`` runs against
+    different geometries accumulate into one record instead of
+    clobbering each other. ``device`` and ``platform`` name the device
+    the row was measured on, so a CPU run never passes for a card's."""
+    data = {"metric": "autotune_fused_iter_ms", "workloads": []}
+    try:
+        with open(path) as f:
+            old = json.load(f)
+        if isinstance(old, dict) and isinstance(old.get("workloads"), list):
+            data = old
+    except (OSError, json.JSONDecodeError):
+        pass
+    data["workloads"] = [w for w in data["workloads"] if w.get("key") != row.get("key")] + [row]
+    data["device"] = str(row.get("device_kind"))
+    data["platform"] = str(row.get("platform"))
+    with open(path + ".tmp", "w") as f:
+        json.dump(data, f, indent=2, default=float)
+    os.replace(path + ".tmp", path)
+
+
+def run_tune(args) -> int:
+    """Standalone autotuner run (``tune/``): search this workload's
+    candidate space with fenced chained timing on the session's backend,
+    persist the winner in the per-workload tuning cache, and record a
+    ``tune`` telemetry event (+ optional shared artifact). A second run on
+    the same fingerprint is a PURE cache hit (zero measurements) unless
+    ``--force``; trainers with ``algo.autotune='cache'`` then build with
+    the cached config without paying any search cost."""
+    config = build_config(args)
+    device = backend_device(config.session_config.backend)
+    from surreal_tpu_torch.session.telemetry import Tracer
+    from surreal_tpu_torch.tune import resolve_tuning_cache_dir
+    from surreal_tpu_torch.tune.search import tune_workload
+
+    result = tune_workload(
+        config,
+        dims=_parse_dims(args.dims) if args.dims else None,
+        warmup=args.warmup,
+        iters=args.iters,
+        force=args.force,
+        verbose=True,
+        device=device,
+    )
+
+    fp = result.get("fingerprint", {})
+    summary = {
+        "workload": f"{args.algo} {args.env}",
+        "geometry": (
+            f"{fp.get('env', {}).get('num_envs', args.num_envs)} envs x "
+            f"{fp.get('algo', {}).get('horizon', '?')} horizon"
+        ),
+        "key": result["key"],
+        "cache_hit": result["cache_hit"],
+        "measured": result["measured"],
+        "config": result["config"],
+        "default": result.get("default", {}),
+        "default_ms": result.get("default_ms"),
+        "chosen_ms": result.get("chosen_ms"),
+        "speedup": result.get("speedup"),
+        "platform": result.get("platform"),
+        "device_kind": result.get("device_kind"),
+        "trials": result.get("trials", []),
+    }
+
+    # the tune event lands in the session folder's telemetry, so `diag
+    # <folder>` renders the candidate timings and hit/miss
+    os.makedirs(config.session_config.folder, exist_ok=True)
+    tracer = Tracer(config.session_config.folder, name="tune")
+    tracer.event(
+        "tune",
+        mode="search",
+        key=result["key"],
+        hit=bool(result["cache_hit"]),
+        source="cache" if result["cache_hit"] else "search",
+        cache_dir=resolve_tuning_cache_dir(config.session_config),
+        config=result["config"],
+        default_ms=result.get("default_ms"),
+        chosen_ms=result.get("chosen_ms"),
+        trials=result.get("trials", []),
+    )
+    tracer.close()
+
+    if args.out:
+        _merge_tune_artifact(args.out, summary)
+    print(json.dumps(summary, default=float))
+    return 0
+
+
+def run_chaos(args) -> int:
+    """Randomized chaos campaign (``chaos/``): N seeded multi-site fault
+    schedules executed as short REAL training runs on the card, every run
+    judged by the invariant oracles, failing schedules shrunk to minimal
+    form. Exit 0 only on zero failures."""
+    import tempfile
+
+    from surreal_tpu_torch.chaos import campaign as chaos_campaign
+    from surreal_tpu_torch.chaos import schedule as chaos_schedule
+
+    profiles = [
+        p for p, meta in chaos_schedule.PROFILES.items()
+        if args.algo in ("all", meta["algo"])
+    ]
+    if not profiles:
+        print(f"no chaos profile for algo {args.algo!r} "
+              f"(profiles: {sorted(chaos_schedule.PROFILES)})",
+              file=sys.stderr)
+        return 2
+    base_dir = args.dir or tempfile.mkdtemp(prefix="surreal_chaos_")
+    os.makedirs(base_dir, exist_ok=True)
+    env = args.env if args.env not in (None, "default") else None
+    artifact = chaos_campaign.run_campaign(
+        seeds=args.seeds,
+        base_dir=base_dir,
+        profiles=profiles,
+        env=env,
+        max_shrink_runs=args.max_shrink_runs,
+    )
+    if args.out:
+        chaos_campaign.write_artifact(args.out, artifact)
+        print(f"wrote {args.out}")
+    g = artifact["gauges"]
+    print(f"chaos campaign: {int(g['chaos/schedules'])} schedules, "
+          f"{int(g['chaos/sites_covered'])} sites fired, "
+          f"{int(g['chaos/faults_injected'])} faults injected, "
+          f"{int(g['chaos/violations'])} violations "
+          f"({g['chaos/run_ms'] / 1e3:.1f}s)")
+    for fail in artifact["failures"]:
+        print(f"  FAIL seed={fail['seed']} profile={fail['profile']}: "
+              f"minimal plan {json.dumps(fail['minimal_plan'])} "
+              f"(replay: {PROG} chaos ... --seeds 1 with this "
+              f"(profile, seed))")
+    return 1 if artifact["failures"] else 0
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -641,10 +802,68 @@ def make_parser() -> argparse.ArgumentParser:
                    help="render one incident in full detail (default: "
                    "all, newest last)")
     w.set_defaults(fn=run_why)
-    for name in UNPORTED_COMMANDS:
-        u = sub.add_parser(name, help="not ported to PyTorch yet")
-        u.add_argument("rest", nargs=argparse.REMAINDER)
-        u.set_defaults(fn=_not_ported)
+
+    tu = sub.add_parser("tune", help="autotune a workload's program: "
+                        "search precision/gae_impl/shuffle/vtrace_impl "
+                        "candidates with fenced chained timing and persist "
+                        "the winner in the per-workload tuning cache "
+                        "(trainers apply it via "
+                        "learner_config.algo.autotune='cache'|'search')")
+    tu.add_argument("algo", choices=ALGOS)
+    tu.add_argument("env", help="env with backend prefix; jax:* tunes the "
+                    "device iteration over the full space, host envs "
+                    "(gym:/dm_control:, the SEED fingerprints) tune the "
+                    "learn-phase knobs against the learn program alone")
+    tu.add_argument("--folder", required=True,
+                    help="session directory (tuning cache + telemetry "
+                         "land here unless session_config.tuning_cache_dir"
+                         " points elsewhere)")
+    tu.add_argument("--num-envs", type=int, default=64)
+    tu.add_argument("--set", nargs="*", metavar="KEY=VAL", default=[],
+                    help="dotlist overrides (geometry knobs, "
+                         "session_config.tuning_cache_dir, "
+                         "session_config.backend, ...)")
+    tu.add_argument("--iters", type=int, default=8,
+                    help="measured chained iterations per candidate")
+    tu.add_argument("--warmup", type=int, default=2,
+                    help="unmeasured warm-up iterations per candidate")
+    tu.add_argument("--dims", default=None,
+                    help="restrict the search space, e.g. "
+                         "'precision=f32,mixed;gae_impl=xla,assoc' "
+                         "(default: the full declared space, tune/space.py)")
+    tu.add_argument("--force", action="store_true",
+                    help="re-measure even on a cache hit")
+    tu.add_argument("--out", default=None,
+                    help="merge the result into a shared tune artifact "
+                         "(keyed by fingerprint)")
+    tu.set_defaults(fn=run_tune, total_steps=None, restore_from=None,
+                    workers=None)
+
+    c = sub.add_parser("chaos", help="randomized chaos campaign: N "
+                       "seeded multi-site fault schedules run as short "
+                       "real training sessions on the card, judged by the "
+                       "run-wide invariant oracles (chaos/invariants.py); "
+                       "failing schedules are shrunk to minimal "
+                       "reproducers")
+    c.add_argument("algo", choices=("impala", "ddpg", "all"),
+                   help="which campaign profiles to run (profile algo "
+                   "family; 'all' interleaves every profile)")
+    c.add_argument("env", nargs="?", default="default",
+                   help="env name override for every profile "
+                   "(default: each profile's own env)")
+    c.add_argument("--seeds", type=int, default=25,
+                   help="number of seeded schedules (seed i -> "
+                   "profile i %% len(profiles); intensity ramps with "
+                   "seed %% 3)")
+    c.add_argument("--out", default=None,
+                   help="write the campaign artifact JSON here")
+    c.add_argument("--dir", default=None,
+                   help="scratch dir for the runs' session folders "
+                   "(default: a fresh temp dir)")
+    c.add_argument("--max-shrink-runs", type=int, default=12,
+                   help="re-run budget per failing schedule for the "
+                   "greedy shrinker")
+    c.set_defaults(fn=run_chaos)
     return parser
 
 

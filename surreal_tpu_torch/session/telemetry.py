@@ -26,9 +26,12 @@ SEED trainer), ``serving_tier`` (the inference fleet),
 (``session/profile.py``), and the ops plane's ``ops_snapshot``,
 ``ops_flightrec``, ``slo_breach``, ``incident_open``/``_update``/``_close``,
 ``remediation`` and ``remediation_verdict`` (``session/opsplane.py``,
-``slo.py``, ``incidents.py``, ``remediate.py``). The readers also render
-the reference's event types the port does not write yet (tune, compile
-cache): a section whose events are absent renders nothing.
+``slo.py``, ``incidents.py``, ``remediate.py``), the autotuner's
+``tune`` (``launch/hooks.py::SessionHooks.tune_event`` and the ``tune``
+subcommand) and a chaos campaign's ``chaos_campaign`` and
+``chaos_violation`` (``chaos/campaign.py``). The readers also render the
+reference's compile-cache events, which the port does not write: a
+section whose events are absent renders nothing.
 
 Causal spans (the SEED path): the inference server head-samples 1 in
 ``telemetry.trace.sample_n`` worker steps (:func:`head_sampled`), emits a

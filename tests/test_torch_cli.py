@@ -86,12 +86,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
     base = ["train", "ppo", "jax:lift", "--folder", str(tmp_path)]
     assert torch_launch.main(base + ["--workers", "2"]) == 2
     assert torch_launch.main(base + ["--local-procs", "2"]) == 2
-    for cmd in torch_launch.UNPORTED_COMMANDS:
-        assert torch_launch.main([cmd, str(tmp_path)]) == 2
     assert "not ported" in capsys.readouterr().err
     # eval and actor are ported: on a folder with no session they exit 2
     # with the reference's message, not with "not ported"
-    assert not {"eval", "actor", "top", "why"} & set(torch_launch.UNPORTED_COMMANDS)
     assert torch_launch.main(["eval", str(tmp_path)]) == 2
     assert torch_launch.main(["actor", "--folder", str(tmp_path), "--wait", "0"]) == 2
     err = capsys.readouterr().err
@@ -105,7 +102,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
 
 UNPORTED_OPTIONS = {
     "session_config.compile_cache_dir": {"session_config": {"compile_cache_dir": "xla_cache"}},
-    "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
     "session_config.topology.mesh": {"session_config": {"topology": {"mesh": {"dp": 2}}}},
     "session_config.topology.multihost": {"session_config": {"topology": {"multihost": {"coordinator": "h:1"}}}},
     "lgroup.member": {"session_config": {"faults": {"plan": [{"site": "lgroup.member", "kind": "kill_member"}]}}},
@@ -140,6 +136,7 @@ PORTED_OPTIONS = {
         "metrics": {"every_n_iters": 1, "tensorboard": False}}},
     "env_config.video": {"env_config": {"video": {"enabled": True, "dir": "v"}},
                          "session_config": {"eval": {"every_n_iters": 1, "episodes": 2, "max_steps": 6}}},
+    "learner_config.algo.autotune": {"learner_config": {"algo": {"autotune": "cache"}}},
     "watchdog.eval": {"session_config": {
         "faults": {"plan": [{"site": "watchdog.eval", "kind": "drop_eval"}]},
         "metrics": {"every_n_iters": 1, "tensorboard": False}}},
@@ -154,7 +151,9 @@ def test_formerly_unported_session_option_trains(key, tmp_path):
     one full frame (its ``param/*`` gauges in the metrics row); video
     records the eval episode of the device env (reset frame, 6 steps); the
     watchdog's fault site drops the first sweep, counted and written as a
-    ``fault`` event."""
+    ``fault`` event; the autotuner in 'cache' mode on an empty cache
+    builds with the defaults and records its miss as one ``tune``
+    event."""
     over = PORTED_OPTIONS[key]
     if key == "env_config.video":
         over = {**over, "env_config": {"video": {**over["env_config"]["video"], "dir": str(tmp_path / "v")}}}
@@ -162,6 +161,9 @@ def test_formerly_unported_session_option_trains(key, tmp_path):
     events = list(_iter_jsonl(os.path.join(tmp_path, "telemetry", "events.jsonl")))
     if key == "env_config.video":
         assert [f.split(".")[0] for f in os.listdir(tmp_path / "v")] == ["episode_000000"]
+    elif key == "learner_config.algo.autotune":
+        (event,) = [e for e in events if e["type"] == "tune"]
+        assert (event["mode"], event["hit"], event["source"], event["config"]) == ("cache", False, "default", {})
     elif key == "watchdog.eval":
         assert [e["site"] for e in events if e["type"] == "fault"] == ["watchdog.eval"]
         (row,) = [e["values"] for e in events if e["type"] == "metrics"]

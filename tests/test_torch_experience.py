@@ -455,6 +455,31 @@ def test_delay_sample_fault_is_absorbed():
         faults.configure(None)
 
 
+def test_refetch_outlives_a_survivor_that_dies_in_turn():
+    """Shard 1 is down; shard 0 serves its own share, then fails the
+    refetch of shard 1's share once (it died in its turn) and answers the
+    next ask: the fetch waits for it instead of raising, and the
+    refetched share is sourced from shard 0."""
+    plane = _make_plane(transport="tcp", shards=2)
+    try:
+        sampler = plane.sampler
+        wm = plane.sender.send_rows(_rows(np.random.default_rng(6)), np.arange(12) % 4)
+        sampler.links[1].schedule_backoff(600.0, 600.0)  # down, and not due for revival in this test
+        real, asks = sampler._fetch_shard, []
+
+        def survivor_dies_once(link, *a):
+            asks.append(link.shard_id)
+            return None if len(asks) == 1 else real(link, *a)
+
+        sampler._fetch_shard = survivor_dies_once
+        batch, info = sampler.fetch_batch(0, 0.0, [wm[0], 0])
+        assert batch["obs"].shape == (16, 3)
+        assert info["shard_src"] == {0: 0, 1: 0} and sampler.refetches == 1
+        assert asks == [0, 1, 0]
+    finally:
+        plane.close()
+
+
 def test_killed_thread_shard_respawns_and_clients_renegotiate():
     """A kill_shard fault ends a thread shard; the supervisor respawns it at
     the same address and the sender's and sampler's DEALERs reconnect and
